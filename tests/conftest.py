@@ -29,3 +29,8 @@ try:
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 except Exception:
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (run on the GPU)")
