@@ -7,16 +7,29 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from sequoia_torch/csrc (nvcc);
   3. kernels: each kernel against its plain PyTorch version at the shapes
-     of the main path, with device times (CUDA graphs of many launches,
-     timed with CUDA events), the least time the card could take, and the
-     time of one PyTorch library call where one computes the same function;
-  4. small parity: test-small, f32, on the card: greedy speculative
-     decoding equals greedy AR token for token, the kernel forward equals
-     the CPU forward, and all four algorithms run;
+     of the main paths (the quant matmuls at every 7B projection shape and
+     the lm_head, R in {1, 64, 128}), with device times (CUDA graphs of many
+     launches, timed with CUDA events), the least time the card could take,
+     and the time of one PyTorch library call where one computes the same
+     function; and the host time of one quantized projection call against
+     one torch.matmul on the bf16 weight;
+  4. small parity: test-small, f32, on the card, with an f32, an int8 and
+     an int4 target: greedy speculative decoding equals greedy AR token for
+     token, the kernel forward equals the CPU forward, and (f32) all four
+     algorithms run; then bf16 int8 and int4 targets, whose card forward
+     (the tensor-core kernels at 24 and 21 rows) equals the CPU forward;
   5. full width: llama-68m -> llama-2-7b, bf16, random weights (seeded),
      the planned 64-node growmap, max_length 256, 4 synthetic 128-token
      prompts, T=0.6, P=0.9: the stochastic AR baseline and Sequoia through
-     the testbed's entry points, with launch counts of every kernel.
+     the testbed's entry points, with launch counts of every kernel;
+  6. the same with the target quantized to int8, then int4 (weight-only;
+     each quant kernel must launch on both entry points);
+  7. the width curve of each target precision (planner/profile.py, device
+     time of one split-mode forward at widths 1..128) and the 68m draft's
+     at width 8, and the tree the planner DP picks from each curve; beside
+     it, the host time to issue one eager forward at widths 1 and 64. Each
+     curve is measured right after its path's launches are read, before
+     that target is freed.
 
 Prints the kernels JSON line and the card line before the last line, and
 ends with one JSON line {"ok": true, "device": {...}}. Exits non-zero,
@@ -87,6 +100,24 @@ def device_ms(fns, replays: int = 25) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times) / len(fns)
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call, in µs: the median of 5 loops of `n` calls,
+    each loop issued without synchronizing (the device runs behind; `n`
+    calls stay well inside the launch queue, so the host never waits)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        samples.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
 
 
 # ---------------------------------------------------------------------------
@@ -265,49 +296,189 @@ def check_top_p(torch, gm, results):
                                 bound_ms=bound, bound_by=by, library_ms=None))
 
 
+QMM_SHAPES = [  # (K, N, out): the 7B projections and the f32-logit lm_head
+    (4096, 4096, "bf16"), (4096, 11008, "bf16"), (11008, 4096, "bf16"), (4096, 32000, "f32")]
+QMM_REPORT = (64, 4096, 11008)   # the shape of the kernels line: verify, MLP up
+
+
+def qmm_bound(R, K, N, bits, x_item, out_item):
+    """Least time: the packed weight, x, the output and the scale move
+    once; 2*R*K*N operations at the bf16 tensor-core peak."""
+    nbytes = K * N * bits // 8 + R * K * x_item + R * N * out_item + N * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * R * K * N / PEAK_FLOPS["bf16"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_quant_matmul(torch, results):
+    """Both quant kernels against their plain version at every 7B shape, R
+    in {1, 64, 128}, bf16 x (plus one f32-x case each). Timing cycles
+    through enough weight matrices that a pass exceeds the 50 MB L2. The
+    library yardstick is torch.matmul on the dequantized bf16 weight (cuBLAS,
+    twice the int8 bytes), and torch._weight_int8pack_mm for int8 where the
+    installed PyTorch has it on CUDA."""
+    from sequoia_torch.kernels import quant_matmul as qm
+    from sequoia_torch.quant import qtensor
+    from sequoia_torch.quant.qtensor import QuantizedTensor, dequantize
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    int8pack = hasattr(torch, "_weight_int8pack_mm")
+    for bits in (8, 4):
+        name = f"quant_matmul_int{bits}"
+        cases = [(R, K, N, "bf16", out) for K, N, out in QMM_SHAPES for R in (1, 64, 128)]
+        cases.append((64, 4096, 4096, "f32", "f32"))
+        for R, K, N, xs, outs in cases:
+            x_dt = torch.bfloat16 if xs == "bf16" else torch.float32
+            out_dt = torch.bfloat16 if outs == "bf16" else torch.float32
+            wbytes = K * N * bits // 8
+            n = max(2, -(-150_000_000 // wbytes))
+            Kq = K if bits == 8 else K // 2
+            qs = [torch.randint(-128, 128, (Kq, N), generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(n)]
+            ss = [torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001
+                  for _ in range(n)]
+            x = torch.randn(R, K, generator=gen, device="cuda").to(x_dt)
+            got = qm.quant_matmul(x, qs[0], ss[0], bits=bits, out_dtype=out_dt)
+            want = qm.quant_matmul_plain(x, qs[0], ss[0], bits=bits, out_dtype=out_dt)
+            torch.cuda.synchronize()
+            tol = 2e-2 if out_dt == torch.bfloat16 else 1e-4
+            peak = want.float().abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.isfinite(got).all() or not torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol * peak):
+                fail(f"{name} R={R} K={K} N={N} x {xs} out {outs} disagrees with its "
+                     f"plain version: max |err| {err} (tol {tol} x max|plain| {peak})")
+            kern = [lambda i=i: qm.quant_matmul(x, qs[i], ss[i], bits=bits, out_dtype=out_dt)
+                    for i in range(n)]
+            plain = [lambda i=i: qm.quant_matmul_plain(x, qs[i], ss[i], bits=bits,
+                                                       out_dtype=out_dt) for i in range(n)]
+            ms, plain_ms = device_ms(kern, replays=10), device_ms(plain, replays=3)
+            lib_ms = pack_ms = host = None
+            if xs == "bf16":
+                deq = [dequantize(QuantizedTensor(qs[i], ss[i]), K, torch.bfloat16)
+                       for i in range(n)]
+                lib_ms = device_ms([lambda i=i: torch.matmul(x, deq[i]) for i in range(n)],
+                                   replays=10)
+                if R == 1:   # the model's call on each weight kind, as one AR step makes it
+                    mm_out = None if outs == "bf16" else torch.float32
+                    wq = QuantizedTensor(qs[0], ss[0])
+                    host = (host_us(lambda: qtensor.matmul(x, wq, out_dtype=mm_out)),
+                            host_us(lambda: qtensor.matmul(x, deq[0], out_dtype=mm_out)))
+                del deq
+                if bits == 8 and int8pack:
+                    qt = [q.T.contiguous() for q in qs]
+                    st = [s.reshape(-1).to(torch.bfloat16) for s in ss]
+                    try:
+                        torch._weight_int8pack_mm(x, qt[0], st[0])
+                    except (RuntimeError, NotImplementedError) as e:
+                        int8pack = False
+                        log(f"  torch._weight_int8pack_mm is not available on CUDA here: "
+                            f"{str(e).splitlines()[0][:100]}")
+                    else:
+                        pack_ms = device_ms([lambda i=i: torch._weight_int8pack_mm(
+                            x, qt[i], st[i]) for i in range(n)], replays=10)
+                    del qt, st
+            bound, by = qmm_bound(R, K, N, bits, x.element_size(), got.element_size())
+            log(f"  {name} R={R} K={K} N={N} x {xs} out {outs}: max|err| {err:.3g} "
+                f"(tol {tol} x {peak:.3g}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"cuBLAS bf16 dequantized {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
+                + (f"  _weight_int8pack_mm {pack_ms:.4f} ms" if pack_ms is not None else "")
+                + f"  bound {bound:.5f} ms ({by}, {ms / bound:.2f}x)"
+                f"  [{n} weights cycled]"
+                + (f"; host µs per qtensor.matmul call: quantized {host[0]:.1f}, "
+                   f"bf16 weight {host[1]:.1f}" if host is not None else ""))
+            if (R, K, N) == QMM_REPORT and xs == "bf16":
+                results.append(dict(
+                    name=name, route="cuda", source="sequoia_torch/csrc/quant_matmul.cu",
+                    replaces=f"sequoia_tpu/kernels/quant_matmul.py:{85 if bits == 8 else 125}",
+                    shape=f"R={R} K={K} N={N} x bf16 out bf16 (verify, MLP up)",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms))
+            del qs, ss, kern, plain
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: small parity on the card
 # ---------------------------------------------------------------------------
 
+def tree_to(t, dev):
+    """A params tree (nested NamedTuples of tensors) on `dev`."""
+    if hasattr(t, "to") and not isinstance(t, tuple):
+        return t.to(dev)
+    return type(t)(*(tree_to(x, dev) for x in t))
+
+
 def small_parity(torch):
+    """test-small on the card. f32 x with an f32, an int8 and an int4 target
+    (the quantized weights run the f32-x path of the quant kernels); then
+    bf16 int8 and int4 targets (the tensor-core path of every 7B
+    projection), forward only."""
     from sequoia_torch.core.config import get_config
     from sequoia_torch.core.init import random_params
-    from sequoia_torch.core.model import LayerParams, LlamaParams, forward
-    from sequoia_torch.engine.baseline import ARBaseline
-    from sequoia_torch.engine.engine import SpecEngine
-    from sequoia_torch.kvcache.cache import KVCache
-    from sequoia_torch.ops import masks
+    from sequoia_torch.quant.quantize import random_quantized_model
     from sequoia_torch.trees.growmap import uniform_tree
-    import numpy as np
 
     cfg = get_config("test-small")
     draft = random_params(cfg, 7, dtype=torch.float32, device="cuda")
-    target = random_params(cfg, 8, dtype=torch.float32, device="cuda")
+    for kind in ("f32", "int8", "int4"):
+        target = (random_params(cfg, 8, dtype=torch.float32, device="cuda") if kind == "f32"
+                  else random_quantized_model(cfg, 8, bits=int(kind[3:]),
+                                              dtype=torch.float32, device="cuda"))
+        worst, _ = forward_card_vs_cpu(torch, cfg, target, torch.float32, 32, uniform_tree(2, 2))
+        if worst > 1e-4:
+            fail(f"test-small {kind} forward on the card differs from the CPU: {worst}")
+        log(f"  {kind} target: forward card vs CPU (test-small f32 x, prefill 32 + verify 7): "
+            f"max|err| {worst:.3g} (tol 1e-4)")
+        greedy_parity(torch, cfg, draft, target, kind)
+    # bf16: prefill 24 and a 21-node verify, both in the 17..32-row tile.
+    for bits in (8, 4):
+        target = random_quantized_model(cfg, 8, bits=bits, dtype=torch.bfloat16, device="cuda")
+        worst, peak = forward_card_vs_cpu(torch, cfg, target, torch.bfloat16, 24,
+                                          uniform_tree(2, 4))
+        # bf16 activations round differently on the two devices (int8 read
+        # 6.5e-3 x max|CPU logits| on an H100): about twice that reading.
+        tol = 1.5e-2
+        if worst > tol * peak:
+            fail(f"test-small bf16 int{bits} forward on the card differs from the CPU: "
+                 f"max|err| {worst} > {tol} x max|CPU| {peak}")
+        log(f"  int{bits} target, bf16: forward card vs CPU (prefill 24 + verify 21): "
+            f"max|err| {worst:.3g} (tol {tol} x max|CPU logits| {peak:.3g})")
 
-    # Kernel forward (card) == plain forward (CPU), prefill then verify.
-    to_cpu = lambda p: LlamaParams(p.embed.cpu(), LayerParams(*(x.cpu() for x in p.layers)),
-                                   p.final_norm.cpu(), p.lm_head.cpu())
-    target_cpu = to_cpu(target)
-    worst = 0.0
-    for dev, params in (("cuda", target), ("cpu", target_cpu)):
-        kv = KVCache.init(cfg, 64, torch.float32, dev)
-        toks = torch.arange(10, 42, device=dev)
-        pos = torch.arange(32, device=dev)
-        lg1, _ = forward(params, cfg, toks, pos, kv, 0, masks.causal_mask(32, 64, 0, dev))
-        anc = torch.as_tensor(uniform_tree(2, 2).ancestors, device=dev)
-        main, scr = masks.split_tree_masks(anc, 32, 64, root_in_main=False)
-        scratch = KVCache.init(cfg, anc.shape[0], torch.float32, dev)
-        lg2, _ = forward(params, cfg, toks[:anc.shape[0]], 32 + torch.as_tensor(
-            uniform_tree(2, 2).depth, device=dev), kv, 32, main, scratch=scratch,
+
+def forward_card_vs_cpu(torch, cfg, target, dtype, n_prefill, tree):
+    """The kernel forward (card) against the plain forward (CPU) on the
+    same weights: a prefill of `n_prefill` tokens, then a split-mode verify
+    of `tree`. Returns (max |err| of the logits, max |CPU logits|)."""
+    from sequoia_torch.core.model import forward
+    from sequoia_torch.kvcache.cache import KVCache
+    from sequoia_torch.ops import masks
+
+    M = 64
+    outs = {}
+    for dev, params in (("cuda", target), ("cpu", tree_to(target, "cpu"))):
+        kv = KVCache.init(cfg, M, dtype, dev)
+        toks = torch.arange(10, 10 + n_prefill, device=dev)
+        lg1, _ = forward(params, cfg, toks, torch.arange(n_prefill, device=dev), kv, 0,
+                         masks.causal_mask(n_prefill, M, 0, dev))
+        anc = torch.as_tensor(tree.ancestors, device=dev)
+        main, scr = masks.split_tree_masks(anc, n_prefill, M, root_in_main=False)
+        scratch = KVCache.init(cfg, anc.shape[0], dtype, dev)
+        lg2, _ = forward(params, cfg, toks[:anc.shape[0]], n_prefill + torch.as_tensor(
+            tree.depth, device=dev), kv, n_prefill, main, scratch=scratch,
             scratch_offset=0, scratch_mask=scr)
-        if dev == "cuda":
-            ref = (lg1.cpu(), lg2.cpu())
-        else:
-            for a, b in zip(ref, (lg1, lg2)):
-                worst = max(worst, (a - b).abs().max().item())
-                if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
-                    fail(f"test-small forward on the card differs from the CPU: {worst}")
-    log(f"  forward card vs CPU (test-small f32, prefill + verify): max|err| {worst:.3g}")
+        outs[dev] = (lg1.float().cpu(), lg2.float().cpu())
+    if not all(bool(torch.isfinite(x).all()) for x in outs["cuda"]):
+        fail("non-finite test-small logits on the card")
+    worst = max((a - b).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    return worst, max(b.abs().max().item() for b in outs["cpu"])
+
+
+def greedy_parity(torch, cfg, draft, target, kind):
+    from sequoia_torch.engine.baseline import ARBaseline
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.trees.growmap import uniform_tree
+    import numpy as np
 
     gm = uniform_tree(3, 2)
     rng = np.random.default_rng(3)
@@ -321,8 +492,12 @@ def small_parity(torch):
         got = eng.generate(prompt, max_new_tokens=40, seed=trial)
         n = min(len(exp), len(got))
         if n <= len(prompt) or not np.array_equal(exp[:n], got[:n]):
-            fail(f"greedy spec != greedy AR on the card (trial {trial}):\n{exp}\n{got}")
-    log("  greedy spec == greedy AR, token for token (test-small f32, 3 prompts x 40 tokens)")
+            fail(f"{kind} target: greedy spec != greedy AR on the card (trial {trial}):"
+                 f"\n{exp}\n{got}")
+    log(f"  {kind} target: greedy spec == greedy AR, token for token "
+        "(test-small f32, 3 prompts x 40 tokens)")
+    if kind != "f32":
+        return
     for algo in ("sequoia", "specinfer", "greedy", "greedys"):
         eng = SpecEngine(draft, cfg, target, cfg, gm, algorithm=algo, max_length=128,
                          temperature=0.7, top_p=0.9, prefill_chunk=16, device="cuda")
@@ -359,7 +534,15 @@ def profile_kernels(torch, fn, label, top=8):
     return total_ms
 
 
-def full_width(torch, gm):
+PATH_KERNELS = ("tree_attention", "top_p_threshold_from_logits", "top_p_threshold_fused")
+CURVE_WIDTHS = [1, 2, 4, 8, 16, 32, 64, 128]
+
+
+def full_width(torch, gm, quant_bits=None):
+    """One full-width path: the target in bf16 (quant_bits None) or
+    int8 / int4. Returns (the main path's launches, the target's width
+    curve, the draft's width-8 time); the curves are measured after the
+    launches are read."""
     from sequoia_torch.cli.testbed import build_params, load_prompts
     from sequoia_torch.core.model import forward
     from sequoia_torch.engine.baseline import ARBaseline
@@ -367,13 +550,18 @@ def full_width(torch, gm):
     from sequoia_torch.kernels import build
     from sequoia_torch.kvcache.cache import KVCache
     from sequoia_torch.ops import masks
+    from sequoia_torch.planner.profile import time_forward_widths
+    from sequoia_torch.quant.quantize import model_bytes
     from sequoia_torch.utils import hard_sync
 
+    label = "bf16" if quant_bits is None else f"int{quant_bits}"
     t0 = time.perf_counter()
-    target, tcfg = build_params(FULL["target"], "random", "bf16", SEED, "cuda")
+    target, tcfg = build_params(FULL["target"], "random", "bf16", SEED, "cuda",
+                                quant_bits=quant_bits)
     draft, dcfg = build_params(FULL["draft"], "random", "bf16", SEED + 1, "cuda")
     hard_sync("cuda")
-    log(f"  random weights on the card: {time.perf_counter() - t0:.1f} s")
+    log(f"  random weights on the card ({label} target): {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     prompts = load_prompts(FULL["prompts"], tcfg.vocab_size, SEED)
     M, gen, T, P = FULL["max_length"], FULL["gen"], FULL["T"], FULL["P"]
     ar = ARBaseline(target, tcfg, max_length=M, temperature=T, top_p=P, device="cuda")
@@ -400,14 +588,20 @@ def full_width(torch, gm):
     ar.generate(prompts[0], max_new_tokens=4)            # warm up
     eng.generate(prompts[0], max_new_tokens=4)
 
+    def timed_ar(p, seed):
+        hard_sync("cuda")
+        t0 = time.perf_counter()
+        out = ar.generate(p, max_new_tokens=gen, seed=seed)
+        hard_sync("cuda")
+        return out, time.perf_counter() - t0
+
     build.reset_launches()                               # the main path starts here
     ar_tokens, t_ar = 0, 0.0
     for i, p in enumerate(prompts):
-        hard_sync("cuda")
-        t0 = time.perf_counter()
-        out = ar.generate(p, max_new_tokens=gen, seed=SEED + i)
-        hard_sync("cuda")
-        t_ar += time.perf_counter() - t0
+        out, dt = timed_ar(p, SEED + i)
+        if i == 0:
+            ar0_ms = dt / (len(out) - len(p)) * 1e3
+        t_ar += dt
         ar_tokens += len(out) - len(p)
         if out.min() < 0 or out.max() >= tcfg.vocab_size:
             fail("AR produced out-of-range tokens")
@@ -444,15 +638,19 @@ def full_width(torch, gm):
         log(f"  device busy share: AR {ar_dev / n_ar[0] / (t_ar / ar_tokens * 1e3):.3f}, "
             f"sequoia {sq_dev / eng.num_large_model_steps / (t_sq / sq_steps * 1e3):.3f} "
             f"(kernel ms per token / iteration over wall ms)")
+    # Does host time drift within the run (e.g. after the traces)? Prompt 0 again.
+    out, dt = timed_ar(prompts[0], SEED)
+    log(f"  AR prompt 0: {ar0_ms:.3f} ms/token in the main path, "
+        f"{dt / (len(out) - len(prompts[0])) * 1e3:.3f} after the traces")
 
     # One forward reads every weight once, but only Q rows of the embedding.
-    weight_bytes = sum(x.numel() * x.element_size() for x in
-                       (target.final_norm, target.lm_head, *target.layers))
+    weight_bytes = model_bytes(target) - target.embed.numel() * target.embed.element_size()
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     ar_ms = t_ar / ar_tokens * 1e3
     sq_ms = t_sq / sq_tokens * 1e3
     log(f"  AR (stochastic, T={T} P={P}): {ar_tokens} tokens, {ar_ms:.3f} ms/token "
-        f"(bf16 weight stream bound {bound_ms:.3f} ms/forward, {weight_bytes / 1e9:.2f} GB)")
+        f"({label} weight stream bound {bound_ms:.3f} ms/forward, "
+        f"{weight_bytes / 1e9:.3f} GB)")
     log(f"  sequoia: {sq_tokens} tokens in {sq_steps} iterations, {sq_ms:.3f} ms/token, "
         f"iteration {t_sq / sq_steps * 1e3:.3f} ms, accepted tokens per target step "
         f"{sq_tokens / sq_steps:.3f}, speedup vs AR {ar_ms / sq_ms:.3f}x")
@@ -461,9 +659,72 @@ def full_width(torch, gm):
     log(f"  launches: AR {ar_launches}; sequoia {sq_launches} "
         f"(per iteration: " + ", ".join(f"{k} {v / sq_steps:.1f}" for k, v in
                                         sq_launches.items()) + ")")
-    if min(launches.values()) == 0:
-        fail(f"a kernel of the main path never launched: {launches}")
-    return launches
+    need = PATH_KERNELS + (() if quant_bits is None else (f"quant_matmul_int{quant_bits}",))
+    if any(launches[k] == 0 for k in need):
+        fail(f"a kernel of the {label} path never launched: {launches}")
+    if quant_bits is not None:
+        qk = f"quant_matmul_int{quant_bits}"
+        if ar_launches[qk] == 0 or sq_launches[qk] == 0:
+            fail(f"{qk} did not launch on both entry points: AR {ar_launches[qk]}, "
+                 f"sequoia {sq_launches[qk]}")
+    launches = {k: v for k, v in launches.items() if k in need}
+
+    # Phase 7 (after the launches are read): the width curves.
+    del ar, eng
+    t0 = time.perf_counter()
+    curve = time_forward_widths(target, tcfg, CURVE_WIDTHS, max_length=M, kv_len=128,
+                                reps=10)
+    draft_time = (time_forward_widths(draft, dcfg, [8], max_length=M, kv_len=128, reps=20)[0]
+                  if quant_bits is None else None)
+    log(f"  [7] {label} target forward, CUDA graph replays: " + ", ".join(
+        f"w{w} {t * 1e3:.3f} ms" for w, t in zip(CURVE_WIDTHS, curve))
+        + (f"; 68m draft w8 {draft_time * 1e3:.4f} ms" if draft_time is not None else "")
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    log(f"  [7] {label} target forward, eager, host ms to issue it: " + ", ".join(
+        f"w{w} {forward_host_ms(torch, target, tcfg, w, M):.3f}" for w in (1, gm.size)))
+    del target, draft
+    torch.cuda.empty_cache()
+    return launches, curve, draft_time
+
+
+def forward_host_ms(torch, params, cfg, width, M, kv_len=128):
+    """Host time (ms) to issue one eager split-mode forward at `width`, the
+    inputs of `time_forward_widths`: the median of 5 after a warm-up, the
+    device drained before each (the forward itself never synchronizes)."""
+    from sequoia_torch.core.model import forward
+    from sequoia_torch.kvcache.cache import KVCache
+
+    kv = KVCache.init(cfg, M, torch.bfloat16, "cuda")
+    scratch = KVCache.init(cfg, width, torch.bfloat16, "cuda")
+    tokens = torch.zeros(width, dtype=torch.long, device="cuda")
+    pos = kv_len + torch.arange(width, device="cuda")
+    mask = (torch.arange(M, device="cuda") < kv_len)[None, :].expand(width, M).contiguous()
+    scr = torch.tril(torch.ones(width, width, dtype=torch.bool, device="cuda"))
+    samples = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(params, cfg, tokens, pos, kv, kv_len, mask, scratch=scratch, scratch_offset=0,
+                scratch_mask=scr)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(samples[1:])
+
+
+def plan_from_curves(curves, draft_time):
+    """What the planner DP picks from each measured curve with the bundled
+    68m->7b acceptance vector (the testbed's max_depth 8)."""
+    from sequoia_torch.planner.dp import plan
+    from sequoia_torch.planner.profile import default_acceptance_vector
+
+    for label, curve in curves.items():
+        log(f"  {label}: " + ", ".join(f"{w}:{t * 1e3:.3f}" for w, t in zip(CURVE_WIDTHS, curve))
+            + " ms")
+        gm, info = plan(default_acceptance_vector(), CURVE_WIDTHS, curve, draft_time,
+                        max_depth=8)
+        log(f"    plan: size {gm.size}, depth {info['depth']}, expected accepted "
+            f"{info['expected_accepted']:.3f}, predicted {info['dec_time'] * 1e3:.3f} ms/token "
+            f"(device time; draft w8 {draft_time * 1e3:.4f} ms)")
 
 
 def main() -> None:
@@ -505,14 +766,28 @@ def main() -> None:
     kernels = []
     check_tree_attention(torch, gm, kernels)
     check_top_p(torch, gm, kernels)
+    check_quant_matmul(torch, kernels)
 
     log("[4] small parity on the card")
     small_parity(torch)
 
     log("[5] full width: llama-68m -> llama-2-7b bf16")
-    launches = full_width(torch, gm)
+    launches, curves = {}, {}
+    path_launches, curves["bf16"], draft_time = full_width(torch, gm)
+    for k, v in path_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    for bits in (8, 4):
+        log(f"[6] full width: llama-68m -> llama-2-7b int{bits} (weight-only)")
+        path_launches, curves[f"int{bits}"], _ = full_width(torch, gm, quant_bits=bits)
+        for k, v in path_launches.items():
+            launches[k] = launches.get(k, 0) + v
     for e in kernels:
-        e["launches"] = launches[e["name"]]
+        e["launches"] = launches.get(e["name"], 0)
+        if e["launches"] == 0:
+            fail(f"{e['name']} never launched on any main path")
+
+    log("[7] latency curves (H100, device time of one split-mode forward at kv_len 128)")
+    plan_from_curves(curves, draft_time)
 
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

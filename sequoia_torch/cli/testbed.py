@@ -6,11 +6,13 @@ Prints the reference's metrics (tests/testbed.py:94,215): total time,
 per-token latency, decoding steps, large-model steps, accepted/step.
 
 Runs on the CUDA card (`--device cpu` only for small checks). Weights are
-random, from `--seed`; prompts are `synthetic:N,LEN`. Quantization, the
-quantized KV cache and offloading are not ported yet: their flags take
-only their "off" values.
+random, from `--seed`; prompts are `synthetic:N,LEN`. `--quant int8|int4`
+quantizes the target's weights (random init straight into quantized
+layers). The quantized KV cache and offloading are not ported yet: their
+flags take only their "off" values.
 
     python -m sequoia_torch.cli.testbed --mode spec
+    python -m sequoia_torch.cli.testbed --mode spec --quant int8
 """
 
 from __future__ import annotations
@@ -22,8 +24,12 @@ import numpy as np
 import torch
 
 
-def build_params(name: str, weights: str, dtype_str: str, seed: int, device=None):
-    """`(params, cfg)` for a preset with random weights."""
+def build_params(name: str, weights: str, dtype_str: str, seed: int, device=None,
+                 quant_bits=None):
+    """`(params, cfg)` for a preset with random weights. `quant_bits` (8 or
+    4) gives an int-quantized model, initialized straight into quantized
+    layers (`random_quantized_model`): a bf16 7B tree first would need both
+    copies in memory at once."""
     from ..core import init as pinit
     from ..core.config import get_config
 
@@ -31,6 +37,11 @@ def build_params(name: str, weights: str, dtype_str: str, seed: int, device=None
         raise NotImplementedError("checkpoint loading is not ported yet; use random")
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_str]
     cfg = get_config(name)
+    if quant_bits is not None:
+        from ..quant.quantize import random_quantized_model
+
+        return random_quantized_model(cfg, seed, bits=quant_bits, dtype=dtype,
+                                      device=device), cfg
     return pinit.random_params(cfg, seed, dtype=dtype, device=device), cfg
 
 
@@ -56,8 +67,8 @@ def load_growmap(spec: str):
         from ..planner.dp import plan
         from ..planner.profile import default_acceptance_vector
 
-        # The same curve as the JAX testbed's; an H100 curve waits for the
-        # port of planner/profile.py.
+        # The same synthetic curve as the JAX testbed's; the card's measured
+        # curves (planner/profile.py, chip_smoke.py phase 7) are in PERF.md.
         gm, _ = plan(
             default_acceptance_vector(), [1, 2, 4, 8, 16, 32, 64],
             [1.0, 1.0, 1.01, 1.02, 1.05, 1.1, 1.2], 0.05, max_depth=8,
@@ -84,8 +95,9 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=128, help="max new tokens/prompt")
     ap.add_argument("--prompts", default="synthetic:4,128", help="synthetic:N,LEN")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
-    ap.add_argument("--quant", default="none", choices=["none"],
-                    help="target weight quantization (not ported yet)")
+    ap.add_argument("--quant", default="none", choices=["none", "int8", "int4"],
+                    help="target weight quantization (random init goes "
+                         "straight to quantized layers)")
     ap.add_argument("--kv-quant", default="none", choices=["none"],
                     help="quantized target KV cache (not ported yet)")
     ap.add_argument("--offloading", action="store_true",
@@ -103,7 +115,8 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     target_params, target_cfg = build_params(
-        args.target, args.target_weights, args.dtype, args.seed, device)
+        args.target, args.target_weights, args.dtype, args.seed, device,
+        quant_bits=None if args.quant == "none" else int(args.quant[3:]))
     prompts = load_prompts(args.prompts, target_cfg.vocab_size, args.seed)
 
     total_tokens = 0

@@ -15,6 +15,7 @@ import torch
 
 from .config import LlamaConfig
 from .model import LayerParams, LlamaParams
+from ..quant.qtensor import QuantizedTensor
 from ..utils import make_generator, resolve_device
 
 _LAYER_FIELDS = LayerParams._fields
@@ -66,16 +67,24 @@ def params_from_numpy(tree, device=None, dtype=None) -> LlamaParams:
     after `jax.tree.map(np.asarray, ...)`, or any object or dict with the
     fields `embed`, `layers.{attn_norm, wq, wk, wv, wo, mlp_norm, w_gate,
     w_up, w_down}`, `final_norm`, `lm_head`. `dtype=None` keeps each
-    array's float type (bf16 arrays from `ml_dtypes` go through f32)."""
+    array's float type (bf16 arrays from `ml_dtypes` go through f32). A
+    quantized leaf (the JAX `QuantizedTensor`, or a dict with `q` and
+    `scale`) becomes a `QuantizedTensor` with its int8 `q` and f32 `scale`
+    as they are; `dtype` applies to float leaves only."""
     dev = resolve_device(device)
 
-    def t(a):
+    def arr(a, dt=None):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             out = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             out = torch.from_numpy(np.array(a))  # a writable copy
-        return out.to(device=dev, dtype=dtype or out.dtype)
+        return out.to(device=dev, dtype=dt or out.dtype)
+
+    def t(a):
+        if isinstance(a, dict) or (isinstance(a, tuple) and hasattr(a, "scale")):
+            return QuantizedTensor(q=arr(_field(a, "q")), scale=arr(_field(a, "scale")))
+        return arr(a, dtype)
 
     layers = _field(tree, "layers")
     return LlamaParams(

@@ -10,8 +10,10 @@ and target models.
 - Every float-cache attention goes through `kernels.tree_attention` (the
   CUDA kernel on the card, its plain version on the CPU), with a main mask
   and a scratch mask; write mode passes an empty scratch (S = 0).
-- Norms, attention softmax and final logits are f32; projections run in the
-  params dtype on `torch.matmul`.
+- Norms, attention softmax and final logits are f32. Every projection and
+  the lm_head go through `quant.qtensor.matmul`: a float weight runs in the
+  params dtype on `torch.matmul`, an int8 / packed-int4 `QuantizedTensor`
+  through the fused dequant-matmul kernel (`kernels.quant_matmul`).
 - The caches are updated IN PLACE (JAX returned new buffers); `forward`
   still returns the cache it wrote, for the same call shape as JAX.
 """
@@ -25,6 +27,7 @@ import torch
 
 from .config import LlamaConfig
 from ..kernels.tree_attention import tree_attention
+from ..quant.qtensor import WeightLike, layer, matmul
 from ..kvcache.cache import KVCache
 
 
@@ -32,21 +35,21 @@ class LayerParams(NamedTuple):
     """Per-layer weights, each with a leading `[num_layers]` axis."""
 
     attn_norm: torch.Tensor  # [L, E]
-    wq: torch.Tensor         # [L, E, H*D]
-    wk: torch.Tensor         # [L, E, Hkv*D]
-    wv: torch.Tensor         # [L, E, Hkv*D]
-    wo: torch.Tensor         # [L, H*D, E]
+    wq: WeightLike           # [L, E, H*D]
+    wk: WeightLike           # [L, E, Hkv*D]
+    wv: WeightLike           # [L, E, Hkv*D]
+    wo: WeightLike           # [L, H*D, E]
     mlp_norm: torch.Tensor   # [L, E]
-    w_gate: torch.Tensor     # [L, E, F]
-    w_up: torch.Tensor       # [L, E, F]
-    w_down: torch.Tensor     # [L, F, E]
+    w_gate: WeightLike       # [L, E, F]
+    w_up: WeightLike         # [L, E, F]
+    w_down: WeightLike       # [L, F, E]
 
 
 class LlamaParams(NamedTuple):
     embed: torch.Tensor       # [V, E]
     layers: LayerParams
     final_norm: torch.Tensor  # [E]
-    lm_head: torch.Tensor     # [E, V]
+    lm_head: WeightLike       # [E, V]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -93,15 +96,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     cos = cos[:, None, :].to(x.dtype)
     sin = sin[:, None, :].to(x.dtype)
     return x * cos + _rotate_half(x) * sin
-
-
-def _logits_f32(hidden: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
-    """`hidden @ lm_head` with f32 output (JAX: preferred_element_type=f32)."""
-    if hidden.dtype == torch.float32:
-        return hidden @ lm_head.float()
-    if hidden.device.type == "cuda":
-        return torch.mm(hidden, lm_head, out_dtype=torch.float32)
-    return hidden.float() @ lm_head.float()
 
 
 def _window(offset, n: int, device) -> torch.Tensor:
@@ -155,9 +149,9 @@ def forward(
 
     for i in range(cfg.num_layers):
         x = rms_norm(hidden, lp.attn_norm[i], cfg.rms_norm_eps)
-        q = (x @ lp.wq[i]).reshape(Q, H, D)
-        k = (x @ lp.wk[i]).reshape(Q, Hkv, D)
-        v = (x @ lp.wv[i]).reshape(Q, Hkv, D)
+        q = matmul(x, layer(lp.wq, i)).reshape(Q, H, D)
+        k = matmul(x, layer(lp.wk, i)).reshape(Q, Hkv, D)
+        v = matmul(x, layer(lp.wv, i)).reshape(Q, Hkv, D)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -172,12 +166,13 @@ def forward(
             sk = sv = empty
         attn = tree_attention(q.contiguous(), k_cache, v_cache, attn_mask,
                               sk, sv, scr_mask, scale=scale)
-        hidden = hidden + attn.reshape(Q, H * D) @ lp.wo[i]
+        hidden = hidden + matmul(attn.reshape(Q, H * D), layer(lp.wo, i))
 
         y = rms_norm(hidden, lp.mlp_norm[i], cfg.rms_norm_eps)
-        mlp = (torch.nn.functional.silu(y @ lp.w_gate[i]) * (y @ lp.w_up[i])) @ lp.w_down[i]
+        gate = torch.nn.functional.silu(matmul(y, layer(lp.w_gate, i)))
+        mlp = matmul(gate * matmul(y, layer(lp.w_up, i)), layer(lp.w_down, i))
         hidden = hidden + mlp
 
     hidden = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
-    logits = _logits_f32(hidden, params.lm_head)
+    logits = matmul(hidden, params.lm_head, out_dtype=torch.float32)
     return logits, (scratch if split else kv)

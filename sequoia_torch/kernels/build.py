@@ -43,10 +43,13 @@ SIGNATURES = {
     "sequoia_top_p_fused": [_c_void_p, _c_void_p, _c_int, _c_int, _c_double,
                             _c_void_p],
     "sequoia_top_p_max_vocab": [],
+    "sequoia_quant_matmul_int8": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
+    "sequoia_quant_matmul_int4": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
 }
 
 launches = {"tree_attention": 0, "top_p_threshold_from_logits": 0,
-            "top_p_threshold_fused": 0}
+            "top_p_threshold_fused": 0, "quant_matmul_int8": 0,
+            "quant_matmul_int4": 0}
 
 _lib = None
 _lock = threading.Lock()

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.config import LlamaConfig
+from ..utils import resolve_device
 
 
 @dataclass
@@ -31,9 +32,11 @@ class KVCache:
 
     @staticmethod
     def init(cfg: LlamaConfig, max_length: int, dtype=torch.bfloat16,
-             device="cpu") -> "KVCache":
+             device=None) -> "KVCache":
         """Zero-filled, so rows never written hold finite values (a masked
-        row still enters the value product with probability 0)."""
+        row still enters the value product with probability 0). `device`
+        None is the CUDA card (`utils.resolve_device`)."""
+        device = resolve_device(device)
         shape = (cfg.num_layers, max_length, cfg.num_kv_heads, cfg.head_dim_)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))

@@ -19,11 +19,15 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import resolve_device
+
 
 def causal_mask(num_queries: int, max_length: int, query_offset=0,
-                device="cpu") -> torch.Tensor:
+                device=None) -> torch.Tensor:
     """bool `[Q, M]`: query at slot `query_offset + q` attends slots
-    `<= query_offset + q`. Used for prefill (logical position == slot)."""
+    `<= query_offset + q`. Used for prefill (logical position == slot).
+    `device` None is the CUDA card (`utils.resolve_device`)."""
+    device = resolve_device(device)
     q_idx = torch.arange(num_queries, device=device)[:, None]
     k_idx = torch.arange(max_length, device=device)[None, :]
     return k_idx <= (q_idx + query_offset)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from sequoia_torch.kernels import quant_matmul as qmm
 from sequoia_torch.kernels import top_p as tp
 from sequoia_torch.kernels.tree_attention import tree_attention, tree_attention_plain
 
@@ -65,6 +66,69 @@ def test_top_p_kernels_match_plain(rows, vocab, top_p):
     tp.boundary_disagreements(probs, got, want, top_p)
     same = ((probs >= got[:, None]) == (probs >= want[:, None])).all(dim=1)
     assert torch.where(same, (got - want).abs(), 0.0).max().item() <= 1e-6
+
+
+def _qmm_inputs(R, K, N, bits, dtype, seed):
+    """Random q bytes (every nibble, -8 included) and positive scales."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(R, K, generator=gen, device="cuda").to(dtype)
+    q = torch.randint(-128, 128, (K if bits == 8 else K // 2, N), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    scale = torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001
+    return x, q, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("R", [1, 5, 64, 128])
+@pytest.mark.parametrize("K,N,out_dtype", [
+    (4096, 4096, None), (4096, 11008, None), (11008, 4096, None),
+    (4096, 32000, torch.float32),   # the lm_head: f32 logits
+    (96, 200, None),                # ragged: byte loads, masked edges
+    (96, 200, torch.float32),
+])
+def test_quant_matmul_kernel_matches_plain(bits, R, K, N, out_dtype):
+    """bf16 x: bf16 out within 2e-2 of the largest |plain|, f32 out within
+    1e-4 (the products are exact; only the f32 sum order differs)."""
+    _need_cuda()
+    x, q, scale = _qmm_inputs(R, K, N, bits, torch.bfloat16, R + K + N + bits)
+    got = qmm.quant_matmul(x, q, scale, bits=bits, out_dtype=out_dtype)
+    want = qmm.quant_matmul_plain(x, q, scale, bits=bits, out_dtype=out_dtype)
+    tol = 2e-2 if got.dtype == torch.bfloat16 else 1e-4
+    assert got.dtype == want.dtype and got.shape == want.shape
+    peak = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("R,K,N", [(3, 96, 200), (64, 128, 256), (17, 4096, 4096)])
+def test_quant_matmul_f32_x_matches_plain(bits, R, K, N):
+    """f32 x runs on the CUDA cores in f32: within 1e-4."""
+    _need_cuda()
+    x, q, scale = _qmm_inputs(R, K, N, bits, torch.float32, R + bits)
+    got = qmm.quant_matmul(x, q, scale, bits=bits)
+    want = qmm.quant_matmul_plain(x, q, scale, bits=bits)
+    peak = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * peak)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_raises_instead_of_falling_back():
+    _need_cuda()
+    x, q, scale = _qmm_inputs(4, 96, 200, 8, torch.bfloat16, 0)
+    with pytest.raises(TypeError):
+        qmm.quant_matmul(x.half(), q, scale, bits=8)
+    with pytest.raises(TypeError):
+        qmm.quant_matmul(x, q.to(torch.uint8), scale, bits=8)
+    misaligned = torch.empty(4 * 96 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(4, 96)
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.quant_matmul(misaligned, q, scale, bits=8)
+    with pytest.raises(ValueError):
+        qmm.quant_matmul(x, q.cpu(), scale, bits=8)
+    before = qmm.build.launches["quant_matmul_int8"]
+    qmm.quant_matmul(x, q, scale, bits=8)
+    assert qmm.build.launches["quant_matmul_int8"] == before + 1
 
 
 def test_boundary_disagreements_rejects_a_real_difference():

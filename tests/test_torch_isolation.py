@@ -41,6 +41,9 @@ def test_entry_points_default_to_cuda():
     from sequoia_torch.core.init import random_params
     from sequoia_torch.engine.baseline import ARBaseline
     from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.kvcache.cache import KVCache
+    from sequoia_torch.ops.masks import causal_mask
+    from sequoia_torch.quant.quantize import random_quantized_model
     from sequoia_torch.trees.growmap import chain
     from sequoia_torch.utils import resolve_device
 
@@ -57,6 +60,15 @@ def test_entry_points_default_to_cuda():
         random_params(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KVCache.init(cfg, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        causal_mask(4, 8)
+    for bits in (8, 4):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            random_quantized_model(cfg, 0, bits=bits)
+    assert KVCache.init(cfg, 8, device="cpu").k.device.type == "cpu"
+    assert causal_mask(4, 8, device="cpu").device.type == "cpu"
     out = SpecEngine(params, cfg, params, cfg, chain(2), algorithm="greedy",
                      max_length=32, device="cpu").generate(np.arange(4, 9), 3)
     assert len(out) > 5

@@ -58,7 +58,7 @@ def test_rope_inv_freq(name, scaling):
 def test_masks_match():
     gm = uniform_tree(2, 3)
     anc = gm.ancestors[1:5]
-    np.testing.assert_array_equal(tmasks.causal_mask(5, M, 7).numpy(),
+    np.testing.assert_array_equal(tmasks.causal_mask(5, M, 7, "cpu").numpy(),
                                   np.asarray(jmasks.causal_mask(5, M, 7)))
     np.testing.assert_array_equal(tmasks.tree_mask_rows(torch.as_tensor(anc), 9, M).numpy(),
                                   np.asarray(jmasks.tree_mask_rows(jnp.asarray(anc), 9, M)))
@@ -82,7 +82,7 @@ def _prefill(jp, tp, n):
     jl, jkv = jmodel.forward(jp, CFG_J, jnp.asarray(toks), jnp.asarray(pos), jkv, 0,
                              jmasks.causal_mask(n, M, 0))
     tl, tkv = tmodel.forward(tp, CFG_T, torch.as_tensor(toks), torch.as_tensor(pos), tkv,
-                             0, tmasks.causal_mask(n, M, 0))
+                             0, tmasks.causal_mask(n, M, 0, "cpu"))
     return jl, jkv, tl, tkv
 
 
