@@ -7,29 +7,41 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from sequoia_torch/csrc (nvcc);
   3. kernels: each kernel against its plain PyTorch version at the shapes
-     of the main paths (the quant matmuls at every 7B projection shape and
-     the lm_head, R in {1, 64, 128}), with device times (CUDA graphs of many
-     launches, timed with CUDA events), the least time the card could take,
-     and the time of one PyTorch library call where one computes the same
-     function; and the host time of one quantized projection call against
-     one torch.matmul on the bf16 weight;
-  4. small parity: test-small, f32, on the card, with an f32, an int8 and
-     an int4 target: greedy speculative decoding equals greedy AR token for
-     token, the kernel forward equals the CPU forward, and (f32) all four
-     algorithms run; then bf16 int8 and int4 targets, whose card forward
+     of the main paths: tree attention with a float, an int8, an int4
+     head-paired and an int4 dsplit main cache; the top-p cutoffs; the quant
+     matmuls (int8, int4, panel-tiled int4 at R in {1, 64, 128}; w4a8, w8a8
+     also at 256) at every 7B projection shape and the lm_head, plus a ragged
+     small shape; the activation quantizer. With device times (CUDA graphs of
+     many launches, timed with CUDA events), the least time the card could
+     take, and the time of one PyTorch library call where one computes the
+     same function; and the host time of one quantized projection call
+     against one torch.matmul on the bf16 weight;
+  4. small parity: test-small, f32, on the card, with an f32, an int8, an
+     int4 and a tiled-int4 target: greedy speculative decoding equals greedy
+     AR token for token, the kernel forward equals the CPU forward, and
+     (f32) all four algorithms run; the int8 target with w8a8 forced on and
+     the f32 target with an int8, an int4 head-paired and an int4 dsplit KV
+     cache: forward against the CPU forward, and greedy speculative decoding
+     runs; then bf16 int8, int4 and tiled-int4 targets, whose card forward
      (the tensor-core kernels at 24 and 21 rows) equals the CPU forward;
   5. full width: llama-68m -> llama-2-7b, bf16, random weights (seeded),
-     the planned 64-node growmap, max_length 256, 4 synthetic 128-token
+     the planned 64-node growmap, max_length 256, 2 synthetic 128-token
      prompts, T=0.6, P=0.9: the stochastic AR baseline and Sequoia through
-     the testbed's entry points, with launch counts of every kernel;
-  6. the same with the target quantized to int8, then int4 (weight-only;
-     each quant kernel must launch on both entry points);
-  7. the width curve of each target precision (planner/profile.py, device
-     time of one split-mode forward at widths 1..128) and the 68m draft's
-     at width 8, and the tree the planner DP picks from each curve; beside
-     it, the host time to issue one eager forward at widths 1 and 64. Each
-     curve is measured right after its path's launches are read, before
-     that target is freed.
+     the testbed's entry points, with launch counts of every kernel; then
+     the same target with kv_quant int8 and int4 (head-paired; one more
+     Sequoia prompt with the dsplit packing);
+  6. the same with the target's weights quantized: int8 weight-only (w8a8
+     off), int8 with w8a8 on (Sequoia), int4, and panel-tiled int4 (tile_int4
+     over the seven projections and the head); each kernel of a path must
+     launch on it;
+  7. the width curves (planner/profile.py, device time of one split-mode
+     forward at widths 1..256): bf16 with each cache format, int8
+     weight-only, int8 w8a8, int4, tiled int4, and the int4 target with every
+     projection sent through unpack="w4a8"; the 68m draft's at width 8; the
+     tree the planner DP picks from each curve (widths 1..128); beside them,
+     the host time to issue one eager forward at widths 1 and 64. Each curve
+     is measured right after its path's launches are read, before that
+     target is freed.
 
 Prints the kernels JSON line and the card line before the last line, and
 ends with one JSON line {"ok": true, "device": {...}}. Exits non-zero,
@@ -50,11 +62,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 SEED = 1234
 FULL = dict(draft="llama-68m", target="llama-2-7b", max_length=256,
-            prompts="synthetic:4,128", gen=128, T=0.6, P=0.9)
+            prompts="synthetic:2,128", gen=128, T=0.6, P=0.9)
 
 
 def fail(msg: str) -> None:
@@ -146,13 +158,24 @@ def attention_case(torch, *, Q_rows, layers, H, Hkv, D, M, S, ts, dtype, gen,
     return q, k, v, main, sk, sv, scr.contiguous()
 
 
-def attention_bound(q, main, scr, D, H, Hkv, itemsize):
+KV_FORMATS = {   # main-cache format -> (launch counter, bytes per stored K/V element)
+    "float": ("tree_attention", None),
+    "int8": ("tree_attention_kv8", 1.0),
+    "int4_head": ("tree_attention_kv4_head", 0.5),
+    "int4_dsplit": ("tree_attention_kv4_dsplit", 0.5),
+}
+
+
+def attention_bound(q, main, scr, D, H, Hkv, itemsize, kv_item=None):
     """Least time for the data: the K/V rows some query attends, q, the
-    masks and the output move once; 4*D flops per live (query head, key)."""
+    masks and the output move once; 4*D flops per live (query head, key).
+    A quantized main cache (`kv_item` bytes per element) also moves two f32
+    scales per (row, head)."""
     main_rows = int(main.any(dim=0).sum())
     scr_rows = int(scr.any(dim=0).sum())
-    nbytes = (2 * q.numel() * itemsize
-              + 2 * (main_rows + scr_rows) * Hkv * D * itemsize
+    main_bytes = (2 * main_rows * Hkv * D * itemsize if kv_item is None
+                  else 2 * main_rows * Hkv * (D * kv_item + 4))
+    nbytes = (2 * q.numel() * itemsize + main_bytes + 2 * scr_rows * Hkv * D * itemsize
               + main.numel() + scr.numel())
     flops = 4 * D * H * (int(main.sum()) + int(scr.sum()))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -161,7 +184,13 @@ def attention_bound(q, main, scr, D, H, Hkv, itemsize):
 
 
 def check_tree_attention(torch, gm, results):
+    """The float-cache kernel at every attention shape of the main path, and
+    each quantized cache format at the verify, AR-step and prefill shapes
+    (and the f32 verify). The library yardstick is SDPA on the float cache
+    (for a quantized one: on its dequantized rows) under the same mask."""
     from sequoia_torch.kernels.tree_attention import tree_attention, tree_attention_plain
+    from sequoia_torch.kvcache.cache import (quantize_kv_rows, quantize_kv_rows4,
+                                             unpack_kv_rows4)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     anc = torch.as_tensor(gm.ancestors, device="cuda")
@@ -188,50 +217,63 @@ def check_tree_attention(torch, gm, results):
         cases.append((f"grow_68m_l{lvl}", dict(Q_rows=w, layers=2, H=12, Hkv=12, D=64,
                                                M=256, S=gm.size, ts=ts + 1,
                                                dtype=torch.bfloat16, scratch_rows=m), 2e-2))
-    entry = None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, kw, tol in cases:
         q, k, v, main, sk, sv, scr = attention_case(torch, gen=gen, **kw)
         L, D, H, Hkv = kw["layers"], kw["D"], kw["H"], kw["Hkv"]
         scale = D ** -0.5
-        got = tree_attention(q, k[0], v[0], main, sk[0], sv[0], scr, scale=scale)
-        want = tree_attention_plain(q, k[0], v[0], main, sk[0], sv[0], scr, scale=scale)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-        if not ok or not torch.isfinite(got).all():
-            fail(f"tree_attention[{name}] disagrees with its plain version: "
-                 f"max |err| {err} (tol {tol})")
-        kern = [lambda i=i: tree_attention(q, k[i], v[i], main, sk[i], sv[i], scr, scale=scale)
-                for i in range(L)]
-        plain = [lambda i=i: tree_attention_plain(q, k[i], v[i], main, sk[i], sv[i], scr,
-                                                  scale=scale) for i in range(L)]
-        if H == Hkv:
-            qb = q.transpose(0, 1)[None]                       # [1, H, Q, D]
-            kk = [torch.cat([k[i], sk[i]]).transpose(0, 1)[None] for i in range(L)]
-            vv = [torch.cat([v[i], sv[i]]).transpose(0, 1)[None] for i in range(L)]
-            full_mask = torch.cat([main, scr], dim=1)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib = [lambda i=i: sdpa(qb, kk[i], vv[i], attn_mask=full_mask, scale=scale)
-                   for i in range(L)]
-            lib_ms = device_ms(lib)
-        else:
-            lib_ms = None
-        ms, plain_ms = device_ms(kern), device_ms(plain)
         itemsize = 2 if kw["dtype"] == torch.bfloat16 else 4
-        bound, by = attention_bound(q, main, scr, D, H, Hkv, itemsize)
-        log(f"  tree_attention[{name}] Q={q.shape[0]} H={H} Hkv={Hkv} D={D} M={main.shape[1]} "
-            f"S={scr.shape[1]} {str(kw['dtype'])[6:]}: max|err| {err:.3g} (tol {tol}) "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
-            f"  bound {bound:.5f} ms ({by})")
-        if name == "verify":
-            entry = dict(name="tree_attention", route="cuda",
-                         source="sequoia_torch/csrc/tree_attention.cu",
-                         replaces="sequoia_tpu/kernels/tree_attention.py:111",
-                         shape=f"verify Q={q.shape[0]} H={H} D={D} M={main.shape[1]} "
-                               f"S={scr.shape[1]} bf16",
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by, library_ms=lib_ms)
-    results.append(entry)
+        formats = KV_FORMATS if name in ("verify", "verify_f32", "prefill", "ar_step") \
+            else ("float",)
+        for fmt in formats:
+            counter, kv_item = KV_FORMATS[fmt]
+            if fmt == "float":
+                km, vm, ks, vs = k, v, [None] * L, [None] * L
+                kd, vd = k, v
+            else:   # the float rows quantized as a prefill or a commit writes them
+                quant = quantize_kv_rows if fmt == "int8" else (
+                    lambda x, f=fmt: quantize_kv_rows4(x, packing=f[5:]))
+                (km, ks), (vm, vs) = quant(k), quant(v)
+                ints = (lambda x: x) if fmt == "int8" else (
+                    lambda x, f=fmt: unpack_kv_rows4(x, packing=f[5:]))
+                kd = (ints(km).float() * ks[..., None]).to(kw["dtype"])
+                vd = (ints(vm).float() * vs[..., None]).to(kw["dtype"])
+            call = lambda fn, i: fn(q, km[i], vm[i], main, sk[i], sv[i], scr, scale=scale,  # noqa: E731
+                                    ks=ks[i], vs=vs[i])
+            got, want = call(tree_attention, 0), call(tree_attention_plain, 0)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            if not ok or not torch.isfinite(got).all():
+                fail(f"{counter}[{name}] disagrees with its plain version: "
+                     f"max |err| {err} (tol {tol})")
+            kern = [lambda i=i: call(tree_attention, i) for i in range(L)]
+            plain = [lambda i=i: call(tree_attention_plain, i) for i in range(L)]
+            lib_ms = None
+            if H == Hkv:
+                qb = q.transpose(0, 1)[None]                       # [1, H, Q, D]
+                kk = [torch.cat([kd[i], sk[i]]).transpose(0, 1)[None] for i in range(L)]
+                vv = [torch.cat([vd[i], sv[i]]).transpose(0, 1)[None] for i in range(L)]
+                full_mask = torch.cat([main, scr], dim=1)
+                lib_ms = device_ms([lambda i=i: sdpa(qb, kk[i], vv[i], attn_mask=full_mask,
+                                                     scale=scale) for i in range(L)])
+                del kk, vv
+            ms, plain_ms = device_ms(kern), device_ms(plain)
+            bound, by = attention_bound(q, main, scr, D, H, Hkv, itemsize, kv_item)
+            log(f"  {counter}[{name}] Q={q.shape[0]} H={H} Hkv={Hkv} D={D} M={main.shape[1]} "
+                f"S={scr.shape[1]} {str(kw['dtype'])[6:]}: max|err| {err:.3g} (tol {tol}) "
+                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
+                f"  bound {bound:.5f} ms ({by})")
+            if name == "verify":
+                results.append(dict(
+                    name=counter, route="cuda", source="sequoia_torch/csrc/tree_attention.cu",
+                    replaces="sequoia_tpu/kernels/tree_attention.py:111",
+                    shape=f"verify Q={q.shape[0]} H={H} D={D} M={main.shape[1]} "
+                          f"S={scr.shape[1]} bf16, main cache {fmt}",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=by, library_ms=lib_ms))
+            del km, vm, kd, vd, kern, plain
 
 
 def top_p_bound(R, V, from_logits):
@@ -299,73 +341,121 @@ def check_top_p(torch, gm, results):
 QMM_SHAPES = [  # (K, N, out): the 7B projections and the f32-logit lm_head
     (4096, 4096, "bf16"), (4096, 11008, "bf16"), (11008, 4096, "bf16"), (4096, 32000, "f32")]
 QMM_REPORT = (64, 4096, 11008)   # the shape of the kernels line: verify, MLP up
+QMM_SOURCE = "sequoia_torch/csrc/quant_matmul.cu"
+QMM_A8_SOURCE = "sequoia_torch/csrc/quant_matmul_a8.cu"
+QMM_KERNELS = {
+    # name: weight bits, rows, TPU counterpart, source, int8 activations
+    "quant_matmul_int8": (8, (1, 64, 128), "sequoia_tpu/kernels/quant_matmul.py:85",
+                          QMM_SOURCE, False),
+    "quant_matmul_int4": (4, (1, 64, 128), "sequoia_tpu/kernels/quant_matmul.py:125",
+                          QMM_SOURCE, False),
+    "quant_matmul_tiled": (4, (1, 64, 128), "sequoia_tpu/kernels/quant_matmul.py:197",
+                           QMM_SOURCE, False),
+    "quant_matmul_w4a8": (4, (1, 64, 128, 256), "sequoia_tpu/kernels/quant_matmul.py:99",
+                          QMM_A8_SOURCE, True),
+    "quant_matmul_w8a8": (8, (1, 64, 128, 256), "sequoia_tpu/quant/qtensor.py:176",
+                          QMM_A8_SOURCE, True),
+}
 
 
-def qmm_bound(R, K, N, bits, x_item, out_item):
+def qmm_bound(R, K, N, bits, x_item, out_item, a8=False):
     """Least time: the packed weight, x, the output and the scale move
-    once; 2*R*K*N operations at the bf16 tensor-core peak."""
+    once; 2*R*K*N operations at the tensor-core peak of the product's type
+    (bf16, or int8 for the activation-quantized kernels)."""
     nbytes = K * N * bits // 8 + R * K * x_item + R * N * out_item + N * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * R * K * N / PEAK_FLOPS["bf16"] * 1e3
+    t_ops = 2 * R * K * N / PEAK_FLOPS["int8" if a8 else "bf16"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def qmm_calls(qm, name):
+    """(kernel wrapper, plain version) of one quant-matmul kernel, both as
+    f(x, q, scale, out_dtype)."""
+    if name == "quant_matmul_tiled":
+        return (lambda x, q, s, o: qm.quant_matmul_tiled(x, q, s, out_dtype=o),
+                lambda x, q, s, o: qm.quant_matmul_tiled_plain(x, q, s, out_dtype=o))
+    if name == "quant_matmul_w8a8":
+        return (lambda x, q, s, o: qm.quant_matmul_w8a8(x, q, s, out_dtype=o),
+                lambda x, q, s, o: qm.quant_matmul_w8a8_plain(x, q, s, out_dtype=o))
+    kw = dict(bits=8) if name == "quant_matmul_int8" else dict(bits=4)
+    if name == "quant_matmul_w4a8":
+        kw["unpack"] = "w4a8"
+    return (lambda x, q, s, o: qm.quant_matmul(x, q, s, out_dtype=o, **kw),
+            lambda x, q, s, o: qm.quant_matmul_plain(x, q, s, out_dtype=o, **kw))
+
+
 def check_quant_matmul(torch, results):
-    """Both quant kernels against their plain version at every 7B shape, R
-    in {1, 64, 128}, bf16 x (plus one f32-x case each). Timing cycles
-    through enough weight matrices that a pass exceeds the 50 MB L2. The
-    library yardstick is torch.matmul on the dequantized bf16 weight (cuBLAS,
-    twice the int8 bytes), and torch._weight_int8pack_mm for int8 where the
-    installed PyTorch has it on CUDA."""
+    """Every quant-matmul kernel against its plain version at every 7B shape
+    and a ragged small one, bf16 x (plus one f32-x case for the weight-only
+    kernels). Tolerances: the weight-only kernels (tiled included) 2e-2
+    relative for a bf16 output and 1e-4 for an f32 one (exact products, f32
+    sums in another order); the activation-quantized kernels 1e-6 for an f32
+    output and 2^-8 for a bf16 one (exact int32 products and the plain
+    version's order of the f32 rescale: only the output's rounding is left).
+    Timing cycles through enough weight matrices that a pass exceeds the 50
+    MB L2. The library yardstick is torch.matmul on the dequantized bf16
+    weight (cuBLAS, twice the int8 bytes); beside it torch._weight_int8pack_mm
+    for int8, and torch._int_mm (the int8 x int8 product alone, without
+    quantizer and rescale) for w8a8, where the installed PyTorch takes the
+    shape."""
     from sequoia_torch.kernels import quant_matmul as qm
     from sequoia_torch.quant import qtensor
-    from sequoia_torch.quant.qtensor import QuantizedTensor, dequantize
+    from sequoia_torch.quant.qtensor import QuantizedTensor, dequantize, tile_int4
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    int8pack = hasattr(torch, "_weight_int8pack_mm")
-    for bits in (8, 4):
-        name = f"quant_matmul_int{bits}"
-        cases = [(R, K, N, "bf16", out) for K, N, out in QMM_SHAPES for R in (1, 64, 128)]
-        cases.append((64, 4096, 4096, "f32", "f32"))
+    int8pack, int_mm = hasattr(torch, "_weight_int8pack_mm"), hasattr(torch, "_int_mm")
+    for name, (bits, rows, replaces, source, a8) in QMM_KERNELS.items():
+        kernel, plain_fn = qmm_calls(qm, name)
+        tiled = name == "quant_matmul_tiled"
+        cases = [(R, K, N, "bf16", out) for K, N, out in QMM_SHAPES for R in rows]
+        cases.append((5, 96, 200, "bf16", "bf16"))        # ragged: byte loads, masked edges
+        if not a8:
+            cases.append((64, 4096, 4096, "f32", "f32"))
         for R, K, N, xs, outs in cases:
             x_dt = torch.bfloat16 if xs == "bf16" else torch.float32
             out_dt = torch.bfloat16 if outs == "bf16" else torch.float32
             wbytes = K * N * bits // 8
             n = max(2, -(-150_000_000 // wbytes))
             Kq = K if bits == 8 else K // 2
-            qs = [torch.randint(-128, 128, (Kq, N), generator=gen, device="cuda",
-                                dtype=torch.int8) for _ in range(n)]
+            rowmajor = [torch.randint(-128, 128, (Kq, N), generator=gen, device="cuda",
+                                      dtype=torch.int8) for _ in range(n)]
             ss = [torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001
                   for _ in range(n)]
+            qs = [tile_int4(QuantizedTensor(q, s)).q for q, s in zip(rowmajor, ss)] \
+                if tiled else rowmajor
             x = torch.randn(R, K, generator=gen, device="cuda").to(x_dt)
-            got = qm.quant_matmul(x, qs[0], ss[0], bits=bits, out_dtype=out_dt)
-            want = qm.quant_matmul_plain(x, qs[0], ss[0], bits=bits, out_dtype=out_dt)
+            got = kernel(x, qs[0], ss[0], out_dt)
+            want = plain_fn(x, qs[0], ss[0], out_dt)
             torch.cuda.synchronize()
-            tol = 2e-2 if out_dt == torch.bfloat16 else 1e-4
+            if a8:
+                tol = 2 ** -8 if out_dt == torch.bfloat16 else 1e-6
+            else:
+                tol = 2e-2 if out_dt == torch.bfloat16 else 1e-4
             peak = want.float().abs().max().item()
             err = (got.float() - want.float()).abs().max().item()
             if not torch.isfinite(got).all() or not torch.allclose(
                     got.float(), want.float(), rtol=tol, atol=tol * peak):
                 fail(f"{name} R={R} K={K} N={N} x {xs} out {outs} disagrees with its "
                      f"plain version: max |err| {err} (tol {tol} x max|plain| {peak})")
-            kern = [lambda i=i: qm.quant_matmul(x, qs[i], ss[i], bits=bits, out_dtype=out_dt)
-                    for i in range(n)]
-            plain = [lambda i=i: qm.quant_matmul_plain(x, qs[i], ss[i], bits=bits,
-                                                       out_dtype=out_dt) for i in range(n)]
+            kern = [lambda i=i: kernel(x, qs[i], ss[i], out_dt) for i in range(n)]
+            plain = [lambda i=i: plain_fn(x, qs[i], ss[i], out_dt) for i in range(n)]
             ms, plain_ms = device_ms(kern, replays=10), device_ms(plain, replays=3)
-            lib_ms = pack_ms = host = None
+            lib_ms = other_ms = host = None
+            other = ""
             if xs == "bf16":
-                deq = [dequantize(QuantizedTensor(qs[i], ss[i]), K, torch.bfloat16)
+                deq = [dequantize(QuantizedTensor(rowmajor[i], ss[i]), K, torch.bfloat16)
                        for i in range(n)]
                 lib_ms = device_ms([lambda i=i: torch.matmul(x, deq[i]) for i in range(n)],
                                    replays=10)
-                if R == 1:   # the model's call on each weight kind, as one AR step makes it
+                if R == 1 and not a8 and not tiled:
+                    # the model's call on each weight kind, as one AR step makes it
                     mm_out = None if outs == "bf16" else torch.float32
                     wq = QuantizedTensor(qs[0], ss[0])
+                    qtensor.set_w8a8("off")
                     host = (host_us(lambda: qtensor.matmul(x, wq, out_dtype=mm_out)),
                             host_us(lambda: qtensor.matmul(x, deq[0], out_dtype=mm_out)))
                 del deq
-                if bits == 8 and int8pack:
+                if name == "quant_matmul_int8" and int8pack:
                     qt = [q.T.contiguous() for q in qs]
                     st = [s.reshape(-1).to(torch.bfloat16) for s in ss]
                     try:
@@ -375,27 +465,69 @@ def check_quant_matmul(torch, results):
                         log(f"  torch._weight_int8pack_mm is not available on CUDA here: "
                             f"{str(e).splitlines()[0][:100]}")
                     else:
-                        pack_ms = device_ms([lambda i=i: torch._weight_int8pack_mm(
-                            x, qt[i], st[i]) for i in range(n)], replays=10)
+                        other, other_ms = "_weight_int8pack_mm", device_ms(
+                            [lambda i=i: torch._weight_int8pack_mm(x, qt[i], st[i])
+                             for i in range(n)], replays=10)
                     del qt, st
-            bound, by = qmm_bound(R, K, N, bits, x.element_size(), got.element_size())
+                if name == "quant_matmul_w8a8" and int_mm and R > 16 and N % 8 == 0:
+                    x8, _ = qm.quantize_activations_plain(x)
+                    try:
+                        torch._int_mm(x8, qs[0])
+                    except (RuntimeError, NotImplementedError) as e:
+                        int_mm = False
+                        log(f"  torch._int_mm is not available here: "
+                            f"{str(e).splitlines()[0][:100]}")
+                    else:
+                        other, other_ms = "_int_mm", device_ms(
+                            [lambda i=i: torch._int_mm(x8, qs[i]) for i in range(n)],
+                            replays=10)
+            bound, by = qmm_bound(R, K, N, bits, x.element_size(), got.element_size(), a8)
             log(f"  {name} R={R} K={K} N={N} x {xs} out {outs}: max|err| {err:.3g} "
-                f"(tol {tol} x {peak:.3g}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"(tol {tol:.3g} x {peak:.3g}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"cuBLAS bf16 dequantized {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
-                + (f"  _weight_int8pack_mm {pack_ms:.4f} ms" if pack_ms is not None else "")
+                + (f"  {other} {other_ms:.4f} ms" if other_ms is not None else "")
                 + f"  bound {bound:.5f} ms ({by}, {ms / bound:.2f}x)"
                 f"  [{n} weights cycled]"
                 + (f"; host µs per qtensor.matmul call: quantized {host[0]:.1f}, "
                    f"bf16 weight {host[1]:.1f}" if host is not None else ""))
             if (R, K, N) == QMM_REPORT and xs == "bf16":
                 results.append(dict(
-                    name=name, route="cuda", source="sequoia_torch/csrc/quant_matmul.cu",
-                    replaces=f"sequoia_tpu/kernels/quant_matmul.py:{85 if bits == 8 else 125}",
+                    name=name, route="cuda", source=source, replaces=replaces,
                     shape=f"R={R} K={K} N={N} x bf16 out bf16 (verify, MLP up)",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                     library_ms=lib_ms))
-            del qs, ss, kern, plain
+            del qs, rowmajor, ss, kern, plain
         torch.cuda.empty_cache()
+    qtensor.set_w8a8("auto")
+    check_quantize_activations(torch, qm, gen, results)
+
+
+def check_quantize_activations(torch, qm, gen, results):
+    """The activation quantizer against its plain version: the same int8
+    values and the same f32 scales, bit for bit (tolerance 0)."""
+    for R, K in ((1, 4096), (64, 4096), (64, 11008), (256, 4096), (5, 100)):
+        xs = [torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16) * 3
+              for _ in range(8)]
+        (got8, gots), (want8, wants) = qm.quantize_activations(xs[0]), \
+            qm.quantize_activations_plain(xs[0])
+        torch.cuda.synchronize()
+        err = max((got8.int() - want8.int()).abs().max().item(),
+                  (gots - wants).abs().max().item())
+        if err != 0:
+            fail(f"quantize_activations R={R} K={K} differs from its plain version: {err}")
+        ms = device_ms([lambda x=x: qm.quantize_activations(x) for x in xs])
+        plain_ms = device_ms([lambda x=x: qm.quantize_activations_plain(x) for x in xs])
+        nbytes = R * K * 2 + R * K + R * 4
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 6 * R * K / PEAK_FLOPS["f32"] * 1e3
+        bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        log(f"  quantize_activations R={R} K={K} bf16: equal bits; kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  bound {bound:.3g} ms ({by})")
+        if (R, K) == QMM_REPORT[:2]:
+            results.append(dict(
+                name="quantize_activations", route="cuda", source=QMM_A8_SOURCE,
+                replaces="sequoia_tpu/kernels/quant_matmul.py:361",
+                shape=f"R={R} K={K} bf16 (verify, MLP up)", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None))
 
 
 # ---------------------------------------------------------------------------
@@ -409,55 +541,114 @@ def tree_to(t, dev):
     return type(t)(*(tree_to(x, dev) for x in t))
 
 
+def tile_model(params):
+    """`tile_int4` over the seven projections and the head of a packed-int4
+    model (the layout of `quant_matmul_tiled`)."""
+    from sequoia_torch.quant.qtensor import QuantizedTensor, tile_int4
+
+    lay = params.layers
+    tiled = type(lay)(*(tile_int4(w) if isinstance(w, QuantizedTensor) else w for w in lay))
+    return params._replace(layers=tiled, lm_head=tile_int4(params.lm_head))
+
+
 def small_parity(torch):
-    """test-small on the card. f32 x with an f32, an int8 and an int4 target
-    (the quantized weights run the f32-x path of the quant kernels); then
-    bf16 int8 and int4 targets (the tensor-core path of every 7B
-    projection), forward only."""
+    """test-small on the card. f32 x with an f32, an int8, an int4 and a
+    tiled-int4 target (the quantized weights run the f32-x path of the quant
+    kernels); w8a8 forced on; an int8, an int4 head-paired and an int4
+    dsplit KV cache; then bf16 int8, int4 and tiled-int4 targets (the
+    tensor-core path of every 7B projection), forward only."""
     from sequoia_torch.core.config import get_config
     from sequoia_torch.core.init import random_params
+    from sequoia_torch.kvcache.cache import KVCache, KVCache4, KVCache8
+    from sequoia_torch.quant import qtensor
     from sequoia_torch.quant.quantize import random_quantized_model
     from sequoia_torch.trees.growmap import uniform_tree
 
     cfg = get_config("test-small")
     draft = random_params(cfg, 7, dtype=torch.float32, device="cuda")
-    for kind in ("f32", "int8", "int4"):
-        target = (random_params(cfg, 8, dtype=torch.float32, device="cuda") if kind == "f32"
-                  else random_quantized_model(cfg, 8, bits=int(kind[3:]),
-                                              dtype=torch.float32, device="cuda"))
-        worst, _ = forward_card_vs_cpu(torch, cfg, target, torch.float32, 32, uniform_tree(2, 2))
+    float_kv = lambda dt: (lambda dev: KVCache.init(cfg, 64, dt, dev))  # noqa: E731
+    qtensor.set_w8a8("off")   # the int8 target below is weight-only
+    targets = {}
+    for kind in ("f32", "int8", "int4", "tiled-int4"):
+        if kind == "f32":
+            target = random_params(cfg, 8, dtype=torch.float32, device="cuda")
+        elif kind == "tiled-int4":
+            target = tile_model(targets["int4"])
+        else:
+            target = random_quantized_model(cfg, 8, bits=int(kind[3:]), dtype=torch.float32,
+                                            device="cuda")
+        targets[kind] = target
+        worst, _, _ = forward_card_vs_cpu(torch, cfg, target, float_kv(torch.float32), 32,
+                                          uniform_tree(2, 2))
         if worst > 1e-4:
             fail(f"test-small {kind} forward on the card differs from the CPU: {worst}")
         log(f"  {kind} target: forward card vs CPU (test-small f32 x, prefill 32 + verify 7): "
             f"max|err| {worst:.3g} (tol 1e-4)")
         greedy_parity(torch, cfg, draft, target, kind)
+
+    # Activation- and cache-quantized variants. Card and CPU sum in another
+    # order, so a value on a rounding tie may quantize one step apart on the
+    # two devices; one such step moves a logit by about 1e-4 of the largest.
+    # The logits are held to 1e-3 x max|CPU logits| (an H100 read 5e-7 x,
+    # no byte differing), and the cache bytes that differ are counted.
+    tol = 1e-3
+    qtensor.set_w8a8("on")
+    worst, peak, _ = forward_card_vs_cpu(torch, cfg, targets["int8"], float_kv(torch.float32),
+                                         32, uniform_tree(2, 2))
+    if worst > tol * peak:
+        fail(f"test-small int8 w8a8 forward on the card differs from the CPU: {worst}")
+    log(f"  int8 target, w8a8 on: forward card vs CPU: max|err| {worst:.3g} "
+        f"(tol {tol} x max|CPU logits| {peak:.3g})")
+    greedy_runs(torch, cfg, draft, targets["int8"], "int8 target, w8a8 on")
+    qtensor.set_w8a8("off")
+    for label, kv_quant, packing, make_kv in (
+            ("int8", "int8", None, lambda dev: KVCache8.init(cfg, 64, device=dev)),
+            ("int4 head-paired", "int4", "head",
+             lambda dev: KVCache4.init(cfg, 64, packing="head", device=dev)),
+            ("int4 dsplit", "int4", "dsplit",
+             lambda dev: KVCache4.init(cfg, 64, packing="dsplit", device=dev))):
+        worst, peak, flips = forward_card_vs_cpu(torch, cfg, targets["f32"], make_kv, 32,
+                                                 uniform_tree(2, 2))
+        if worst > tol * peak:
+            fail(f"test-small forward with an {label} KV cache differs from the CPU: {worst}")
+        log(f"  f32 target, {label} KV cache: forward card vs CPU: max|err| {worst:.3g} "
+            f"(tol {tol} x max|CPU logits| {peak:.3g}); {flips} cache bytes differ")
+        greedy_runs(torch, cfg, draft, targets["f32"], f"{label} KV cache", kv_quant=kv_quant,
+                    kv4_packing=packing)
+
     # bf16: prefill 24 and a 21-node verify, both in the 17..32-row tile.
-    for bits in (8, 4):
-        target = random_quantized_model(cfg, 8, bits=bits, dtype=torch.bfloat16, device="cuda")
-        worst, peak = forward_card_vs_cpu(torch, cfg, target, torch.bfloat16, 24,
-                                          uniform_tree(2, 4))
+    for kind in ("int8", "int4", "tiled-int4"):
+        target = random_quantized_model(cfg, 8, bits=8 if kind == "int8" else 4,
+                                        dtype=torch.bfloat16, device="cuda")
+        if kind == "tiled-int4":
+            target = tile_model(target)
+        worst, peak, _ = forward_card_vs_cpu(torch, cfg, target, float_kv(torch.bfloat16), 24,
+                                             uniform_tree(2, 4))
         # bf16 activations round differently on the two devices (int8 read
         # 6.5e-3 x max|CPU logits| on an H100): about twice that reading.
         tol = 1.5e-2
         if worst > tol * peak:
-            fail(f"test-small bf16 int{bits} forward on the card differs from the CPU: "
+            fail(f"test-small bf16 {kind} forward on the card differs from the CPU: "
                  f"max|err| {worst} > {tol} x max|CPU| {peak}")
-        log(f"  int{bits} target, bf16: forward card vs CPU (prefill 24 + verify 21): "
+        log(f"  {kind} target, bf16: forward card vs CPU (prefill 24 + verify 21): "
             f"max|err| {worst:.3g} (tol {tol} x max|CPU logits| {peak:.3g})")
+    qtensor.set_w8a8("auto")
 
 
-def forward_card_vs_cpu(torch, cfg, target, dtype, n_prefill, tree):
+def forward_card_vs_cpu(torch, cfg, target, make_kv, n_prefill, tree):
     """The kernel forward (card) against the plain forward (CPU) on the
-    same weights: a prefill of `n_prefill` tokens, then a split-mode verify
-    of `tree`. Returns (max |err| of the logits, max |CPU logits|)."""
+    same weights: a prefill of `n_prefill` tokens into the cache
+    `make_kv(device)`, then a split-mode verify of `tree`. Returns (max |err|
+    of the logits, max |CPU logits|, the number of bytes in which the two
+    devices' quantized caches differ, or None for a float cache)."""
     from sequoia_torch.core.model import forward
     from sequoia_torch.kvcache.cache import KVCache
     from sequoia_torch.ops import masks
 
-    M = 64
-    outs = {}
+    outs, caches = {}, {}
     for dev, params in (("cuda", target), ("cpu", tree_to(target, "cpu"))):
-        kv = KVCache.init(cfg, M, dtype, dev)
+        kv = make_kv(dev)
+        M, dtype = kv.max_length, params.embed.dtype
         toks = torch.arange(10, 10 + n_prefill, device=dev)
         lg1, _ = forward(params, cfg, toks, torch.arange(n_prefill, device=dev), kv, 0,
                          masks.causal_mask(n_prefill, M, 0, dev))
@@ -468,10 +659,35 @@ def forward_card_vs_cpu(torch, cfg, target, dtype, n_prefill, tree):
             tree.depth, device=dev), kv, n_prefill, main, scratch=scratch,
             scratch_offset=0, scratch_mask=scr)
         outs[dev] = (lg1.float().cpu(), lg2.float().cpu())
+        caches[dev] = kv
     if not all(bool(torch.isfinite(x).all()) for x in outs["cuda"]):
         fail("non-finite test-small logits on the card")
+    flips = None
+    if not isinstance(caches["cpu"], KVCache):
+        flips = sum(int((getattr(caches["cuda"], n).cpu() != getattr(caches["cpu"], n)).sum())
+                    for n in ("k", "v"))
     worst = max((a - b).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
-    return worst, max(b.abs().max().item() for b in outs["cpu"])
+    return worst, max(b.abs().max().item() for b in outs["cpu"]), flips
+
+
+def greedy_runs(torch, cfg, draft, target, label, kv_quant=None, kv4_packing=None):
+    """Greedy speculative decoding runs and emits valid tokens. (Under a
+    quantized cache it need not equal greedy AR: verify reads float scratch
+    rows that AR has already quantized.)"""
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.trees.growmap import uniform_tree
+    import numpy as np
+
+    eng = SpecEngine(draft, cfg, target, cfg, uniform_tree(3, 2), algorithm="greedy",
+                     max_length=128, prefill_chunk=16, kv_quant=kv_quant, device="cuda")
+    if kv4_packing is not None:
+        eng._kv4_packing = kv4_packing   # the engine itself picks "head" for an even Hkv
+    prompt = np.random.default_rng(5).integers(3, cfg.vocab_size, size=11)
+    out = eng.generate(prompt, max_new_tokens=40, seed=0)
+    if len(out) <= len(prompt) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"{label}: greedy speculative decoding produced invalid output {out}")
+    log(f"  {label}: greedy spec, {len(out) - len(prompt)} tokens in "
+        f"{eng.num_large_model_steps} target steps")
 
 
 def greedy_parity(torch, cfg, draft, target, kind):
@@ -535,38 +751,52 @@ def profile_kernels(torch, fn, label, top=8):
 
 
 PATH_KERNELS = ("tree_attention", "top_p_threshold_from_logits", "top_p_threshold_fused")
-CURVE_WIDTHS = [1, 2, 4, 8, 16, 32, 64, 128]
+CURVE_WIDTHS = [1, 2, 4, 8, 16, 32, 64, 128, 256]
+PLAN_WIDTHS = CURVE_WIDTHS[:8]   # the planner's budgets, as in the earlier slices
 
 
-def full_width(torch, gm, quant_bits=None):
-    """One full-width path: the target in bf16 (quant_bits None) or
-    int8 / int4. Returns (the main path's launches, the target's width
-    curve, the draft's width-8 time); the curves are measured after the
-    launches are read."""
-    from sequoia_torch.cli.testbed import build_params, load_prompts
+def load_models(torch, quant_bits=None):
+    """(target, target cfg, draft, draft cfg): llama-2-7b in bf16 or with
+    int8 / packed-int4 weights, and the bf16 68m draft, random from SEED."""
+    from sequoia_torch.cli.testbed import build_params
+    from sequoia_torch.utils import hard_sync
+
+    t0 = time.perf_counter()
+    target, tcfg = build_params(FULL["target"], "random", "bf16", SEED, "cuda",
+                                quant_bits=quant_bits)
+    draft, dcfg = build_params(FULL["draft"], "random", "bf16", SEED + 1, "cuda")
+    hard_sync("cuda")
+    log(f"  random weights on the card ({'bf16' if quant_bits is None else f'int{quant_bits}'} "
+        f"target): {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    return target, tcfg, draft, dcfg
+
+
+def full_width(torch, gm, models, label, need, *, kv_quant=None, run_ar=True, extras=False,
+               dsplit_prompt=False):
+    """One full-width path on `models`: the stochastic AR baseline (unless
+    `run_ar` is off) and Sequoia over the prompts, through the testbed's
+    entry points, with the kernels in `need` required to launch. `extras`
+    adds the per-phase times, the profiler traces and the host-drift check;
+    `dsplit_prompt` one more Sequoia prompt with the int4 cache in its dsplit
+    packing. Returns the main path's launches of the kernels in `need`."""
+    from sequoia_torch.cli.testbed import load_prompts
     from sequoia_torch.core.model import forward
     from sequoia_torch.engine.baseline import ARBaseline
     from sequoia_torch.engine.engine import SpecEngine
     from sequoia_torch.kernels import build
     from sequoia_torch.kvcache.cache import KVCache
     from sequoia_torch.ops import masks
-    from sequoia_torch.planner.profile import time_forward_widths
     from sequoia_torch.quant.quantize import model_bytes
     from sequoia_torch.utils import hard_sync
 
-    label = "bf16" if quant_bits is None else f"int{quant_bits}"
-    t0 = time.perf_counter()
-    target, tcfg = build_params(FULL["target"], "random", "bf16", SEED, "cuda",
-                                quant_bits=quant_bits)
-    draft, dcfg = build_params(FULL["draft"], "random", "bf16", SEED + 1, "cuda")
-    hard_sync("cuda")
-    log(f"  random weights on the card ({label} target): {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    target, tcfg, draft, dcfg = models
     prompts = load_prompts(FULL["prompts"], tcfg.vocab_size, SEED)
     M, gen, T, P = FULL["max_length"], FULL["gen"], FULL["T"], FULL["P"]
-    ar = ARBaseline(target, tcfg, max_length=M, temperature=T, top_p=P, device="cuda")
+    ar = ARBaseline(target, tcfg, max_length=M, temperature=T, top_p=P, kv_quant=kv_quant,
+                    device="cuda")
     eng = SpecEngine(draft, dcfg, target, tcfg, gm, algorithm="sequoia", max_length=M,
-                     temperature=T, top_p=P, device="cuda")
+                     temperature=T, top_p=P, kv_quant=kv_quant, device="cuda")
 
     # Finite logits at the first steps of both entry points.
     st = ar.prefill(prompts[0], seed=SEED)
@@ -584,8 +814,10 @@ def full_width(torch, gm, quant_bits=None):
     for name, x in (("AR last_logits", st.last_logits), ("verify logits", verify_logits),
                     ("draft root logits", ds.root_draft_logits)):
         if not bool(torch.isfinite(x).all()):
-            fail(f"non-finite {name}")
-    ar.generate(prompts[0], max_new_tokens=4)            # warm up
+            fail(f"{label}: non-finite {name}")
+    del st, ds
+    if run_ar:
+        ar.generate(prompts[0], max_new_tokens=4)        # warm up
     eng.generate(prompts[0], max_new_tokens=4)
 
     def timed_ar(p, seed):
@@ -595,96 +827,120 @@ def full_width(torch, gm, quant_bits=None):
         hard_sync("cuda")
         return out, time.perf_counter() - t0
 
+    def timed_sequoia(p, seed):
+        hard_sync("cuda")
+        t0 = time.perf_counter()
+        out = eng.generate(p, max_new_tokens=gen, seed=seed)
+        hard_sync("cuda")
+        if len(out) <= len(p) or out.min() < 0 or out.max() >= tcfg.vocab_size:
+            fail(f"{label}: sequoia produced no or out-of-range tokens")
+        return time.perf_counter() - t0
+
     build.reset_launches()                               # the main path starts here
-    ar_tokens, t_ar = 0, 0.0
-    for i, p in enumerate(prompts):
+    ar_tokens, t_ar, ar0_ms = 0, 0.0, None
+    for i, p in enumerate(prompts if run_ar else []):
         out, dt = timed_ar(p, SEED + i)
         if i == 0:
             ar0_ms = dt / (len(out) - len(p)) * 1e3
         t_ar += dt
         ar_tokens += len(out) - len(p)
         if out.min() < 0 or out.max() >= tcfg.vocab_size:
-            fail("AR produced out-of-range tokens")
+            fail(f"{label}: AR produced out-of-range tokens")
     ar_launches = dict(build.launches)
     sq_tokens, sq_steps, t_sq = 0, 0, 0.0
     for i, p in enumerate(prompts):
-        hard_sync("cuda")
-        t0 = time.perf_counter()
-        out = eng.generate(p, max_new_tokens=gen, seed=SEED + i)
-        hard_sync("cuda")
-        t_sq += time.perf_counter() - t0
+        t_sq += timed_sequoia(p, SEED + i)
         sq_tokens += eng.num_decoding_steps
         sq_steps += eng.num_large_model_steps
-        if len(out) <= len(p) or out.min() < 0 or out.max() >= tcfg.vocab_size:
-            fail("sequoia produced no or out-of-range tokens")
+    sq_launches = {k: v - ar_launches[k] for k, v in build.launches.items()}
+    if dsplit_prompt:
+        eng._kv4_packing = "dsplit"   # the engine itself picks "head" for an even Hkv
+        dt = timed_sequoia(prompts[0], SEED)
+        log(f"  sequoia, int4 cache in the dsplit packing, prompt 0 again: "
+            f"{dt / eng.num_decoding_steps * 1e3:.3f} ms/token, "
+            f"{eng.num_decoding_steps / eng.num_large_model_steps:.3f} tokens per target step, "
+            f"{build.launches['tree_attention_kv4_dsplit']} launches of its kernel")
+        eng._kv4_packing = "head"
     launches = dict(build.launches)                      # ... and ends here
-    sq_launches = {k: launches[k] - ar_launches[k] for k in launches}
-
-    phases, b_steps = {}, 0
-    for i, p in enumerate(prompts):
-        _, tot = eng.generate_benchmark(p, max_new_tokens=gen, seed=SEED + i)
-        b_steps += eng.num_large_model_steps
-        for k, v in tot.items():
-            phases[k] = phases.get(k, 0.0) + v
-
-    # Device busy share: kernel time from a torch.profiler trace of one
-    # more run (the profiler does not change device times) over the wall
-    # time of the unprofiled runs above.
-    n_ar = []
-    ar_dev = profile_kernels(torch, lambda: n_ar.append(
-        len(ar.generate(prompts[0], 32, seed=SEED)) - len(prompts[0])), "AR")
-    sq_dev = profile_kernels(torch, lambda: eng.generate(prompts[0], 32, seed=SEED), "sequoia")
-    if ar_dev is not None and sq_dev is not None:
-        log(f"  device busy share: AR {ar_dev / n_ar[0] / (t_ar / ar_tokens * 1e3):.3f}, "
-            f"sequoia {sq_dev / eng.num_large_model_steps / (t_sq / sq_steps * 1e3):.3f} "
-            f"(kernel ms per token / iteration over wall ms)")
-    # Does host time drift within the run (e.g. after the traces)? Prompt 0 again.
-    out, dt = timed_ar(prompts[0], SEED)
-    log(f"  AR prompt 0: {ar0_ms:.3f} ms/token in the main path, "
-        f"{dt / (len(out) - len(prompts[0])) * 1e3:.3f} after the traces")
 
     # One forward reads every weight once, but only Q rows of the embedding.
     weight_bytes = model_bytes(target) - target.embed.numel() * target.embed.element_size()
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    ar_ms = t_ar / ar_tokens * 1e3
     sq_ms = t_sq / sq_tokens * 1e3
-    log(f"  AR (stochastic, T={T} P={P}): {ar_tokens} tokens, {ar_ms:.3f} ms/token "
-        f"({label} weight stream bound {bound_ms:.3f} ms/forward, "
-        f"{weight_bytes / 1e9:.3f} GB)")
+    if run_ar:
+        ar_ms = t_ar / ar_tokens * 1e3
+        log(f"  AR (stochastic, T={T} P={P}): {ar_tokens} tokens, {ar_ms:.3f} ms/token "
+            f"(weight stream bound {bound_ms:.3f} ms/forward, {weight_bytes / 1e9:.3f} GB)")
     log(f"  sequoia: {sq_tokens} tokens in {sq_steps} iterations, {sq_ms:.3f} ms/token, "
         f"iteration {t_sq / sq_steps * 1e3:.3f} ms, accepted tokens per target step "
-        f"{sq_tokens / sq_steps:.3f}, speedup vs AR {ar_ms / sq_ms:.3f}x")
-    log("  generate_benchmark phases (device ms per iteration, CUDA events): " + ", ".join(
-        f"{k} {v / b_steps * 1e3:.3f}" for k, v in phases.items()))
-    log(f"  launches: AR {ar_launches}; sequoia {sq_launches} "
+        f"{sq_tokens / sq_steps:.3f}"
+        + (f", speedup vs AR {ar_ms / sq_ms:.3f}x" if run_ar else ""))
+    shown = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    log(f"  launches: AR {shown(ar_launches)}; sequoia {shown(sq_launches)} "
         f"(per iteration: " + ", ".join(f"{k} {v / sq_steps:.1f}" for k, v in
-                                        sq_launches.items()) + ")")
-    need = PATH_KERNELS + (() if quant_bits is None else (f"quant_matmul_int{quant_bits}",))
-    if any(launches[k] == 0 for k in need):
-        fail(f"a kernel of the {label} path never launched: {launches}")
-    if quant_bits is not None:
-        qk = f"quant_matmul_int{quant_bits}"
-        if ar_launches[qk] == 0 or sq_launches[qk] == 0:
-            fail(f"{qk} did not launch on both entry points: AR {ar_launches[qk]}, "
-                 f"sequoia {sq_launches[qk]}")
-    launches = {k: v for k, v in launches.items() if k in need}
+                                        shown(sq_launches).items()) + ")")
+    for k in need:
+        if launches[k] == 0:
+            fail(f"{label}: {k} never launched on this path: {shown(launches)}")
+        # A kernel this path adds runs under both entry points (the dsplit
+        # packing only in its one Sequoia prompt).
+        both = run_ar and k not in PATH_KERNELS and k != "tree_attention_kv4_dsplit"
+        if both and (ar_launches[k] == 0 or sq_launches[k] == 0):
+            fail(f"{label}: {k} did not launch on both entry points: AR {ar_launches[k]}, "
+                 f"sequoia {sq_launches[k]}")
 
-    # Phase 7 (after the launches are read): the width curves.
-    del ar, eng
+    if extras:
+        phases, b_steps = {}, 0
+        for i, p in enumerate(prompts):
+            _, tot = eng.generate_benchmark(p, max_new_tokens=gen, seed=SEED + i)
+            b_steps += eng.num_large_model_steps
+            for k, v in tot.items():
+                phases[k] = phases.get(k, 0.0) + v
+        log("  generate_benchmark phases (device ms per iteration, CUDA events): " + ", ".join(
+            f"{k} {v / b_steps * 1e3:.3f}" for k, v in phases.items()))
+        # Device busy share: kernel time from a torch.profiler trace of one
+        # more run (the profiler does not change device times) over the wall
+        # time of the unprofiled runs above.
+        n_ar = []
+        ar_dev = profile_kernels(torch, lambda: n_ar.append(
+            len(ar.generate(prompts[0], 32, seed=SEED)) - len(prompts[0])), "AR")
+        sq_dev = profile_kernels(torch, lambda: eng.generate(prompts[0], 32, seed=SEED),
+                                 "sequoia")
+        if ar_dev is not None and sq_dev is not None:
+            log(f"  device busy share: AR {ar_dev / n_ar[0] / (t_ar / ar_tokens * 1e3):.3f}, "
+                f"sequoia {sq_dev / eng.num_large_model_steps / (t_sq / sq_steps * 1e3):.3f} "
+                f"(kernel ms per token / iteration over wall ms)")
+        # Does host time drift within the run (e.g. after the traces)? Prompt 0 again.
+        out, dt = timed_ar(prompts[0], SEED)
+        log(f"  AR prompt 0: {ar0_ms:.3f} ms/token in the main path, "
+            f"{dt / (len(out) - len(prompts[0])) * 1e3:.3f} after the traces")
+    return {k: launches[k] for k in need}
+
+
+def width_curve(torch, models, label, *, kv_quant=None, need=(), host=False):
+    """Phase 7, one curve: device time of the target's split-mode forward
+    at CURVE_WIDTHS through `planner/profile.py` (CUDA-graph replays), with
+    the kernels in `need` required to launch. Returns (curve in seconds,
+    launches of `need`)."""
+    from sequoia_torch.kernels import build
+    from sequoia_torch.planner.profile import time_forward_widths
+
+    target, tcfg = models[:2]
     t0 = time.perf_counter()
-    curve = time_forward_widths(target, tcfg, CURVE_WIDTHS, max_length=M, kv_len=128,
-                                reps=10)
-    draft_time = (time_forward_widths(draft, dcfg, [8], max_length=M, kv_len=128, reps=20)[0]
-                  if quant_bits is None else None)
+    build.reset_launches()
+    curve = time_forward_widths(target, tcfg, CURVE_WIDTHS, max_length=FULL["max_length"],
+                                kv_len=128, reps=10, kv_quant=kv_quant)
+    launches = {k: build.launches[k] for k in need}
+    if any(v == 0 for v in launches.values()):
+        fail(f"a kernel of the {label} curve never launched: {launches}")
     log(f"  [7] {label} target forward, CUDA graph replays: " + ", ".join(
         f"w{w} {t * 1e3:.3f} ms" for w, t in zip(CURVE_WIDTHS, curve))
-        + (f"; 68m draft w8 {draft_time * 1e3:.4f} ms" if draft_time is not None else "")
         + f" ({time.perf_counter() - t0:.1f} s)")
-    log(f"  [7] {label} target forward, eager, host ms to issue it: " + ", ".join(
-        f"w{w} {forward_host_ms(torch, target, tcfg, w, M):.3f}" for w in (1, gm.size)))
-    del target, draft
-    torch.cuda.empty_cache()
-    return launches, curve, draft_time
+    if host:
+        log(f"  [7] {label} target forward, eager, host ms to issue it: " + ", ".join(
+            f"w{w} {forward_host_ms(torch, target, tcfg, w, FULL['max_length']):.3f}"
+            for w in (1, 64)))
+    return curve, launches
 
 
 def forward_host_ms(torch, params, cfg, width, M, kv_len=128):
@@ -717,10 +973,11 @@ def plan_from_curves(curves, draft_time):
     from sequoia_torch.planner.dp import plan
     from sequoia_torch.planner.profile import default_acceptance_vector
 
+    n = len(PLAN_WIDTHS)
     for label, curve in curves.items():
         log(f"  {label}: " + ", ".join(f"{w}:{t * 1e3:.3f}" for w, t in zip(CURVE_WIDTHS, curve))
             + " ms")
-        gm, info = plan(default_acceptance_vector(), CURVE_WIDTHS, curve, draft_time,
+        gm, info = plan(default_acceptance_vector(), PLAN_WIDTHS, curve[:n], draft_time,
                         max_depth=8)
         log(f"    plan: size {gm.size}, depth {info['depth']}, expected accepted "
             f"{info['expected_accepted']:.3f}, predicted {info['dec_time'] * 1e3:.3f} ms/token "
@@ -771,16 +1028,84 @@ def main() -> None:
     log("[4] small parity on the card")
     small_parity(torch)
 
-    log("[5] full width: llama-68m -> llama-2-7b bf16")
     launches, curves = {}, {}
-    path_launches, curves["bf16"], draft_time = full_width(torch, gm)
-    for k, v in path_launches.items():
-        launches[k] = launches.get(k, 0) + v
-    for bits in (8, 4):
-        log(f"[6] full width: llama-68m -> llama-2-7b int{bits} (weight-only)")
-        path_launches, curves[f"int{bits}"], _ = full_width(torch, gm, quant_bits=bits)
-        for k, v in path_launches.items():
+
+    def add(counts):
+        for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+
+    from sequoia_torch.core import model as model_mod
+    from sequoia_torch.kernels.quant_matmul import quant_matmul
+    from sequoia_torch.planner.profile import time_forward_widths
+    from sequoia_torch.quant import qtensor
+
+    log("[5] full width: llama-68m -> llama-2-7b bf16")
+    models = load_models(torch)
+    add(full_width(torch, gm, models, "bf16", PATH_KERNELS, extras=True))
+    curves["bf16"], _ = width_curve(torch, models, "bf16", need=("tree_attention",), host=True)
+    draft_time = time_forward_widths(models[2], models[3], [8], max_length=FULL["max_length"],
+                                     kv_len=128, reps=20)[0]
+    log(f"  [7] 68m draft forward at width 8: {draft_time * 1e3:.4f} ms")
+    for kv_quant, counter in (("int8", "tree_attention_kv8"),
+                              ("int4", "tree_attention_kv4_head")):
+        log(f"[5] full width: bf16 weights, kv_quant {kv_quant}")
+        need = PATH_KERNELS + (counter,)
+        if kv_quant == "int4":
+            need += ("tree_attention_kv4_dsplit",)
+        add(full_width(torch, gm, models, f"bf16, {kv_quant} KV", need, kv_quant=kv_quant,
+                       dsplit_prompt=kv_quant == "int4"))
+        curves[f"bf16, {kv_quant} KV"], _ = width_curve(
+            torch, models, f"bf16, {kv_quant} KV", kv_quant=kv_quant, need=(counter,))
+    del models
+    torch.cuda.empty_cache()
+
+    log("[6] full width: int8 weights, weight-only (w8a8 off)")
+    models = load_models(torch, quant_bits=8)
+    qtensor.set_w8a8("off")
+    add(full_width(torch, gm, models, "int8", PATH_KERNELS + ("quant_matmul_int8",),
+                   extras=True))
+    curves["int8"], _ = width_curve(torch, models, "int8", need=("quant_matmul_int8",),
+                                    host=True)
+    log("[6] full width: int8 weights, w8a8 on (int8 activations, every row count)")
+    qtensor.set_w8a8("on")
+    need = ("tree_attention", "top_p_threshold_from_logits", "quant_matmul_w8a8",
+            "quantize_activations")   # Sequoia only: the fused cutoff is the AR step's
+    add(full_width(torch, gm, models, "int8 w8a8", need, run_ar=False))
+    curves["int8 w8a8"], _ = width_curve(torch, models, "int8 w8a8", need=need[-2:], host=True)
+    qtensor.set_w8a8("auto")
+    del models
+    torch.cuda.empty_cache()
+
+    log("[6] full width: int4 weights (weight-only)")
+    models = load_models(torch, quant_bits=4)
+    add(full_width(torch, gm, models, "int4", PATH_KERNELS + ("quant_matmul_int4",),
+                   extras=True))
+    curves["int4"], _ = width_curve(torch, models, "int4", need=("quant_matmul_int4",),
+                                    host=True)
+    log("[6] int4 weights, every projection through unpack=\"w4a8\" (the profiler's "
+        "entry point; qtensor.matmul has no route to it)")
+
+    def routed(x, w, *, out_dtype=None):
+        if isinstance(w, qtensor.QuantizedTensor):
+            return quant_matmul(x, w.q, w.scale, bits=4, unpack="w4a8", out_dtype=out_dtype)
+        return qtensor.matmul(x, w, out_dtype=out_dtype)
+
+    model_mod.matmul = routed
+    try:
+        need = ("quant_matmul_w4a8", "quantize_activations")
+        curves["int4 w4a8"], counts = width_curve(torch, models, "int4 w4a8", need=need)
+    finally:
+        model_mod.matmul = qtensor.matmul
+    add(counts)
+    log("[6] full width: panel-tiled int4 weights (tile_int4 over the projections and the head)")
+    models = (tile_model(models[0]),) + models[1:]
+    torch.cuda.empty_cache()
+    add(full_width(torch, gm, models, "tiled int4", PATH_KERNELS + ("quant_matmul_tiled",)))
+    curves["tiled int4"], _ = width_curve(torch, models, "tiled int4",
+                                          need=("quant_matmul_tiled",))
+    del models
+    torch.cuda.empty_cache()
+
     for e in kernels:
         e["launches"] = launches.get(e["name"], 0)
         if e["launches"] == 0:

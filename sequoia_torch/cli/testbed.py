@@ -8,11 +8,12 @@ per-token latency, decoding steps, large-model steps, accepted/step.
 Runs on the CUDA card (`--device cpu` only for small checks). Weights are
 random, from `--seed`; prompts are `synthetic:N,LEN`. `--quant int8|int4`
 quantizes the target's weights (random init straight into quantized
-layers). The quantized KV cache and offloading are not ported yet: their
-flags take only their "off" values.
+layers); `--kv-quant int8|int4` gives the target an int8 / int4 KV cache.
+Offloading is not ported yet: its flag takes only its "off" value.
 
     python -m sequoia_torch.cli.testbed --mode spec
     python -m sequoia_torch.cli.testbed --mode spec --quant int8
+    python -m sequoia_torch.cli.testbed --mode spec --kv-quant int4
 """
 
 from __future__ import annotations
@@ -98,8 +99,8 @@ def main(argv=None) -> None:
     ap.add_argument("--quant", default="none", choices=["none", "int8", "int4"],
                     help="target weight quantization (random init goes "
                          "straight to quantized layers)")
-    ap.add_argument("--kv-quant", default="none", choices=["none"],
-                    help="quantized target KV cache (not ported yet)")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8", "int4"],
+                    help="int8 / int4 target KV cache (per-row scales)")
     ap.add_argument("--offloading", action="store_true",
                     help="host-offloaded target weights (not ported yet)")
     ap.add_argument("--seed", type=int, default=17)
@@ -125,7 +126,8 @@ def main(argv=None) -> None:
     if args.mode == "baseline":
         ar = ARBaseline(target_params, target_cfg, max_length=args.M,
                         temperature=args.T, top_p=args.P,
-                        greedy=(args.algorithm == "greedy"), device=device)
+                        greedy=(args.algorithm == "greedy"), kv_quant=args.kv_quant,
+                        device=device)
         ar.generate(prompts[0], max_new_tokens=4)  # warm up
         for i, prompt in enumerate(prompts):
             hard_sync(device)
@@ -141,7 +143,8 @@ def main(argv=None) -> None:
         gm = load_growmap(args.growmap)
         eng = SpecEngine(draft_params, draft_cfg, target_params, target_cfg, gm,
                          algorithm=args.algorithm, max_length=args.M,
-                         temperature=args.T, top_p=args.P, device=device)
+                         temperature=args.T, top_p=args.P, kv_quant=args.kv_quant,
+                         device=device)
         phase_totals = {}
         bench = args.mode == "benchmark"
         eng.generate(prompts[0], max_new_tokens=4)  # warm up

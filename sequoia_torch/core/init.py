@@ -70,7 +70,9 @@ def params_from_numpy(tree, device=None, dtype=None) -> LlamaParams:
     array's float type (bf16 arrays from `ml_dtypes` go through f32). A
     quantized leaf (the JAX `QuantizedTensor`, or a dict with `q` and
     `scale`) becomes a `QuantizedTensor` with its int8 `q` and f32 `scale`
-    as they are; `dtype` applies to float leaves only."""
+    as they are, whatever q's layout: a panel-tiled int4 leaf (`tile_int4`:
+    q has one more axis than its scale) crosses with its panels unchanged;
+    `dtype` applies to float leaves only."""
     dev = resolve_device(device)
 
     def arr(a, dt=None):

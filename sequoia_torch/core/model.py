@@ -7,9 +7,13 @@ and target models.
   `x @ W` (`wq [L, E, H*D]`), the JAX layout, not `nn.Linear`'s transpose.
 - Queries of one forward occupy a contiguous KV slot window; RoPE uses the
   logical positions while rows are stored by physical slot.
-- Every float-cache attention goes through `kernels.tree_attention` (the
-  CUDA kernel on the card, its plain version on the CPU), with a main mask
-  and a scratch mask; write mode passes an empty scratch (S = 0).
+- Every attention goes through `kernels.tree_attention` (the CUDA kernel on
+  the card, its plain version on the CPU), with a main mask and a scratch
+  mask; write mode passes an empty scratch (S = 0). The main cache is a
+  float `KVCache`, or an int8 `KVCache8` / int4 `KVCache4` whose rows the
+  kernel reads as integers with their per-row scales; write mode quantizes
+  the new rows into the cache before attention, split mode leaves it
+  read-only. The scratch is always float.
 - Norms, attention softmax and final logits are f32. Every projection and
   the lm_head go through `quant.qtensor.matmul`: a float weight runs in the
   params dtype on `torch.matmul`, an int8 / packed-int4 `QuantizedTensor`
@@ -28,7 +32,7 @@ import torch
 from .config import LlamaConfig
 from ..kernels.tree_attention import tree_attention
 from ..quant.qtensor import WeightLike, layer, matmul
-from ..kvcache.cache import KVCache
+from ..kvcache.cache import KVCache, KVCache4, KVCache8
 
 
 class LayerParams(NamedTuple):
@@ -125,9 +129,11 @@ def forward(
       READ-ONLY; new rows go into the scratch at `[scratch_offset, +Q)`
       and attention runs over main ∪ scratch with the pair of masks.
     """
-    if not isinstance(kv, KVCache) or not isinstance(params.layers, LayerParams):
-        raise NotImplementedError(
-            "only float KV caches and device-resident LayerParams are ported")
+    if not isinstance(kv, (KVCache, KVCache8, KVCache4)):
+        raise TypeError(f"forward: unknown KV cache {type(kv).__name__}")
+    if not isinstance(params.layers, LayerParams):
+        raise NotImplementedError("only device-resident LayerParams are ported")
+    quantized_kv = not isinstance(kv, KVCache)
     Q = tokens.shape[0]
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     scale = D ** -0.5
@@ -143,8 +149,8 @@ def forward(
         rows = _window(scratch_offset, Q, dev)
     else:
         rows = _window(cache_offset, Q, dev)
-        # Write mode: an empty scratch region.
-        empty = kv.k.new_zeros((0, Hkv, D))
+        # Write mode: an empty scratch region, in the compute dtype.
+        empty = hidden.new_zeros((0, Hkv, D))
         scr_mask = torch.zeros((Q, 0), dtype=torch.bool, device=dev)
 
     for i in range(cfg.num_layers):
@@ -155,17 +161,22 @@ def forward(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-        k_cache, v_cache = kv.k[i], kv.v[i]  # [M, Hkv, D] views
+        k_cache, v_cache = kv.k[i], kv.v[i]  # one layer's rows, views
         if split:
             sk, sv = scratch.k[i], scratch.v[i]
             sk.index_copy_(0, rows, k.to(sk.dtype))  # in place
             sv.index_copy_(0, rows, v.to(sv.dtype))
         else:
-            k_cache.index_copy_(0, rows, k.to(k_cache.dtype))  # in place
-            v_cache.index_copy_(0, rows, v.to(v_cache.dtype))
+            if quantized_kv:
+                kv.write_rows(i, rows, k, v)  # quantized, in place
+            else:
+                k_cache.index_copy_(0, rows, k.to(k_cache.dtype))  # in place
+                v_cache.index_copy_(0, rows, v.to(v_cache.dtype))
             sk = sv = empty
         attn = tree_attention(q.contiguous(), k_cache, v_cache, attn_mask,
-                              sk, sv, scr_mask, scale=scale)
+                              sk, sv, scr_mask, scale=scale,
+                              ks=kv.ks[i] if quantized_kv else None,
+                              vs=kv.vs[i] if quantized_kv else None)
         hidden = hidden + matmul(attn.reshape(Q, H * D), layer(lp.wo, i))
 
         y = rms_norm(hidden, lp.mlp_norm[i], cfg.rms_norm_eps)

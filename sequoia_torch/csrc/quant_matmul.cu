@@ -46,27 +46,26 @@
 //   agreement, where bf16 tensor-core products would not.
 // - The output tile is staged through shared memory, so that the partials
 //   (or the scaled output) are stored as whole row segments.
+// - The panel-tiled int4 layout (quant_matmul_tiled, replacing the Pallas
+//   _kernel_int4_tiled): q[nt, K/2, 128], panel n holding columns
+//   [128 n, 128 n + 128) as contiguous 128-byte rows. A block's 128 columns
+//   are one panel, so the same block reads panel blockIdx.y at base
+//   n * (K/2) * 128 with a row stride of 128 bytes where the row-major
+//   layout has a stride of N. The logical N comes from the scale; the last
+//   panel's columns past N are computed on the stored zeros and not written.
+//   Nothing is padded or copied (the TPU wrapper pads q, x and the scale to
+//   block multiples).
 // Later work: wgmma with TMA loads and a producer warp, and a split that
 // adapts to R.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cstdint>
+#include "qmm_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;            // 4 warps
-constexpr int kBN = 128;                 // output columns per block, 32 per warp
-constexpr int kBK = 64;                  // logical k per stage
-constexpr int kWStride = kBN + 16;       // bytes per q row in shared memory
-constexpr int kXStride = kBK + 8;        // bf16 per x row in shared memory
-constexpr int kStages = 4;               // shared-memory stages: 3 in flight
-constexpr int kOutStride = kBN + 1;      // floats per output row staged in shared memory
+using namespace qmm;
 
-__device__ __forceinline__ void store_out(void* out, int64_t i, float v, int out_bf16) {
-  if (out_bf16) static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
-  else static_cast<float*>(out)[i] = v;
-}
+constexpr int kBK = 64;                  // logical k per stage
+constexpr int kXStride = kBK + 8;        // bf16 per x row in shared memory
 
 // Byte j of `u` (an unsigned value in [0, 256)) as 2^23 + byte, minus `bias`.
 __device__ __forceinline__ float magic(uint32_t u, int j, float bias) {
@@ -94,44 +93,32 @@ struct Smem {
   alignas(16) __nv_bfloat16 x[16 * MT * kXStride];
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  // src-size 0 zero-fills the 16 bytes without reading src.
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
 // Start copying one stage into `sm`: q rows [kq0, kq0 + kRows) of the
 // block's 128 columns, and x's matching columns (int4: the low-half columns
-// kq0.. and the high-half K/2 + kq0..) of the block's 16*MT rows. Rows,
-// columns and k past the ends are zero. VEC: 16-byte cp.async, in flight
-// until cp_async_wait; otherwise byte / element loads stored at once.
+// kq0.. and the high-half K/2 + kq0..) of the block's 16*MT rows. `qt` points
+// at the block's first column in q row 0, `ldq` is q's row stride and `ncols`
+// the number of its columns that exist. Rows, columns and k past the ends are
+// zero. VEC: 16-byte cp.async, in flight until cp_async_wait; otherwise byte
+// / element loads stored at once.
 template <int BITS, int MT, bool VEC>
-__device__ __forceinline__ void load_stage(Smem<BITS, MT>& sm, const int8_t* __restrict__ q,
+__device__ __forceinline__ void load_stage(Smem<BITS, MT>& sm, const int8_t* __restrict__ qt,
+                                           int ldq, int ncols,
                                            const __nv_bfloat16* __restrict__ xg, int R, int K,
-                                           int N, int r0, int n0, int kq0, int kq_end) {
+                                           int r0, int kq0, int kq_end) {
   constexpr int kRows = Smem<BITS, MT>::kRows;
   constexpr int kWPer = kRows * kBN / 16 / kThreads;   // 16-byte pieces per thread
   constexpr int kXPer = 16 * MT * kBK / 8 / kThreads;
 #pragma unroll
   for (int i = 0; i < kWPer; ++i) {
     const int c = threadIdx.x + i * kThreads;
-    const int kq = kq0 + c / 8, n = n0 + (c % 8) * 16;
-    const int8_t* src = q + static_cast<int64_t>(kq) * N + n;
-    uint8_t* dst = &sm.w[(c / 8) * kWStride + (c % 8) * 16];
+    const int kq = kq0 + c / 8, col = (c % 8) * 16;
+    const int8_t* src = qt + static_cast<int64_t>(kq) * ldq + col;
+    uint8_t* dst = &sm.w[(c / 8) * kWStride + col];
     if (VEC) {
-      const bool ok = kq < kq_end && n < N;
-      cp_async16(dst, ok ? src : q, ok);
+      const bool ok = kq < kq_end && col < ncols;
+      cp_async16(dst, ok ? src : qt, ok);
     } else {
-      uint32_t v[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int b = 0; b < 16; ++b)
-        if (kq < kq_end && n + b < N)
-          v[b / 4] |= uint32_t(static_cast<uint8_t>(src[b])) << (8 * (b % 4));
-      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      copy16_bytes(dst, src, kq < kq_end, col, ncols);
     }
   }
 #pragma unroll
@@ -197,7 +184,7 @@ __global__ void __launch_bounds__(kThreads)
 quant_matmul_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                  const float* __restrict__ scale, void* __restrict__ out,
                  float* __restrict__ partial, int R, int K, int N, int kq_per_split,
-                 int out_bf16) {
+                 int64_t panel_stride, int out_bf16) {
   using Sm = Smem<BITS, MT>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   Sm* bufs = reinterpret_cast<Sm*>(smem_raw);   // kStages stages
@@ -207,6 +194,11 @@ quant_matmul_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   const int kq_end = min(kq_begin + kq_per_split, Kq);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  // Row-major q[Kq, N]: the block's columns start at n0, rows are N apart.
+  // Panel-tiled q[nt, Kq, 128] (panel_stride = Kq * 128): panel blockIdx.y.
+  const int8_t* qt = panel_stride ? q + blockIdx.y * panel_stride : q + n0;
+  const int ldq = panel_stride ? kBN : N;
+  const int ncols = panel_stride ? kBN : N - n0;
 
   float acc[MT][4][4];
 #pragma unroll
@@ -220,7 +212,8 @@ quant_matmul_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     const int kq = kq_begin + st * Sm::kRows;
-    if (kq < kq_end) load_stage<BITS, MT, VEC>(bufs[st], q, x, R, K, N, r0, n0, kq, kq_end);
+    if (kq < kq_end)
+      load_stage<BITS, MT, VEC>(bufs[st], qt, ldq, ncols, x, R, K, r0, kq, kq_end);
     cp_async_commit();
   }
   int it = 0;
@@ -229,8 +222,8 @@ quant_matmul_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     __syncthreads();                // everyone's; and stage it-1 is no longer read
     const int kq_next = kq0 + (kStages - 1) * Sm::kRows;
     if (kq_next < kq_end)
-      load_stage<BITS, MT, VEC>(bufs[(it + kStages - 1) % kStages], q, x, R, K, N, r0, n0,
-                                kq_next, kq_end);
+      load_stage<BITS, MT, VEC>(bufs[(it + kStages - 1) % kStages], qt, ldq, ncols, x, R, K,
+                                r0, kq_next, kq_end);
     cp_async_commit();
     const Sm& sm = bufs[it % kStages];
     // This lane's q word: columns 4g .. 4g+3 of the warp's 32.
@@ -313,16 +306,19 @@ template <int BITS>
 __global__ void __launch_bounds__(kThreads)
 quant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ q,
                  const float* __restrict__ scale, void* __restrict__ out, int R, int K,
-                 int N, int out_bf16) {
+                 int N, int64_t panel_stride, int out_bf16) {
   const int n = blockIdx.x * kThreads + threadIdx.x;
   const int r0 = blockIdx.y * kRowsF;
   if (n >= N) return;
   const int Kq = BITS == 8 ? K : K / 2;
+  // This column in q row 0, and q's row stride (panels: see the file note).
+  const int8_t* qn = panel_stride ? q + (n / kBN) * panel_stride + n % kBN : q + n;
+  const int ldq = panel_stride ? kBN : N;
   float acc[kRowsF];
 #pragma unroll
   for (int r = 0; r < kRowsF; ++r) acc[r] = 0.f;
   for (int k = 0; k < Kq; ++k) {
-    const int b = q[static_cast<int64_t>(k) * N + n];
+    const int b = qn[static_cast<int64_t>(k) * ldq];
     if (BITS == 8) {
       const float w = static_cast<float>(b);
 #pragma unroll
@@ -348,7 +344,7 @@ quant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ q,
 template <int BITS, int MT, bool VEC>
 cudaError_t launch_mma(const void* x, const void* q, const float* scale, void* out,
                        float* partial, int R, int K, int N, int splits, int kq_per_split,
-                       int out_bf16, cudaStream_t stream) {
+                       int64_t panel_stride, int out_bf16, cudaStream_t stream) {
   const dim3 grid((R + 16 * MT - 1) / (16 * MT), (N + kBN - 1) / kBN, splits);
   constexpr int kSmem = kStages * static_cast<int>(sizeof(Smem<BITS, MT>));
   static_assert(16 * MT * kOutStride * 4 <= kSmem, "the output tile reuses the stages");
@@ -361,23 +357,25 @@ cudaError_t launch_mma(const void* x, const void* q, const float* scale, void* o
   }
   quant_matmul_mma<BITS, MT, VEC><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q), scale, out,
-      splits > 1 ? partial : nullptr, R, K, N, kq_per_split, out_bf16);
+      splits > 1 ? partial : nullptr, R, K, N, kq_per_split, panel_stride, out_bf16);
   return cudaGetLastError();
 }
 
+// tiled: q is the panel layout [ceil(N / 128), K/2, 128] (int4 only).
 template <int BITS>
 int launch(const void* x, const void* q, const void* scale, void* out, void* partial,
            int R, int K, int N, int splits, int kq_per_split, int x_dtype, int out_dtype,
-           void* stream) {
+           bool tiled, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   if (R <= 0 || N <= 0 || K <= 0 || (BITS == 4 && K % 2) || out_dtype < 0 || out_dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t panel_stride = tiled ? static_cast<int64_t>(K / 2) * kBN : 0;
   if (x_dtype == 0) {   // f32 x: CUDA cores, no split
     const dim3 grid((N + kThreads - 1) / kThreads, (R + kRowsF - 1) / kRowsF);
     quant_matmul_f32<BITS><<<grid, kThreads, 0, st>>>(static_cast<const float*>(x),
                                                       static_cast<const int8_t*>(q), sc,
-                                                      out, R, K, N, out_dtype);
+                                                      out, R, K, N, panel_stride, out_dtype);
     return static_cast<int>(cudaGetLastError());
   }
   if (x_dtype != 1 || splits < 1 || (splits > 1 && (partial == nullptr || kq_per_split <= 0)))
@@ -386,14 +384,16 @@ int launch(const void* x, const void* q, const void* scale, void* out, void* par
   if (splits == 1) kq_per_split = Kq;   // one split: the tail stage is masked
   else if (kq_per_split % Smem<BITS, 1>::kRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = N % 16 == 0 && K % (BITS == 8 ? 8 : 16) == 0;
+  // 16-byte copies need 16-byte row starts: x rows always, q rows unless
+  // they are 128-byte panel rows.
+  const bool vec = (tiled || N % 16 == 0) && K % (BITS == 8 ? 8 : 16) == 0;
   float* ws = static_cast<float*>(partial);
   cudaError_t err;
 #define SEQ_QMM_CASE(MT)                                                                \
   err = vec ? launch_mma<BITS, MT, true>(x, q, sc, out, ws, R, K, N, splits,            \
-                                         kq_per_split, out_dtype, st)                   \
+                                         kq_per_split, panel_stride, out_dtype, st)     \
             : launch_mma<BITS, MT, false>(x, q, sc, out, ws, R, K, N, splits,           \
-                                          kq_per_split, out_dtype, st);
+                                          kq_per_split, panel_stride, out_dtype, st);
   if (R <= 16) {
     SEQ_QMM_CASE(1)
   } else if (R <= 32) {
@@ -423,14 +423,25 @@ int sequoia_quant_matmul_int8(const void* x, const void* q, const void* scale, v
                               void* partial, int R, int K, int N, int splits,
                               int kq_per_split, int x_dtype, int out_dtype, void* stream) {
   return launch<8>(x, q, scale, out, partial, R, K, N, splits, kq_per_split, x_dtype,
-                   out_dtype, stream);
+                   out_dtype, false, stream);
 }
 
 int sequoia_quant_matmul_int4(const void* x, const void* q, const void* scale, void* out,
                               void* partial, int R, int K, int N, int splits,
                               int kq_per_split, int x_dtype, int out_dtype, void* stream) {
   return launch<4>(x, q, scale, out, partial, R, K, N, splits, kq_per_split, x_dtype,
-                   out_dtype, stream);
+                   out_dtype, false, stream);
+}
+
+// The same product over the panel-tiled layout q [ceil(N / 128), K/2, 128]
+// (panel n holds columns [128 n, 128 n + 128), zero past N); N is the logical
+// width, the length of scale.
+int sequoia_quant_matmul_int4_tiled(const void* x, const void* q, const void* scale,
+                                    void* out, void* partial, int R, int K, int N,
+                                    int splits, int kq_per_split, int x_dtype,
+                                    int out_dtype, void* stream) {
+  return launch<4>(x, q, scale, out, partial, R, K, N, splits, kq_per_split, x_dtype,
+                   out_dtype, true, stream);
 }
 
 }  // extern "C"

@@ -10,6 +10,22 @@
 // (no NaN); probabilities are rounded to V's dtype before the PV product,
 // which accumulates in f32. Output [Q, H, D] in q's dtype.
 //
+// The main cache may also be quantized (sequoia_tpu/kvcache/cache.py::
+// KVCache8 / KVCache4, which the JAX model reads through XLA einsums,
+// core/model.py:263-338): int8 rows [M, Hkv, D], or int4 rows packed two to a
+// byte, head-paired [M, Hkv/2, D] (byte [m, j, d]: head 2j low nibble, head
+// 2j+1 high) or dsplit [M, Hkv, D/2] (byte d: dim d low, dim D/2 + d high),
+// with f32 scales ks, vs [M, Hkv]. The integers are cast exactly to q's
+// dtype; a main score is dot * scale * ks[m, kh] before the mask; a main
+// probability is multiplied by vs[m, kh] before it is rounded to q's dtype
+// for the PV product; the softmax still runs once over main and scratch. The
+// scratch is always float. Rows never written have scale 0 and are masked.
+// A tile's rows cross device memory as integers (a half or a quarter of the
+// bf16 bytes) in 16-byte loads and are expanded on their way from registers
+// to shared memory, so the score and PV loops are the float kernel's. (The
+// kernel is not bound by bytes yet, so the expansion's instructions cost
+// more than the smaller rows save: PERF.md has the times.)
+//
 // Bound on the H100: bytes. At the verify shape (Q = 64, H = Hkv = 32,
 // D = 128, M = 256, S = 64, bf16) one layer must read about 4.2 MB of K/V
 // (about 1.3 us at 3.35 TB/s) against about 0.17 GFLOP of dot products.
@@ -51,6 +67,23 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // 4-byte banks (odd word stride).
 template <typename T, int D> struct Pad { static constexpr int kStride = D + 4 / int(sizeof(T)); };
 
+// Formats of the main cache.
+constexpr int kFloat = 0, kInt8 = 1, kInt4Head = 2, kInt4Dsplit = 3;
+
+// dst[0], dst[1] = a, b (dst 4-byte aligned).
+__device__ __forceinline__ void store2(float* dst, float a, float b) { dst[0] = a; dst[1] = b; }
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+// Byte i of the words `w` as a signed value; its nibbles, sign-extended.
+__device__ __forceinline__ int byte_at(const uint32_t* w, int i) {
+  return static_cast<int8_t>(w[i / 4] >> (8 * (i % 4)));
+}
+__device__ __forceinline__ int nib_lo(int b) {
+  return static_cast<int8_t>(static_cast<uint32_t>(b) << 4) >> 4;
+}
+__device__ __forceinline__ int nib_hi(int b) { return b >> 4; }
+
 template <typename T, int D>
 struct Smem {
   float q[kQT][D + 1];
@@ -62,63 +95,125 @@ struct Smem {
 // Registers that carry one K tile and one V tile from device memory to
 // shared memory: 16-byte loads, all issued before any is used, so a tile
 // costs one memory latency, and the next tile's loads are in flight while
-// the current tile is computed.
-template <typename T, int D>
+// the current tile is computed. KV is the format in device memory; shared
+// memory always holds T. A quantized tile also carries the scales of the
+// keys whose scores this thread computes (keys lane + 8c of the tile).
+template <typename T, int D, int KV>
 struct TileRegs {
-  static constexpr int kVec = 16 / int(sizeof(T));   // elements per load
-  static constexpr int kVecs = kTK * D / kVec;       // loads per tile and tensor
+  // Bytes of one (key, head) row in device memory, and per load: a dsplit
+  // row at D = 16 has 8 bytes, every other row 16 or more.
+  static constexpr int kRowBytes = KV == kFloat ? D * int(sizeof(T)) : KV == kInt4Dsplit ? D / 2 : D;
+  static constexpr int kVecBytes = kRowBytes < 16 ? kRowBytes : 16;
+  static constexpr int kWords = kVecBytes / 4;
+  static constexpr int kVecs = kTK * kRowBytes / kVecBytes;   // loads per tile and tensor
   static constexpr int kPer = (kVecs + kThreads - 1) / kThreads;
-  uint4 k[kPer], v[kPer];
+  static constexpr int kKeys = kTK / kLanes;
+  uint32_t k[kPer][kWords], v[kPer][kWords];
+  float ks[kKeys], vs[kKeys];
 
-  __device__ void load(const T* __restrict__ kc, const T* __restrict__ vc,
-                       int base, int len, int Hkv, int kh) {
+  // `hs` heads are stored per key and this block reads stored head `hh`
+  // (head-paired int4: Hkv / 2 and kh / 2; otherwise Hkv and kh).
+  __device__ void load(const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
+                       const float* __restrict__ ksc, const float* __restrict__ vsc,
+                       int base, int len, int hs, int hh, int Hkv, int kh) {
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int vi = threadIdx.x + u * kThreads;
-      const int e = vi * kVec, j = e / D, d = e % D, key = base + j;
+      const int e = vi * kVecBytes, j = e / kRowBytes, b = e % kRowBytes, key = base + j;
       const bool ok = vi < kVecs && key < len;
-      const int64_t off = (static_cast<int64_t>(key) * Hkv + kh) * D + d;
-      k[u] = ok ? *reinterpret_cast<const uint4*>(kc + off) : make_uint4(0, 0, 0, 0);
-      v[u] = ok ? *reinterpret_cast<const uint4*>(vc + off) : make_uint4(0, 0, 0, 0);
+      const int64_t off = (static_cast<int64_t>(key) * hs + hh) * kRowBytes + b;
+      if constexpr (kWords == 4) {
+        const uint4 zero = make_uint4(0, 0, 0, 0);
+        const uint4 a = ok ? *reinterpret_cast<const uint4*>(kc + off) : zero;
+        const uint4 c = ok ? *reinterpret_cast<const uint4*>(vc + off) : zero;
+        k[u][0] = a.x; k[u][1] = a.y; k[u][2] = a.z; k[u][3] = a.w;
+        v[u][0] = c.x; v[u][1] = c.y; v[u][2] = c.z; v[u][3] = c.w;
+      } else {
+        const uint2 zero = make_uint2(0, 0);
+        const uint2 a = ok ? *reinterpret_cast<const uint2*>(kc + off) : zero;
+        const uint2 c = ok ? *reinterpret_cast<const uint2*>(vc + off) : zero;
+        k[u][0] = a.x; k[u][1] = a.y;
+        v[u][0] = c.x; v[u][1] = c.y;
+      }
+    }
+    if (KV != kFloat) {
+      const int lane = threadIdx.x % kLanes;
+#pragma unroll
+      for (int c = 0; c < kKeys; ++c) {
+        const int key = base + lane + kLanes * c;
+        ks[c] = key < len ? ksc[static_cast<int64_t>(key) * Hkv + kh] : 0.f;
+        vs[c] = key < len ? vsc[static_cast<int64_t>(key) * Hkv + kh] : 0.f;
+      }
     }
   }
 
-  __device__ void store(Smem<T, D>& sm) const {
+  // One loaded vector of row bytes [b, b + kVecBytes) into the row `dst`.
+  __device__ static void expand(T* dst, const uint32_t* w, int b, int odd_head) {
+    if constexpr (KV == kFloat) {
+      // Padded rows are 4-byte aligned, not 16: store word by word.
+      uint32_t* d = reinterpret_cast<uint32_t*>(dst + b / int(sizeof(T)));
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) d[i] = w[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVecBytes; i += 2) {
+        const int b0 = byte_at(w, i), b1 = byte_at(w, i + 1);
+        if (KV == kInt8) {
+          store2(dst + b + i, float(b0), float(b1));
+        } else if (KV == kInt4Head) {
+          store2(dst + b + i, float(odd_head ? nib_hi(b0) : nib_lo(b0)),
+                 float(odd_head ? nib_hi(b1) : nib_lo(b1)));
+        } else {
+          store2(dst + b + i, float(nib_lo(b0)), float(nib_lo(b1)));
+          store2(dst + D / 2 + b + i, float(nib_hi(b0)), float(nib_hi(b1)));
+        }
+      }
+    }
+  }
+
+  __device__ void store(Smem<T, D>& sm, int odd_head) const {
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int vi = threadIdx.x + u * kThreads;
       if (vi >= kVecs) continue;
-      const int e = vi * kVec, j = e / D, d = e % D;
-      // Padded rows are 4-byte aligned, not 16: store word by word.
-      const uint32_t* ks = reinterpret_cast<const uint32_t*>(&k[u]);
-      const uint32_t* vs = reinterpret_cast<const uint32_t*>(&v[u]);
-      uint32_t* kd = reinterpret_cast<uint32_t*>(&sm.k[j][d]);
-      uint32_t* vd = reinterpret_cast<uint32_t*>(&sm.v[j][d]);
-#pragma unroll
-      for (int w = 0; w < 4; ++w) { kd[w] = ks[w]; vd[w] = vs[w]; }
+      const int e = vi * kVecBytes, j = e / kRowBytes, b = e % kRowBytes;
+      expand(&sm.k[j][0], k[u], b, odd_head);
+      expand(&sm.v[j][0], v[u], b, odd_head);
     }
   }
 };
 
-// One region (main cache or scratch): `len` rows of [Hkv, D], mask [Q, len].
-template <typename T, int D>
-__device__ void attend_region(Smem<T, D>& sm, const T* __restrict__ kc,
-                              const T* __restrict__ vc,
+// One region (main cache or scratch): `len` rows in format KV (scales ksc,
+// vsc [len, Hkv] when quantized), mask [Q, len].
+template <typename T, int D, int KV>
+__device__ void attend_region(Smem<T, D>& sm, const void* __restrict__ kc_,
+                              const void* __restrict__ vc_,
+                              const float* __restrict__ ksc, const float* __restrict__ vsc,
                               const uint8_t* __restrict__ mask, int len,
                               int q0, int Q, int Hkv, int kh, float scale,
                               float& m, float& l, float (&acc)[D / kLanes]) {
+  const uint8_t* kc = static_cast<const uint8_t*>(kc_);
+  const uint8_t* vc = static_cast<const uint8_t*>(vc_);
+  const int hs = KV == kInt4Head ? Hkv / 2 : Hkv, hh = KV == kInt4Head ? kh / 2 : kh;
+  const int odd_head = kh & 1;
   const int tid = threadIdx.x;
   const int r = tid / kLanes, lane = tid % kLanes;
   const int q = q0 + r;
   constexpr int kCols = D / kLanes;
   constexpr int kKeys = kTK / kLanes;
-  TileRegs<T, D> regs;
-  if (len > 0) regs.load(kc, vc, 0, len, Hkv, kh);
+  TileRegs<T, D, KV> regs;
+  if (len > 0) regs.load(kc, vc, ksc, vsc, 0, len, hs, hh, Hkv, kh);
   for (int base = 0; base < len; base += kTK) {
     __syncthreads();  // the previous tile's readers are done
-    regs.store(sm);
+    regs.store(sm, odd_head);
+    float kscale[kKeys], vscale[kKeys];   // this tile's, before the next load overwrites them
+#pragma unroll
+    for (int c = 0; c < kKeys; ++c) {
+      kscale[c] = KV != kFloat ? regs.ks[c] : 1.f;
+      vscale[c] = KV != kFloat ? regs.vs[c] : 1.f;
+    }
     __syncthreads();
-    if (base + kTK < len) regs.load(kc, vc, base + kTK, len, Hkv, kh);
+    if (base + kTK < len) regs.load(kc, vc, ksc, vsc, base + kTK, len, hs, hh, Hkv, kh);
 
     // Scores of this thread's kKeys keys: d outer, so the kKeys dot
     // products are independent chains and q[r][d] is read once.
@@ -137,7 +232,7 @@ __device__ void attend_region(Smem<T, D>& sm, const T* __restrict__ kc,
       const int key = base + lane + kLanes * c;
       const bool live = q < Q && key < len &&
                         mask[static_cast<int64_t>(q) * len + key] != 0;
-      s[c] = live ? s[c] * scale : kNeg;
+      s[c] = !live ? kNeg : KV != kFloat ? s[c] * scale * kscale[c] : s[c] * scale;
       tmax = fmaxf(tmax, s[c]);
     }
 #pragma unroll
@@ -150,7 +245,8 @@ __device__ void attend_region(Smem<T, D>& sm, const T* __restrict__ kc,
     for (int c = 0; c < kKeys; ++c) {
       const float p = expf(s[c] - m_new);
       psum += p;
-      sm.p[r][lane + kLanes * c] = to_f(from_f<T>(p));  // probs in V's dtype
+      // probs (main, quantized: times the row's V scale) in q's dtype
+      sm.p[r][lane + kLanes * c] = to_f(from_f<T>(KV != kFloat ? p * vscale[c] : p));
     }
 #pragma unroll
     for (int o = kLanes / 2; o > 0; o >>= 1)
@@ -169,10 +265,11 @@ __device__ void attend_region(Smem<T, D>& sm, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int KV>
 __global__ void __launch_bounds__(kThreads)
-tree_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
+tree_attention_kernel(const T* __restrict__ q, const void* __restrict__ k,
+                      const void* __restrict__ v, const float* __restrict__ ks,
+                      const float* __restrict__ vs, const uint8_t* __restrict__ mask,
                       const T* __restrict__ sk, const T* __restrict__ sv,
                       const uint8_t* __restrict__ smask, T* __restrict__ out,
                       int Q, int H, int Hkv, int M, int S, float scale) {
@@ -188,8 +285,9 @@ tree_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[D / kLanes];
 #pragma unroll
   for (int c = 0; c < D / kLanes; ++c) acc[c] = 0.f;
-  attend_region<T, D>(sm, k, v, mask, M, q0, Q, Hkv, kh, scale, m, l, acc);
-  attend_region<T, D>(sm, sk, sv, smask, S, q0, Q, Hkv, kh, scale, m, l, acc);
+  attend_region<T, D, KV>(sm, k, v, ks, vs, mask, M, q0, Q, Hkv, kh, scale, m, l, acc);
+  attend_region<T, D, kFloat>(sm, sk, sv, nullptr, nullptr, smask, S, q0, Q, Hkv, kh, scale, m,
+                              l, acc);
 
   const int r = tid / kLanes, lane = tid % kLanes, qq = q0 + r;
   if (qq < Q) {
@@ -202,17 +300,17 @@ tree_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
-                   const void* sk, const void* sv, const void* smask, void* out,
-                   int Q, int H, int Hkv, int D, int M, int S, float scale,
-                   cudaStream_t stream) {
+template <typename T, int KV>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
+                   const void* vs, const void* mask, const void* sk, const void* sv,
+                   const void* smask, void* out, int Q, int H, int Hkv, int D, int M, int S,
+                   float scale, cudaStream_t stream) {
   const dim3 grid((Q + kQT - 1) / kQT, H), block(kThreads);
 #define SEQ_TA_CASE(DD)                                                        \
   if (D == DD) {                                                               \
-    tree_attention_kernel<T, DD><<<grid, block, 0, stream>>>(                  \
-        static_cast<const T*>(q), static_cast<const T*>(k),                    \
-        static_cast<const T*>(v), static_cast<const uint8_t*>(mask),           \
+    tree_attention_kernel<T, DD, KV><<<grid, block, 0, stream>>>(              \
+        static_cast<const T*>(q), k, v, static_cast<const float*>(ks),         \
+        static_cast<const float*>(vs), static_cast<const uint8_t*>(mask),      \
         static_cast<const T*>(sk), static_cast<const T*>(sv),                  \
         static_cast<const uint8_t*>(smask), static_cast<T*>(out), Q, H, Hkv,   \
         M, S, scale);                                                          \
@@ -226,26 +324,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+int launch_format(int kv_format, const void* q, const void* k, const void* v, const void* ks,
+                  const void* vs, const void* mask, const void* sk, const void* sv,
+                  const void* smask, void* out, int Q, int H, int Hkv, int D, int M, int S,
+                  float scale, cudaStream_t st) {
+  if (kv_format != kFloat && (ks == nullptr || vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define SEQ_TA_FORMAT(KV)                                                      \
+  if (kv_format == KV)                                                         \
+    return static_cast<int>(launch<T, KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, Q, H, \
+                                          Hkv, D, M, S, scale, st));
+  SEQ_TA_FORMAT(kFloat)
+  SEQ_TA_FORMAT(kInt8)
+  SEQ_TA_FORMAT(kInt4Head)
+  SEQ_TA_FORMAT(kInt4Dsplit)
+#undef SEQ_TA_FORMAT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Masks are uint8 (torch.bool) [Q, M] and
-// [Q, S]; S may be 0 (then sk, sv and smask are not read). Head dim D must be
-// one of 16, 32, 64, 128; the wrapper checks it.
-int sequoia_tree_attention(const void* q, const void* k, const void* v,
-                           const void* mask, const void* sk, const void* sv,
-                           const void* smask, void* out, int Q, int H, int Hkv,
-                           int D, int M, int S, float scale, int dtype,
-                           void* stream) {
+// dtype (of q, the scratch and the output): 0 = float32, 1 = bfloat16.
+// kv_format of the main cache k, v: 0 = the same float type [M, Hkv, D];
+// 1 = int8 [M, Hkv, D]; 2 = int4 head-paired [M, Hkv/2, D] (Hkv even);
+// 3 = int4 dsplit [M, Hkv, D/2]; 1..3 with float32 scales ks, vs [M, Hkv]
+// (else not read). Masks are uint8 (torch.bool) [Q, M] and [Q, S]; S may be 0
+// (then sk, sv and smask are not read). Head dim D must be one of 16, 32, 64,
+// 128; the wrapper checks it.
+int sequoia_tree_attention(const void* q, const void* k, const void* v, const void* ks,
+                           const void* vs, const void* mask, const void* sk,
+                           const void* sv, const void* smask, void* out, int Q, int H,
+                           int Hkv, int D, int M, int S, float scale, int dtype,
+                           int kv_format, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_format == kInt4Head && Hkv % 2) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return static_cast<int>(launch<float>(q, k, v, mask, sk, sv, smask, out, Q,
-                                          H, Hkv, D, M, S, scale, st));
+    return launch_format<float>(kv_format, q, k, v, ks, vs, mask, sk, sv, smask, out, Q, H,
+                                Hkv, D, M, S, scale, st);
   if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(q, k, v, mask, sk, sv, smask,
-                                                  out, Q, H, Hkv, D, M, S,
-                                                  scale, st));
+    return launch_format<__nv_bfloat16>(kv_format, q, k, v, ks, vs, mask, sk, sv, smask, out,
+                                        Q, H, Hkv, D, M, S, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

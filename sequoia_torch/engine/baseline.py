@@ -18,7 +18,7 @@ import torch
 
 from ..core.config import LlamaConfig
 from ..core.model import LlamaParams, forward
-from ..kvcache.cache import KVCache
+from ..kvcache.cache import KV_CACHES, KVCache
 from ..ops import masks
 from ..ops.sampling import sample_categorical_probs, target_probs
 from ..utils import make_generator
@@ -28,7 +28,7 @@ from ..utils import make_generator
 class ARState:
     tokens: torch.Tensor       # long [max_length]
     n: torch.Tensor            # long 0-d committed length
-    kv: KVCache
+    kv: KVCache                # or KVCache8 / KVCache4
     last_logits: torch.Tensor  # f32 [vocab] logits at the last committed token
     gen: torch.Generator
     terminal: torch.Tensor     # bool 0-d
@@ -66,8 +66,9 @@ class ARBaseline:
     ) -> None:
         from ..utils import resolve_device
 
-        if kv_quant not in (None, "none"):
-            raise NotImplementedError("quantized KV caches are not ported yet")
+        if kv_quant not in KV_CACHES:
+            raise ValueError(f"kv_quant must be one of none, int8, int4; got {kv_quant!r}")
+        self.kv_quant = None if kv_quant == "none" else kv_quant
         self.device = resolve_device(device)
         if params.embed.device != self.device:
             raise ValueError(f"params on {params.embed.device}, engine on {self.device}")
@@ -131,8 +132,8 @@ class ARBaseline:
         state = ARState(
             tokens=torch.zeros(self.max_length, dtype=torch.long, device=self.device),
             n=torch.tensor(plen, dtype=torch.long, device=self.device),
-            kv=KVCache.init(self.cfg, self.max_length, self.params.embed.dtype,
-                            self.device),
+            kv=KV_CACHES[self.kv_quant].init(
+                self.cfg, self.max_length, self.params.embed.dtype, device=self.device),
             last_logits=torch.zeros(self.cfg.vocab_size, dtype=torch.float32,
                                     device=self.device),
             gen=make_generator(seed, self.device),

@@ -32,7 +32,7 @@ import torch
 
 from ..core.config import LlamaConfig
 from ..core.model import LlamaParams, forward
-from ..kvcache.cache import KVCache
+from ..kvcache.cache import KV_CACHES, KVCache, KVCache4
 from ..ops import masks
 from ..ops.sampling import (
     gumbel,
@@ -61,7 +61,7 @@ class DecodeState:
     tokens: torch.Tensor             # long [max_length] committed + live tree slots
     gtl: torch.Tensor                # long 0-d committed length (root = slot gtl-1)
     draft_kv: KVCache
-    target_kv: KVCache
+    target_kv: KVCache               # or KVCache8 / KVCache4 (kv_quant)
     root_draft_logits: torch.Tensor  # f32 [vocab] draft logits at the root
     gen: torch.Generator
     terminal: torch.Tensor           # bool 0-d
@@ -126,8 +126,8 @@ class SpecEngine:
             raise NotImplementedError(f"walk={walk!r} is not ported yet (only 'node')")
         if mesh is not None or shard_draft:
             raise NotImplementedError("tensor parallelism is not ported yet")
-        if kv_quant not in (None, "none"):
-            raise NotImplementedError("quantized KV caches are not ported yet")
+        if kv_quant not in KV_CACHES:
+            raise ValueError(f"kv_quant must be one of none, int8, int4; got {kv_quant!r}")
         if draft_cfg.vocab_size != target_cfg.vocab_size:
             raise ValueError("draft and target vocabularies differ")
         if algorithm in ("sequoia", "specinfer", "greedys") and temperature <= 0.0:
@@ -143,6 +143,12 @@ class SpecEngine:
         self.growmap = growmap
         self.algorithm = algorithm
         self.walk = walk
+        # Optional int8 / int4 target KV cache (per-row scales): the rows the
+        # verify and the AR step read are a half / a quarter of the bf16
+        # bytes. The draft's cache and both tree scratches stay float. With
+        # one card the int4 packing is "head" when Hkv is even, else "dsplit".
+        self.kv_quant = None if kv_quant == "none" else kv_quant
+        self._kv4_packing = "head" if target_cfg.num_kv_heads % 2 == 0 else "dsplit"
         self.max_length = max_length
         self.temperature = temperature
         self.top_p = top_p
@@ -186,6 +192,14 @@ class SpecEngine:
     # Prefill
     # ------------------------------------------------------------------
 
+    def _target_cache(self):
+        if self.kv_quant == "int4":
+            return KVCache4.init(self.target_cfg, self.max_length,
+                                 packing=self._kv4_packing, device=self.device)
+        return KV_CACHES[self.kv_quant].init(
+            self.target_cfg, self.max_length, self.target_params.embed.dtype,
+            device=self.device)
+
     def prefill(self, prompt: np.ndarray, seed: int = 0) -> DecodeState:
         """Chunked prefill of both caches. The tail chunk shrinks so no
         write passes `max_length` (`sequoia_tpu/engine/engine.py:279-284`)."""
@@ -200,8 +214,7 @@ class SpecEngine:
             gtl=torch.tensor(plen, dtype=torch.long, device=dev),
             draft_kv=KVCache.init(self.draft_cfg, self.max_length,
                                   self.draft_params.embed.dtype, dev),
-            target_kv=KVCache.init(self.target_cfg, self.max_length,
-                                   self.target_params.embed.dtype, dev),
+            target_kv=self._target_cache(),
             root_draft_logits=torch.zeros(self.vocab, dtype=torch.float32, device=dev),
             gen=make_generator(seed, dev),
             terminal=torch.zeros((), dtype=torch.bool, device=dev),

@@ -36,8 +36,8 @@ _c_void_p, _c_int, _c_float, _c_double = (ctypes.c_void_p, ctypes.c_int,
 # name -> argtypes of every exported C function (restype is int: a
 # cudaError_t, 0 on success).
 SIGNATURES = {
-    "sequoia_tree_attention": [_c_void_p] * 8 + [_c_int] * 6
-    + [_c_float, _c_int, _c_void_p],
+    "sequoia_tree_attention": [_c_void_p] * 10 + [_c_int] * 6
+    + [_c_float, _c_int, _c_int, _c_void_p],
     "sequoia_top_p_from_logits": [_c_void_p, _c_void_p, _c_int, _c_int,
                                   _c_double, _c_float, _c_void_p],
     "sequoia_top_p_fused": [_c_void_p, _c_void_p, _c_int, _c_int, _c_double,
@@ -45,11 +45,17 @@ SIGNATURES = {
     "sequoia_top_p_max_vocab": [],
     "sequoia_quant_matmul_int8": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
     "sequoia_quant_matmul_int4": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
+    "sequoia_quant_matmul_int4_tiled": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
+    "sequoia_quantize_activations": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
+    "sequoia_quant_matmul_a8": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p],
 }
 
-launches = {"tree_attention": 0, "top_p_threshold_from_logits": 0,
-            "top_p_threshold_fused": 0, "quant_matmul_int8": 0,
-            "quant_matmul_int4": 0}
+launches = dict.fromkeys((
+    "tree_attention", "tree_attention_kv8", "tree_attention_kv4_head",
+    "tree_attention_kv4_dsplit", "top_p_threshold_from_logits",
+    "top_p_threshold_fused", "quant_matmul_int8", "quant_matmul_int4",
+    "quant_matmul_tiled", "quantize_activations", "quant_matmul_w8a8",
+    "quant_matmul_w4a8"), 0)
 
 _lib = None
 _lock = threading.Lock()
@@ -76,7 +82,7 @@ def _sources():
 
 def _digest(sources, flags) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

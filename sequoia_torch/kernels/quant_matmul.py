@@ -1,27 +1,42 @@
 """Fused dequantize + matmul for int8 and packed-int4 weights: CUDA kernels
-and plain version.
+and plain versions.
 
-Port of `sequoia_tpu/kernels/quant_matmul.py::quant_matmul` (`bits=8`:
-`_kernel_int8`; `bits=4`: `_kernel_int4`, whose "shift" and "float" unpack
-variants compute the same numbers, so one kernel stands for both).
-`out [R, N] = (x [R, K] @ dequant(q)) * scale [1, N]`, accumulated in f32,
-scaled once at the end, cast to `out_dtype` (default x's dtype).
+Port of `sequoia_tpu/kernels/quant_matmul.py`:
+- `quant_matmul` with `bits=8` (`_kernel_int8`) and `bits=4` (`_kernel_int4`,
+  whose "shift" and "float" unpack variants compute the same numbers, so one
+  kernel stands for both and for "auto"):
+  `out [R, N] = (x [R, K] @ dequant(q)) * scale [1, N]`, accumulated in f32,
+  scaled once at the end, cast to `out_dtype` (default x's dtype);
+- `quant_matmul(..., bits=4, unpack="w4a8")` (`_kernel_int4_w4a8`): the
+  activations are quantized per row to int8 first (`quantize_activations`),
+  the products run int8 x int8 -> int32 on the int8 tensor cores, and
+  `out = float(acc) * sx [R, 1] * scale [1, N]`. The same kernel without the
+  nibble step is `quant_matmul_w8a8`, the int8-weight product that
+  `quant/qtensor.py`'s w8a8 route needs at every row count. The int32 sum
+  runs over the whole K. (JAX casts each K block's int32 partial to f32 and
+  adds in f32, which equals one int32 sum while the total stays under 2^24:
+  at int4 for K <= 18000, since 127 * 7 * K < 2^24.)
+- `quant_matmul_tiled` (`_kernel_int4_tiled`): the int4 product over the
+  N-panel layout `q [nt, K/2, bn0]` of `quant/qtensor.py::tile_int4`; the
+  logical N is `scale.shape[-1]`.
 
 Layouts, as in JAX:
 - int8: q `[K, N]` int8;
 - int4: q `[K/2, N]` int8, half-split packed: byte `[k, n]` holds w[k, n]
   in its low nibble and w[K/2 + k, n] in its high nibble, both signed
-  (a nibble 0x8 is -8).
+  (a nibble 0x8 is -8);
+- tiled int4: q `[nt, K/2, bn0]`, panel n holding columns
+  `[n bn0, (n + 1) bn0)` of the packed matrix, zero past N.
 
-On a CUDA tensor `quant_matmul` launches the kernel of
-`csrc/quant_matmul.cu` (or raises); on a CPU tensor it runs
-`quant_matmul_plain`. What differs from the TPU version: no block-size
-arguments (Pallas's VMEM budget has no meaning here); no padding of q, x or
-scale (the kernel masks ragged edges); the K axis is split across blocks,
-with f32 partials summed by a second small kernel, where the output tiles
-alone would leave the card's SMs idle; bf16 x runs on the tensor cores
-(`mma.sync`), f32 x on the CUDA cores in full f32; the w4a8 variant is not
-ported yet.
+On a CUDA tensor each function launches its kernel of `csrc/quant_matmul.cu`
+or `csrc/quant_matmul_a8.cu` (or raises); on a CPU tensor it runs its plain
+version. What differs from the TPU versions: no block-size arguments
+(Pallas's VMEM budget has no meaning here); no padding of q, x or scale (the
+kernels mask ragged edges); the K axis is split across blocks, with partials
+summed by a second small kernel, where the output tiles alone would leave
+the card's SMs idle; bf16 x runs on the tensor cores (`mma.sync`), f32 x on
+the CUDA cores in full f32; the tiled kernel takes `bn0 == 128` only (its
+plain version any `bn0`).
 """
 
 from __future__ import annotations
@@ -35,9 +50,12 @@ from . import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NAME = {8: "quant_matmul_int8", 4: "quant_matmul_int4"}
-# Kernel geometry, as in csrc/quant_matmul.cu.
-_BN = 128                   # output columns per block
-_STAGE = {8: 64, 4: 32}     # q rows per K stage
+_NAME_A8 = {8: "quant_matmul_w8a8", 4: "quant_matmul_w4a8"}
+UNPACK = ("auto", "shift", "float", "w4a8")
+# Kernel geometry, as in csrc/quant_matmul.cu and csrc/quant_matmul_a8.cu.
+_BN = 128                   # output columns per block; the tiled kernel's bn0
+_STAGE = {8: 64, 4: 32}     # q rows per K stage, float activations
+_STAGE_A8 = 64              # q rows per K stage, int8 activations
 _TARGET_BLOCKS = 264        # two blocks for each of the H100's 132 SMs
 
 
@@ -50,82 +68,223 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-2).to(torch.int8)
 
 
-def quant_matmul_plain(x, q, scale, *, bits: int, out_dtype=None):
-    """`(x.float() @ q.float()) * scale` in f32 (int4: q unpacked first)."""
+def untile(q: torch.Tensor, N: int) -> torch.Tensor:
+    """N-panel `[..., nt, Kq, bn0]` -> row-major `[..., Kq, N]`."""
+    *lead, nt, Kq, bn0 = q.shape
+    return q.transpose(-3, -2).reshape(*lead, Kq, nt * bn0)[..., :N].contiguous()
+
+
+def quantize_activations_plain(x: torch.Tensor):
+    """Per-row symmetric int8: `sx [R, 1] = max(amax |x|, 1e-8) / 127` (f32),
+    `x8 = clip(round(x / sx), -127, 127)`. True divisions (the divisor is a
+    tensor: PyTorch multiplies by the reciprocal of a Python scalar on the
+    card) and round-half-to-even, so x8 and sx equal JAX's bit for bit."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = amax.clamp_min(1e-8) / torch.full((), 127.0, device=x.device)
+    x8 = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+    return x8, sx
+
+
+def _int_dot(x8: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`x8 @ w` of two int8 matrices, exact. int32 on the CPU; PyTorch has
+    no integer matmul on the card, where f64 holds every sum exactly."""
+    if x8.device.type == "cpu":
+        return x8.int() @ w.int()
+    return x8.double() @ w.double()
+
+
+def quant_matmul_a8_plain(x8, sx, q, scale, *, bits: int, out_dtype):
+    """`float(x8 @ w) * sx * scale`, the integer product exact."""
+    w = q if bits == 8 else unpack_int4(q)
+    y = _int_dot(x8, w).float() * sx.reshape(-1, 1) * scale.float().reshape(1, -1)
+    return y.to(out_dtype)
+
+
+def quant_matmul_plain(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"):
+    """`(x.float() @ q.float()) * scale` in f32 (int4: q unpacked first);
+    `unpack="w4a8"`: x quantized per row, then the exact integer product."""
+    out_dtype = out_dtype or x.dtype
+    if unpack == "w4a8":
+        x8, sx = quantize_activations_plain(x)
+        return quant_matmul_a8_plain(x8, sx, q, scale, bits=bits, out_dtype=out_dtype)
     w = q if bits == 8 else unpack_int4(q)
     y = (x.float() @ w.float()) * scale.float().reshape(1, -1)
-    return y.to(out_dtype or x.dtype)
+    return y.to(out_dtype)
+
+
+def quant_matmul_w8a8_plain(x, q, scale, *, out_dtype=None):
+    x8, sx = quantize_activations_plain(x)
+    return quant_matmul_a8_plain(x8, sx, q, scale, bits=8, out_dtype=out_dtype or x.dtype)
+
+
+def quant_matmul_tiled_plain(x, q, scale, *, out_dtype=None):
+    """Untile, then the int4 plain version (any `bn0`)."""
+    return quant_matmul_plain(x, untile(q, scale.shape[-1]), scale, bits=4,
+                              out_dtype=out_dtype)
 
 
 @functools.lru_cache(maxsize=1024)
-def split_k(R: int, K: int, N: int, bits: int) -> tuple:
-    """`(splits, q rows per split)` for the tensor-core kernel: enough
-    blocks to fill the card, but the f32 partials stay within half the
-    weight's bytes, and every split holds whole K stages."""
+def split_k(R: int, K: int, N: int, bits: int, stage: int = 0) -> tuple:
+    """`(splits, q rows per split)` for the tensor-core kernels: enough
+    blocks to fill the card, but the 4-byte partials stay within half the
+    weight's bytes, and every split holds whole K stages of `stage` q rows
+    (default: the float-activation kernel's)."""
+    stage = stage or _STAGE[bits]
     mt = 1 if R <= 16 else 2 if R <= 32 else 4          # 16-row MMA tiles per block
     tiles = math.ceil(R / (16 * mt)) * math.ceil(N / _BN)
     Kq = K if bits == 8 else K // 2
-    stages = math.ceil(Kq / _STAGE[bits])
+    stages = math.ceil(Kq / stage)
     want = math.ceil(_TARGET_BLOCKS / tiles)
     cap = max(1, Kq // (8 * R))
     splits = max(1, min(want, cap, stages))
     per = math.ceil(stages / splits)
-    return math.ceil(stages / per), per * _STAGE[bits]
+    return math.ceil(stages / per), per * stage
 
 
-def _check(x, q, scale, bits, out_dtype):
+def _check(x, q, scale, bits, out_dtype, *, tiled=False):
+    name = "quant_matmul_tiled" if tiled else "quant_matmul"
     if bits not in (8, 4):
-        raise ValueError(f"quant_matmul: bits must be 8 or 4, got {bits}")
-    if x.dim() != 2 or q.dim() != 2:
-        raise ValueError(f"quant_matmul: x {tuple(x.shape)} and q {tuple(q.shape)} "
-                         "must be 2-D")
+        raise ValueError(f"{name}: bits must be 8 or 4, got {bits}")
+    if x.dim() != 2 or q.dim() != (3 if tiled else 2):
+        raise ValueError(f"{name}: x {tuple(x.shape)} / q {tuple(q.shape)}: x must "
+                         f"be 2-D and q {3 if tiled else 2}-D")
     R, K = x.shape
-    Kq, N = q.shape
+    Kq = q.shape[-2]
+    N = scale.shape[-1]
     if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"quant_matmul: x {x.dtype} / out {out_dtype}: "
+        raise TypeError(f"{name}: x {x.dtype} / out {out_dtype}: "
                         "float32 or bfloat16 only")
     if q.dtype != torch.int8:
-        raise TypeError(f"quant_matmul: q must be int8, got {q.dtype}")
+        raise TypeError(f"{name}: q must be int8, got {q.dtype}")
     if scale.dtype != torch.float32:
-        raise TypeError(f"quant_matmul: scale must be float32, got {scale.dtype}")
+        raise TypeError(f"{name}: scale must be float32, got {scale.dtype}")
     if Kq * (1 if bits == 8 else 2) != K:
-        raise ValueError(f"quant_matmul: q {tuple(q.shape)} does not fit x "
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit x "
                          f"{tuple(x.shape)} at {bits} bits")
-    if scale.numel() != N or scale.shape[-1] != N:
-        raise ValueError(f"quant_matmul: scale {tuple(scale.shape)} for N={N}")
-    for name, t in (("x", x), ("q", q), ("scale", scale)):
+    if tiled:
+        nt, _, bn0 = q.shape
+        if bn0 != _BN:
+            raise ValueError(f"{name}: the kernel takes {_BN}-column panels, got {bn0}")
+        if not (nt - 1) * bn0 < N <= nt * bn0:
+            raise ValueError(f"{name}: scale {tuple(scale.shape)} for {nt} panels")
+    elif q.shape[1] != N:
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} for N={q.shape[1]}")
+    if scale.numel() != N:
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} must hold N={N} values")
+    for nm, t in (("x", x), ("q", q), ("scale", scale)):
         if t.device != x.device:
-            raise ValueError(f"quant_matmul: {name} on {t.device}, x on {x.device}")
+            raise ValueError(f"{name}: {nm} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
-            raise ValueError(f"quant_matmul: {name} must be contiguous")
-    for name, t in (("x", x), ("q", q)):
-        if t.data_ptr() % 16:   # the kernel loads 16 bytes at a time
-            raise ValueError(f"quant_matmul: {name} is not 16-byte aligned")
+            raise ValueError(f"{name}: {nm} must be contiguous")
+    for nm, t in (("x", x), ("q", q)):
+        if t.data_ptr() % 16:   # the kernels load 16 bytes at a time
+            raise ValueError(f"{name}: {nm} is not 16-byte aligned")
 
 
-def quant_matmul(x, q, scale, *, bits: int, out_dtype=None):
-    """`out [R, N]` = `x @ dequant(q) * scale` (see module doc)."""
-    if x.device.type == "cpu":
-        return quant_matmul_plain(x, q, scale, bits=bits, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    out_dtype = out_dtype or x.dtype
-    _check(x, q, scale, bits, out_dtype)
+def _workspace(splits, R, N, dtype, device):
+    """The partials of the K splits. Freed on return, which is safe: the
+    caching allocator hands the block only to work queued after this launch
+    on the same stream."""
+    if splits == 1:
+        return None
+    return torch.empty((splits, R, N), dtype=dtype, device=device)
+
+
+def _launch_float(fn, counter, x, q, scale, bits, out_dtype):
     R, K = x.shape
-    N = q.shape[1]
+    N = scale.shape[-1]
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     splits, per = split_k(R, K, N, bits) if x.dtype == torch.bfloat16 else (1, 0)
-    # The f32 partials of the K splits. Freed on return, which is safe: the
-    # caching allocator hands the block only to work queued after this
-    # launch on the same stream.
-    ws = (torch.empty((splits, R, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
-    lib = build.load()
-    fn = lib.sequoia_quant_matmul_int8 if bits == 8 else lib.sequoia_quant_matmul_int4
+    ws = _workspace(splits, R, N, torch.float32, x.device)
     rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), R, K, N, splits, per,
             _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, _NAME[bits])
-    build.launches[_NAME[bits]] += 1
+    build.check(rc, counter)
+    build.launches[counter] += 1
     return out
+
+
+def quantize_activations(x: torch.Tensor):
+    """`(x8 [R, K] int8, sx [R, 1] f32)`: see `quantize_activations_plain`.
+    One kernel on the card (`csrc/quant_matmul_a8.cu`)."""
+    if x.device.type == "cpu":
+        return quantize_activations_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(f"quantize_activations: x {tuple(x.shape)} {x.dtype} must be "
+                         "a contiguous 2-D float32 or bfloat16 tensor")
+    R, K = x.shape
+    x8 = torch.empty((R, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    rc = build.load().sequoia_quantize_activations(
+        x.data_ptr(), x8.data_ptr(), sx.data_ptr(), R, K, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "quantize_activations")
+    build.launches["quantize_activations"] += 1
+    return x8, sx
+
+
+def _quant_matmul_a8(x, q, scale, bits, out_dtype):
+    """Quantize x per row, then the int8 x int8 (or int8 x int4) kernel."""
+    _check(x, q, scale, bits, out_dtype)
+    x8, sx = quantize_activations(x)
+    R, K = x.shape
+    N = q.shape[1]
+    out = torch.empty((R, N), dtype=out_dtype, device=x.device)
+    splits, per = split_k(R, K, N, bits, _STAGE_A8)
+    ws = _workspace(splits, R, N, torch.int32, x.device)
+    rc = build.load().sequoia_quant_matmul_a8(
+        x8.data_ptr(), sx.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), R, K, N, bits, splits, per,
+        _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, _NAME_A8[bits])
+    build.launches[_NAME_A8[bits]] += 1
+    return out
+
+
+def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"):
+    """`out [R, N]` = `x @ dequant(q) * scale` (see module doc). `unpack`
+    (int4 only): "auto", "shift" and "float" are the one weight-only kernel;
+    "w4a8" quantizes x per row and runs on the int8 tensor cores."""
+    if unpack not in UNPACK:
+        raise ValueError(f"quant_matmul: unpack must be one of {UNPACK}, got {unpack!r}")
+    if unpack == "w4a8" and bits != 4:
+        raise ValueError("quant_matmul: unpack='w4a8' is an int4 variant")
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, q, scale, bits=bits, out_dtype=out_dtype,
+                                  unpack=unpack)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out_dtype = out_dtype or x.dtype
+    if unpack == "w4a8":
+        return _quant_matmul_a8(x, q, scale, 4, out_dtype)
+    _check(x, q, scale, bits, out_dtype)
+    lib = build.load()
+    fn = lib.sequoia_quant_matmul_int8 if bits == 8 else lib.sequoia_quant_matmul_int4
+    return _launch_float(fn, _NAME[bits], x, q, scale, bits, out_dtype)
+
+
+def quant_matmul_w8a8(x, q, scale, *, out_dtype=None):
+    """int8 weights x int8 activations: `float(x8 @ q) * sx * scale`, x
+    quantized per row (`quantize_activations`). Any row count, R = 1 too."""
+    if x.device.type == "cpu":
+        return quant_matmul_w8a8_plain(x, q, scale, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _quant_matmul_a8(x, q, scale, 8, out_dtype or x.dtype)
+
+
+def quant_matmul_tiled(x, q, scale, *, out_dtype=None):
+    """`x [R, K] @ dequant(q)` over the panel-tiled int4 layout
+    `q [nt, K/2, bn0]`, `scale [1, N]` with N <= nt * bn0 (see module doc)."""
+    if x.device.type == "cpu":
+        return quant_matmul_tiled_plain(x, q, scale, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out_dtype = out_dtype or x.dtype
+    _check(x, q, scale, 4, out_dtype, tiled=True)
+    return _launch_float(build.load().sequoia_quant_matmul_int4_tiled,
+                         "quant_matmul_tiled", x, q, scale, 4, out_dtype)

@@ -5,8 +5,7 @@ Port of `sequoia_tpu/planner/profile.py` (`default_acceptance_vector`,
 `time_forward_widths`, `measure_latency_curve`): the target's tree-verify
 forward time as a function of tree width, and the draft's per-level step
 time, on the serving hardware, which the DP (`planner/dp.py::plan`) turns
-into a growmap. Batch 1 and a float KV cache only: `batch > 1` waits for
-batched serving and `kv_quant` for the quantized KV caches.
+into a growmap. Batch 1 only: `batch > 1` waits for batched serving.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import torch
 
 from ..core.config import LlamaConfig
 from ..core.model import LlamaParams, forward
-from ..kvcache.cache import KVCache
+from ..kvcache.cache import KV_CACHES, KVCache
 
 
 def default_acceptance_vector() -> np.ndarray:
@@ -48,8 +47,9 @@ def time_forward_widths(
 ) -> List[float]:
     """Seconds per split-mode forward at each query width (the engine's
     tree forwards: main cache read-only at decode position `kv_len`, the
-    new rows in a scratch), the planner's `target_time` curve. Runs on the
-    params' device.
+    new rows in a float scratch), the planner's `target_time` curve, with
+    the main cache of `kv_quant` (none, int8 or int4). Runs on the params'
+    device.
 
     On the card, one forward per width is captured into a CUDA graph and
     the graph is replayed `reps` times between CUDA events; the result is
@@ -60,10 +60,10 @@ def time_forward_widths(
     median is taken with the host clock, for tests."""
     if batch != 1:
         raise NotImplementedError("batch > 1 waits for batched serving")
-    if kv_quant not in (None, "none"):
-        raise NotImplementedError("quantized KV caches are not ported yet")
+    if kv_quant not in KV_CACHES:
+        raise ValueError(f"kv_quant must be one of none, int8, int4; got {kv_quant!r}")
     dev = params.embed.device
-    kv = KVCache.init(cfg, max_length, dtype, dev)
+    kv = KV_CACHES[kv_quant].init(cfg, max_length, dtype, device=dev)
     main_row = torch.arange(max_length, device=dev) < kv_len
     out = []
     for w in widths:

@@ -6,10 +6,13 @@ a small-batch forward is bound by the weight stream. The dequantization
 happens inside the matmul kernel (`kernels/quant_matmul.py`): the weight
 crosses device memory in its quantized form and is expanded in registers.
 
-Routing follows the tensor's device alone: on a CUDA tensor `matmul` launches
-the hand-written kernel, on a CPU tensor it runs the kernel's plain version.
-There is no other route. The activation-quantized (w8a8) path and the
-tiled-int4 kernel are not ported yet.
+Which kernel runs follows the weight's layout (int8, packed int4,
+panel-tiled int4) and, for int8 weights, the w8a8 mode (`set_w8a8`): with it
+the activations are quantized per row to int8 and the product runs on the
+int8 tensor cores. Whether the kernel or its plain version runs follows the
+tensor's device alone: on a CUDA tensor `matmul` launches the hand-written
+kernel, on a CPU tensor it runs the kernel's plain version. There is no
+other route.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ from typing import NamedTuple, Union
 
 import torch
 
-from ..kernels.quant_matmul import quant_matmul, unpack_int4
+from ..kernels.quant_matmul import (
+    quant_matmul,
+    quant_matmul_tiled,
+    quant_matmul_w8a8,
+    unpack_int4,
+    untile,
+)
 
 
 class QuantizedTensor(NamedTuple):
@@ -75,8 +84,9 @@ def quantize_int4(w: torch.Tensor) -> QuantizedTensor:
 
 def tile_int4(w: QuantizedTensor, bn0: int = 128) -> QuantizedTensor:
     """Packed int4 `[..., Kq, N]` -> N-panel layout `[..., nt, Kq, bn0]`
-    (N zero-padded to a multiple of bn0). Layout only: the kernel over this
-    layout (`quant_matmul_tiled`) is not ported yet."""
+    (N zero-padded to a multiple of bn0): panel n is one contiguous
+    `Kq * bn0`-byte block, read by `kernels.quant_matmul.quant_matmul_tiled`
+    (its CUDA kernel takes `bn0 == 128`). The scale keeps the logical N."""
     q = w.q
     *lead, Kq, N = q.shape
     pad = (-N) % bn0
@@ -89,16 +99,40 @@ def tile_int4(w: QuantizedTensor, bn0: int = 128) -> QuantizedTensor:
 
 def untile_int4(w: QuantizedTensor) -> QuantizedTensor:
     """Inverse of `tile_int4`."""
-    q = w.q
-    *lead, nt, Kq, bn0 = q.shape
-    N = w.scale.shape[-1]
-    q = q.transpose(-3, -2).reshape(*lead, Kq, nt * bn0)[..., :N].contiguous()
-    return QuantizedTensor(q=q, scale=w.scale)
+    return QuantizedTensor(q=untile(w.q, w.scale.shape[-1]), scale=w.scale)
 
 
 def is_tiled(w: QuantizedTensor) -> bool:
     """Panel-tiled int4 marker: q carries one more axis than the scale."""
     return w.q.ndim == w.scale.ndim + 1
+
+
+# W8A8: an int8 weight with at least `min_rows` activation rows is multiplied
+# int8 x int8 -> int32 on the int8 tensor cores, after a per-row symmetric
+# int8 quantization of the activations: a precision choice of the model, like
+# the weight quantization itself. "auto" (the default) does so for a tensor
+# on the card with at least `_W8A8_MIN_ROWS` rows; "on" / "off" force it. The
+# default of 96 rows is the JAX package's, not a measurement on this card.
+_W8A8 = "auto"
+_W8A8_MIN_ROWS = 96
+
+
+def set_w8a8(mode: str, min_rows: int = None) -> None:
+    global _W8A8, _W8A8_MIN_ROWS
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"w8a8 mode must be auto, on or off, got {mode!r}")
+    _W8A8 = mode
+    if min_rows is not None:
+        _W8A8_MIN_ROWS = int(min_rows)
+
+
+def _use_w8a8(x: torch.Tensor) -> bool:
+    if _W8A8 == "off":
+        return False
+    if _W8A8 == "on":
+        return True
+    rows = x.shape[-2] if x.dim() >= 2 else 1
+    return rows >= _W8A8_MIN_ROWS and x.device.type == "cuda"
 
 
 def matmul(x: torch.Tensor, w: WeightLike, *, out_dtype=None) -> torch.Tensor:
@@ -113,14 +147,15 @@ def matmul(x: torch.Tensor, w: WeightLike, *, out_dtype=None) -> torch.Tensor:
         if x.device.type == "cuda":
             return torch.mm(x, w, out_dtype=out_dtype)
         return (x.float() @ w.float()).to(out_dtype)
-    if is_tiled(w):
-        if x.device.type == "cuda":
-            raise NotImplementedError(
-                "the tiled int4 kernel (quant_matmul_tiled) is not ported yet")
-        w = untile_int4(w)
     bits = 8 if w.q.shape[-2] == x.shape[-1] else 4
     if bits == 4 and w.q.shape[-2] * 2 != x.shape[-1]:
         raise ValueError(f"weight {tuple(w.q.shape)} does not fit x {tuple(x.shape)}")
+    if is_tiled(w):
+        return quant_matmul_tiled(x, w.q, w.scale, out_dtype=out_dtype)
+    if bits == 8 and _use_w8a8(x):
+        # JAX's `_matmul_w8a8`: per-row activation quantization, the
+        # int8 x int8 product and the f32 rescale, here one wrapper call.
+        return quant_matmul_w8a8(x, w.q, w.scale, out_dtype=out_dtype)
     return quant_matmul(x, w.q, w.scale, bits=bits, out_dtype=out_dtype)
 
 

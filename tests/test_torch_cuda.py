@@ -12,6 +12,8 @@ import torch
 from sequoia_torch.kernels import quant_matmul as qmm
 from sequoia_torch.kernels import top_p as tp
 from sequoia_torch.kernels.tree_attention import tree_attention, tree_attention_plain
+from sequoia_torch.kvcache.cache import quantize_kv_rows, quantize_kv_rows4
+from sequoia_torch.quant.qtensor import QuantizedTensor, tile_int4
 
 
 def _need_cuda():
@@ -43,6 +45,37 @@ def test_tree_attention_kernel_matches_plain(Q, M, S, Hkv, g, D, dtype, tol):
     args = _attention_inputs(Q, M, S, Hkv, g, D, dtype)
     got = tree_attention(*args, scale=D ** -0.5)
     want = tree_attention_plain(*args, scale=D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fmt", ["int8", "int4_head", "int4_dsplit"])
+@pytest.mark.parametrize("Q,M,S,Hkv,g,D", [
+    (64, 256, 64, 32, 1, 128),   # 7B verify
+    (1, 256, 1, 32, 1, 128),     # AR step
+    (128, 256, 0, 32, 1, 128),   # prefill, empty scratch
+    (9, 48, 11, 2, 2, 16),       # test-tiny GQA, ragged; a dsplit row has 8 bytes
+    (21, 64, 21, 4, 1, 32),      # test-small; a dsplit row has 16 bytes
+])
+def test_tree_attention_quantized_cache_matches_plain(Q, M, S, Hkv, g, D, fmt, dtype, tol):
+    """The main cache as int8 / int4 rows with per-row scales, the rows past
+    M - 5 never written (zero bytes, scale 0, masked): the kernel against
+    the plain version in the same dtype, at the float kernel's tolerances."""
+    _need_cuda()
+    q, k, v, mask, sk, sv, smask = _attention_inputs(Q, M, S, Hkv, g, D, dtype)
+    mask[:, M - 5:] = False
+    quant = quantize_kv_rows if fmt == "int8" else (
+        lambda x: quantize_kv_rows4(x, packing=fmt[5:]))
+    (kq, ks), (vq, vs) = quant(k), quant(v)
+    for t in (kq, vq, ks, vs):
+        t[M - 5:] = 0
+    args = (q, kq, vq, mask, sk, sv, smask)
+    counter = {"int8": "tree_attention_kv8"}.get(fmt, "tree_attention_kv4_" + fmt[5:])
+    before = qmm.build.launches[counter]
+    got = tree_attention(*args, scale=D ** -0.5, ks=ks, vs=vs)
+    assert qmm.build.launches[counter] == before + 1
+    want = tree_attention_plain(*args, scale=D ** -0.5, ks=ks, vs=vs)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
@@ -111,6 +144,74 @@ def test_quant_matmul_f32_x_matches_plain(bits, R, K, N):
     want = qmm.quant_matmul_plain(x, q, scale, bits=bits)
     peak = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [1, 5, 64, 128])
+@pytest.mark.parametrize("K,N,out_dtype", [
+    (4096, 4096, None), (11008, 4096, None), (4096, 32000, torch.float32),
+    (96, 200, None),                # a ragged last panel, K below one stage
+])
+def test_quant_matmul_tiled_kernel_matches_plain(R, K, N, out_dtype, x_dtype):
+    """The panel-tiled int4 kernel at the row-major int4 kernel's tolerances."""
+    _need_cuda()
+    x, q, scale = _qmm_inputs(R, K, N, 4, x_dtype, R + K + N)
+    tiled = tile_int4(QuantizedTensor(q, scale))
+    got = qmm.quant_matmul_tiled(x, tiled.q, tiled.scale, out_dtype=out_dtype)
+    want = qmm.quant_matmul_tiled_plain(x, tiled.q, tiled.scale, out_dtype=out_dtype)
+    assert got.dtype == want.dtype and got.shape == (R, N)
+    tol = 2e-2 if got.dtype == torch.bfloat16 else 1e-4
+    peak = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * peak)
+    with pytest.raises(ValueError, match="128-column panels"):
+        t16 = tile_int4(QuantizedTensor(q, scale), bn0=16)
+        qmm.quant_matmul_tiled(x, t16.q, t16.scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,K", [(1, 4096), (64, 11008), (5, 96), (3, 100)])
+def test_quantize_activations_kernel_matches_plain(R, K, x_dtype):
+    """The same int8 values and the same f32 scales, bit for bit."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(R + K)
+    x = (torch.randn(R, K, generator=gen, device="cuda") * 3).to(x_dtype)
+    x[0, :4] = torch.tensor([127.0, 63.5, -0.5, 2.5], device="cuda").to(x_dtype)
+    if R > 1:   # sx = 7/64: ties that a multiplication by 1 / sx would round up
+        x[1] = x[1].clamp(-13, 13)
+        x[1, :3] = torch.tensor([13.890625, 0.7109375, 1.3671875], device="cuda").to(x_dtype)
+    got8, gots = qmm.quantize_activations(x)
+    want8, wants = qmm.quantize_activations_plain(x)
+    assert torch.equal(got8, want8) and torch.equal(gots, wants)
+    if R > 1 and x_dtype == torch.float32:
+        assert got8[1, :3].tolist() == [127, 6, 12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("R", [1, 5, 64, 128, 256])
+@pytest.mark.parametrize("K,N,out_dtype", [
+    (4096, 4096, None), (4096, 11008, None), (11008, 4096, None),
+    (4096, 32000, torch.float32),
+    (96, 200, None), (96, 200, torch.float32), (100, 72, torch.float32),   # ragged
+])
+def test_int8_activation_kernels_match_plain(bits, R, K, N, out_dtype):
+    """w8a8 and w4a8: the int32 products are exact and the f32 rescale runs
+    in the plain version's order, so an f32 output is held to 1e-6 relative
+    and a bf16 output to one rounding (2^-8 relative)."""
+    _need_cuda()
+    x, q, scale = _qmm_inputs(R, K, N, bits, torch.bfloat16, R + K + N + bits)
+    if bits == 8:
+        got = qmm.quant_matmul_w8a8(x, q, scale, out_dtype=out_dtype)
+        want = qmm.quant_matmul_w8a8_plain(x, q, scale, out_dtype=out_dtype)
+    else:
+        got = qmm.quant_matmul(x, q, scale, bits=4, out_dtype=out_dtype, unpack="w4a8")
+        want = qmm.quant_matmul_plain(x, q, scale, bits=4, out_dtype=out_dtype, unpack="w4a8")
+    assert got.dtype == want.dtype and got.shape == (R, N)
+    tol = 2 ** -8 if got.dtype == torch.bfloat16 else 1e-6
+    peak = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * peak)
 
 
 @pytest.mark.cuda

@@ -129,11 +129,12 @@ def test_planned_growmap_equals_jax():
 def test_unported_options_raise(models):
     _, _, td, tt = models
     gm = uniform_tree(2, 2)
-    for kw in ({"walk": "path"}, {"kv_quant": "int8"}, {"shard_draft": True}):
+    for kw in ({"walk": "path"}, {"shard_draft": True}):
         with pytest.raises(NotImplementedError):
             SpecEngine(td, CFG, tt, CFG, gm, device="cpu", **kw)
-    with pytest.raises(ValueError):
-        SpecEngine(td, CFG, tt, CFG, gm, algorithm="nope", device="cpu")
+    for kw in ({"algorithm": "nope"}, {"kv_quant": "int2"}):
+        with pytest.raises(ValueError):
+            SpecEngine(td, CFG, tt, CFG, gm, device="cpu", **kw)
     with pytest.raises(ValueError):
         SpecEngine(td, CFG, tt, CFG, gm, device="cpu").generate(np.arange(250), 4)
     assert torch.is_tensor(td.embed)
