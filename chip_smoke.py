@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of sequoia_torch on one CUDA card (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase (the contract run)
+    python3 chip_smoke.py --attention   # phases 1, 2 and phase 3's tree attention
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from sequoia_torch/csrc (nvcc);
   3. kernels: each kernel against its plain PyTorch version at the shapes
      of the main paths: tree attention with a float, an int8, an int4
-     head-paired and an int4 dsplit main cache; the top-p cutoffs; the quant
+     head-paired and an int4 dsplit main cache (bf16: the tensor-core
+     kernel, with its split count and the key tiles its prefix skip reads;
+     f32: the CUDA-core kernel); the top-p cutoffs; the quant
      matmuls (int8, int4, panel-tiled int4 at R in {1, 64, 128}; w4a8, w8a8
      also at 256) at every 7B projection shape and the lm_head, plus a ragged
      small shape; the activation quantizer. With device times (CUDA graphs of
@@ -53,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +89,21 @@ def card_line() -> str:
     if res.returncode != 0:
         fail(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """`name<int template arguments>` of a mangled kernel symbol (ptxas -v
+    names each kernel by its symbol)."""
+    rest, parts = mangled[2:], []        # after "_Z"; "N" opens a nested name
+    if rest.startswith("N"):
+        rest = rest[1:]
+    while rest[:1].isdigit():
+        n = len(rest) - len(rest.lstrip("0123456789"))
+        size = int(rest[:n])
+        parts.append(rest[n:n + size])
+        rest = rest[n + size:]
+    args = re.findall(r"Li(\d+)E", rest.split("EEv")[0]) if rest.startswith("I") else []
+    return parts[-1] + (f"<{','.join(args)}>" if args else "") if parts else mangled
 
 
 def device_ms(fns, replays: int = 25) -> float:
@@ -188,7 +207,8 @@ def check_tree_attention(torch, gm, results):
     each quantized cache format at the verify, AR-step and prefill shapes
     (and the f32 verify). The library yardstick is SDPA on the float cache
     (for a quantized one: on its dequantized rows) under the same mask."""
-    from sequoia_torch.kernels.tree_attention import tree_attention, tree_attention_plain
+    from sequoia_torch.kernels.tree_attention import (TILE_K, split_count, tile_extents,
+                                                      tree_attention, tree_attention_plain)
     from sequoia_torch.kvcache.cache import (quantize_kv_rows, quantize_kv_rows4,
                                              unpack_kv_rows4)
 
@@ -218,11 +238,20 @@ def check_tree_attention(torch, gm, results):
                                                M=256, S=gm.size, ts=ts + 1,
                                                dtype=torch.bfloat16, scratch_rows=m), 2e-2))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, kw, tol in cases:
         q, k, v, main, sk, sv, scr = attention_case(torch, gen=gen, **kw)
         L, D, H, Hkv = kw["layers"], kw["D"], kw["H"], kw["Hkv"]
         scale = D ** -0.5
         itemsize = 2 if kw["dtype"] == torch.bfloat16 else 4
+        # The bf16 kernel's decomposition: blocks per (query tile, head), and
+        # the key tiles each query tile reads after the prefix skip (of all).
+        M, S = main.shape[1], scr.shape[1]
+        ext = tile_extents(main, scr)
+        read = int(((ext + TILE_K - 1) // TILE_K).sum())
+        walk = (-(-M // TILE_K) + -(-S // TILE_K)) * ext.shape[0]
+        route = (f"splits {split_count(q.shape[0], H, M, S, sms)}, key tiles {read}/{walk}"
+                 if kw["dtype"] == torch.bfloat16 else "f32 route")
         formats = KV_FORMATS if name in ("verify", "verify_f32", "prefill", "ar_step") \
             else ("float",)
         for fmt in formats:
@@ -264,7 +293,7 @@ def check_tree_attention(torch, gm, results):
                 f"S={scr.shape[1]} {str(kw['dtype'])[6:]}: max|err| {err:.3g} (tol {tol}) "
                 f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
-                f"  bound {bound:.5f} ms ({by})")
+                f"  bound {bound:.5f} ms ({by}); {route}")
             if name == "verify":
                 results.append(dict(
                     name=counter, route="cuda", source="sequoia_torch/csrc/tree_attention.cu",
@@ -1011,9 +1040,12 @@ def main() -> None:
         fail(f"kernel build failed: {e}")
     took = build.build_seconds
     log(f"  built in {took:.1f} s" if took is not None else "  library was cached")
+    kernel = "?"
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line and "0 bytes spill" not in line:
-            log("  ptxas: " + line.split(":", 1)[-1].strip())
+        if "Compiling entry function" in line:
+            kernel = kernel_name(line.split("'")[1])
+        elif "registers" in line or "spill" in line and "0 bytes spill" not in line:
+            log(f"  ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
 
     gm = load_growmap("planned")
     log(f"  planned growmap: {gm.size} nodes, depth {int(gm.depth.max())}, "
@@ -1022,6 +1054,10 @@ def main() -> None:
     log("[3] kernels vs plain versions")
     kernels = []
     check_tree_attention(torch, gm, kernels)
+    if "--attention" in sys.argv[1:]:
+        log(f"  --attention: tree attention only, {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return
     check_top_p(torch, gm, kernels)
     check_quant_matmul(torch, kernels)
 

@@ -36,7 +36,7 @@ _c_void_p, _c_int, _c_float, _c_double = (ctypes.c_void_p, ctypes.c_int,
 # name -> argtypes of every exported C function (restype is int: a
 # cudaError_t, 0 on success).
 SIGNATURES = {
-    "sequoia_tree_attention": [_c_void_p] * 10 + [_c_int] * 6
+    "sequoia_tree_attention": [_c_void_p] * 11 + [_c_int] * 7
     + [_c_float, _c_int, _c_int, _c_void_p],
     "sequoia_top_p_from_logits": [_c_void_p, _c_void_p, _c_int, _c_int,
                                   _c_double, _c_float, _c_void_p],

@@ -21,10 +21,17 @@ never written has scale 0 and is masked by every caller.
 
 On a CUDA tensor `tree_attention` launches the kernel of
 `csrc/tree_attention.cu` (or raises); on a CPU tensor it runs
-`tree_attention_plain`.
+`tree_attention_plain`. A bf16 call runs on the tensor cores: each 16-query
+tile reads its keys only up to the last one its mask rows attend, in runs
+of 16-key tiles spread over `split_count(...)` blocks of `WARPS` warps,
+whose partials a second kernel merges. `tree_attention_split_plain` is a
+plain model of that decomposition (on no path; the tests hold it against
+the JAX kernel).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,6 +46,50 @@ _FORMAT_CODE = {"float": 0, "int8": 1, "int4_head": 2, "int4_dsplit": 3}
 _COUNTER = {"float": "tree_attention", "int8": "tree_attention_kv8",
             "int4_head": "tree_attention_kv4_head",
             "int4_dsplit": "tree_attention_kv4_dsplit"}
+# The bf16 kernel's decomposition: a block is one 16-query tile of one head
+# with WARPS warps; a warp walks a run of 16-key tiles.
+WARPS = 4
+TILE_Q = 16
+TILE_K = 16
+BLOCKS_PER_SM = 2
+
+
+def split_count(Q: int, H: int, M: int, S: int, sms: int) -> int:
+    """Blocks that share one (16-query tile, head) in the bf16 kernel: enough
+    for about BLOCKS_PER_SM blocks on each of `sms` SMs, and no more than
+    leave each warp one 16-key tile of the whole main cache and scratch."""
+    pairs = -(-Q // TILE_Q) * H
+    tiles = -(-M // TILE_K) + -(-S // TILE_K)
+    return max(1, min(-(-BLOCKS_PER_SM * sms // pairs), -(-tiles // WARPS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_extents(main_mask: torch.Tensor, scr_mask: torch.Tensor) -> torch.Tensor:
+    """`[ceil(Q / 16), 2]` int64: for each 16-query tile, the keys of the main
+    region and of the scratch that the bf16 kernel reads, as it finds them
+    in the mask: one past the last key any row of the tile attends, or the
+    whole region when some row of the tile attends no key at all."""
+    Q, M = main_mask.shape
+    S = scr_mask.shape[1]
+    pad = -Q % TILE_Q
+
+    def last(mask, n):            # per tile: 1 + the last live key, 0 if none
+        if n == 0:
+            per_row = mask.new_zeros(Q, dtype=torch.int64)
+        else:
+            idx = torch.arange(1, n + 1, device=mask.device)
+            per_row = (mask.long() * idx).amax(dim=1)
+        return torch.nn.functional.pad(per_row, (0, pad)).view(-1, TILE_Q).amax(dim=1)
+
+    alive = main_mask.any(dim=1) | scr_mask.any(dim=1)
+    dead = ~torch.nn.functional.pad(alive, (0, pad), value=True).view(-1, TILE_Q).all(dim=1)
+    ext = torch.stack([last(main_mask, M), last(scr_mask, S)], dim=1)
+    whole = torch.tensor([M, S], device=ext.device)
+    return torch.where(dead[:, None], whole, ext)
 
 
 def cache_format(k: torch.Tensor, Hkv: int, D: int) -> str:
@@ -64,12 +115,8 @@ def tree_attention_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
     g = H // Hkv
     M = k.shape[0]
     qg = q.reshape(Q, Hkv, g, D).float()
-    fmt = cache_format(k, Hkv, D)
-    if fmt.startswith("int4"):
-        k, v = (unpack_kv_rows4(t, packing=fmt[5:]) for t in (k, v))
-    if fmt != "float":                     # integers, exact in q's dtype
-        k, v = k.to(q.dtype), v.to(q.dtype)
-    scores = torch.einsum("qhgd,mhd->hgqm", qg, k.float()) * scale
+    k, v, fmt = _float_rows(q, k, v, Hkv, D)
+    scores = torch.einsum("qhgd,mhd->hgqm", qg, k) * scale
     if fmt != "float":
         scores = scores * ks.T[:, None, None, :]
     scores = scores.masked_fill(~main_mask[None, None], NEG)
@@ -79,9 +126,82 @@ def tree_attention_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
     probs, probs_scr = full[..., :M], full[..., M:]
     if fmt != "float":
         probs = probs * vs.T[:, None, None, :]
-    out = (torch.einsum("hgqm,mhd->qhgd", probs.to(q.dtype).float(), v.float())
+    out = (torch.einsum("hgqm,mhd->qhgd", probs.to(q.dtype).float(), v)
            + torch.einsum("hgqs,shd->qhgd", probs_scr.to(q.dtype).float(), sv.float()))
     return out.reshape(Q, H, D).to(q.dtype)
+
+
+def _float_rows(q, k, v, Hkv, D):
+    """The main rows as floats (integers cast exactly to q's dtype), and the
+    format's name."""
+    fmt = cache_format(k, Hkv, D)
+    if fmt.startswith("int4"):
+        k, v = (unpack_kv_rows4(t, packing=fmt[5:]) for t in (k, v))
+    if fmt != "float":
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    return k.float(), v.float(), fmt
+
+
+def _merge(parts):
+    """One (m, l, acc) from partials over disjoint keys."""
+    m = torch.stack([p[0] for p in parts]).amax(dim=0)
+    w = [torch.exp(p[0] - m) for p in parts]
+    lsum = sum(wi * p[1] for wi, p in zip(w, parts))
+    acc = sum(wi[..., None] * p[2] for wi, p in zip(w, parts))
+    return m, lsum, acc
+
+
+def tree_attention_split_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
+                               ks=None, vs=None, splits: int = 1):
+    """The bf16 kernel's decomposition in plain PyTorch, on no path: for each
+    16-query tile, its `tile_extents`; the extent's 16-key tiles (main, then
+    scratch) cut into `splits * WARPS` contiguous runs; per run the online
+    softmax tile by tile into (m, l, acc); the runs of a block merged, then
+    the blocks. Scores in f32, masked -1e30; probabilities (main, quantized:
+    times `vs`) rounded to q's dtype for the value product."""
+    Q, H, D = q.shape
+    Hkv = sk.shape[1]
+    kvh = torch.arange(H) // (H // Hkv)
+    kf, vf, fmt = _float_rows(q, k, v, Hkv, D)
+    scales = (ks, vs) if fmt != "float" else (None, None)
+    regions = [(kf, vf, main_mask, *scales), (sk.float(), sv.float(), scr_mask, None, None)]
+    ext = tile_extents(main_mask, scr_mask).tolist()
+    slots = splits * WARPS
+    out = torch.empty_like(q)
+    for ti, q0 in enumerate(range(0, Q, TILE_Q)):
+        rows = slice(q0, min(q0 + TILE_Q, Q))
+        qt = q[rows].float()                                   # [r, H, D]
+        r = qt.shape[0]
+        ntm = -(-ext[ti][0] // TILE_K)
+        nt = ntm + -(-ext[ti][1] // TILE_K)
+        blocks = []
+        for z in range(splits):
+            runs = []
+            for j in range(z * WARPS, (z + 1) * WARPS):
+                m = torch.full((H, r), NEG)
+                lsum, acc = torch.zeros(H, r), torch.zeros(H, r, D)
+                for t in range(nt * j // slots, nt * (j + 1) // slots):
+                    kr, vr, mask, kscale, vscale = regions[t >= ntm]
+                    base = (t if t < ntm else t - ntm) * TILE_K
+                    keys = slice(base, base + TILE_K)        # past the end: no key
+                    s = torch.einsum("rhd,nhd->hrn", qt, kr[keys][:, kvh]) * scale
+                    if kscale is not None:
+                        s = s * kscale[keys][:, kvh].T[:, None, :]
+                    s = s.masked_fill(~mask[rows, keys][None], NEG)
+                    m_new = torch.maximum(m, s.amax(dim=-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[..., None])
+                    lsum = lsum * alpha + p.sum(dim=-1)
+                    if vscale is not None:
+                        p = p * vscale[keys][:, kvh].T[:, None, :]
+                    pv = torch.einsum("hrn,nhd->hrd", p.to(q.dtype).float(), vr[keys][:, kvh])
+                    acc = acc * alpha[..., None] + pv
+                    m = m_new
+                runs.append((m, lsum, acc))
+            blocks.append(_merge(runs))
+        _, lsum, acc = _merge(blocks)
+        out[rows] = (acc / lsum.clamp_min(1e-30)[..., None]).permute(1, 0, 2).to(q.dtype)
+    return out
 
 
 def _check(q, k, v, main_mask, sk, sv, scr_mask, ks, vs) -> str:
@@ -129,7 +249,7 @@ def _check(q, k, v, main_mask, sk, sv, scr_mask, ks, vs) -> str:
         if not t.is_contiguous():
             raise ValueError(f"tree_attention: {name} must be contiguous")
     # The kernel loads 16 bytes at a time (8 where a dsplit row has only 8).
-    for name, t in (("k", k), ("v", v), ("sk", sk), ("sv", sv)):
+    for name, t in (("q", q), ("k", k), ("v", v), ("sk", sk), ("sv", sv)):
         row_bytes = t.shape[-1] * t.element_size()
         if t.numel() and t.data_ptr() % min(16, row_bytes):
             raise ValueError(f"tree_attention: {name} is not 16-byte aligned")
@@ -149,13 +269,20 @@ def tree_attention(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
     M = k.shape[0]
     S, Hkv = sk.shape[0], sk.shape[1]
     out = torch.empty_like(q)
+    splits, part = 1, None
+    if q.dtype == torch.bfloat16:
+        splits = split_count(Q, H, M, S, _sm_count(q.device.index or 0))
+        if splits > 1:   # the blocks' partials: acc, then (m, l)
+            part = torch.empty(splits * Q * H * (D + 2), dtype=torch.float32,
+                               device=q.device)
     lib = build.load()
     rc = lib.sequoia_tree_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
         main_mask.data_ptr(), sk.data_ptr(), sv.data_ptr(), scr_mask.data_ptr(),
-        out.data_ptr(), Q, H, Hkv, D, M, S, float(scale), _DTYPE_CODE[q.dtype],
-        _FORMAT_CODE[fmt], torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), None if part is None else part.data_ptr(), Q, H, Hkv, D, M, S,
+        splits, float(scale), _DTYPE_CODE[q.dtype], _FORMAT_CODE[fmt],
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, _COUNTER[fmt])
     build.launches[_COUNTER[fmt]] += 1
     return out

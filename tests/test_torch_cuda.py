@@ -11,7 +11,8 @@ import torch
 
 from sequoia_torch.kernels import quant_matmul as qmm
 from sequoia_torch.kernels import top_p as tp
-from sequoia_torch.kernels.tree_attention import tree_attention, tree_attention_plain
+from sequoia_torch.kernels.tree_attention import (split_count, tree_attention,
+                                                  tree_attention_plain)
 from sequoia_torch.kvcache.cache import quantize_kv_rows, quantize_kv_rows4
 from sequoia_torch.quant.qtensor import QuantizedTensor, tile_int4
 
@@ -39,6 +40,8 @@ def _attention_inputs(Q, M, S, Hkv, g, D, dtype):
     (9, 48, 11, 2, 2, 16),       # test-tiny GQA, ragged
     (128, 256, 0, 4, 2, 32),     # prefill, empty scratch
     (1, 256, 1, 32, 1, 128),     # AR step
+    (15, 256, 64, 32, 1, 128),   # one ragged query tile
+    (17, 200, 64, 32, 1, 128),   # a ragged second tile, M not a multiple of 16
 ])
 def test_tree_attention_kernel_matches_plain(Q, M, S, Hkv, g, D, dtype, tol):
     _need_cuda()
@@ -57,6 +60,8 @@ def test_tree_attention_kernel_matches_plain(Q, M, S, Hkv, g, D, dtype, tol):
     (128, 256, 0, 32, 1, 128),   # prefill, empty scratch
     (9, 48, 11, 2, 2, 16),       # test-tiny GQA, ragged; a dsplit row has 8 bytes
     (21, 64, 21, 4, 1, 32),      # test-small; a dsplit row has 16 bytes
+    (15, 256, 64, 32, 1, 128),   # one ragged query tile
+    (17, 200, 64, 32, 1, 128),   # a ragged second tile, M not a multiple of 16
 ])
 def test_tree_attention_quantized_cache_matches_plain(Q, M, S, Hkv, g, D, fmt, dtype, tol):
     """The main cache as int8 / int4 rows with per-row scales, the rows past
@@ -77,6 +82,78 @@ def test_tree_attention_quantized_cache_matches_plain(Q, M, S, Hkv, g, D, fmt, d
     assert qmm.build.launches[counter] == before + 1
     want = tree_attention_plain(*args, scale=D ** -0.5, ks=ks, vs=vs)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _cache(k, v, fmt):
+    if fmt == "float":
+        return k, v, None, None
+    quant = quantize_kv_rows if fmt == "int8" else (
+        lambda x: quantize_kv_rows4(x, packing=fmt[5:]))
+    (kq, ks), (vq, vs) = quant(k), quant(v)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4_head", "int4_dsplit"])
+@pytest.mark.parametrize("Q,M,S,ts", [
+    (64, 256, 64, 191),   # 7B verify: the prefix ends mid-tile, a dead tail past it
+    (1, 256, 1, 37),      # AR step, a short prefix
+    (17, 200, 16, 150),   # ragged tiles, M not a multiple of 16
+])
+def test_tree_attention_prefix_mask_matches_plain(Q, M, S, ts, fmt, dtype, tol):
+    """The engine's mask: a per-row prefix k < ts, so the bf16 kernel skips
+    the tiles past ts; the same answer as the plain version."""
+    _need_cuda()
+    q, k, v, _, sk, sv, smask = _attention_inputs(Q, M, S, 32, 1, 128, dtype)
+    mask = (torch.arange(M, device="cuda") < ts)[None].expand(Q, M).contiguous()
+    kc, vc, ks, vs = _cache(k, v, fmt)
+    args = (q, kc, vc, mask, sk, sv, smask)
+    got = tree_attention(*args, scale=128 ** -0.5, ks=ks, vs=vs)
+    want = tree_attention_plain(*args, scale=128 ** -0.5, ks=ks, vs=vs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4_head", "int4_dsplit"])
+def test_tree_attention_row_with_no_live_key(fmt, dtype, tol):
+    """A valid row that attends no key gets the mean of all V rows (as the
+    plain version and the JAX kernel give it): its tile walks everything,
+    past the prefix of the other rows."""
+    _need_cuda()
+    Q, M, S = 20, 256, 16
+    q, k, v, _, sk, sv, smask = _attention_inputs(Q, M, S, 32, 1, 128, dtype)
+    mask = (torch.arange(M, device="cuda") < 100)[None].expand(Q, M).contiguous()
+    mask[3] = False
+    smask[3] = False
+    kc, vc, ks, vs = _cache(k, v, fmt)
+    args = (q, kc, vc, mask, sk, sv, smask)
+    got = tree_attention(*args, scale=128 ** -0.5, ks=ks, vs=vs)
+    want = tree_attention_plain(*args, scale=128 ** -0.5, ks=ks, vs=vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,S,want", [(1, 1, 5), (64, 64, 3)])
+def test_tree_attention_split_count_on_the_card(Q, S, want):
+    """The split count the wrapper picks at the 7B AR step and verify: at
+    least two blocks per SM unless every warp already has one key tile (5
+    and 3 on a 132-SM H100); the kernel runs with the workspace it needs."""
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = split_count(Q, 32, 256, S, sms)
+    tiles = 256 // 16 + -(-S // 16)
+    assert splits == -(-tiles // 4) or -(-Q // 16) * 32 * splits >= 2 * sms
+    if sms == 132:
+        assert splits == want
+    args = _attention_inputs(Q, 256, S, 32, 1, 128, torch.bfloat16)
+    before = qmm.build.launches["tree_attention"]
+    got = tree_attention(*args, scale=128 ** -0.5)
+    assert qmm.build.launches["tree_attention"] == before + 1
+    want_out = tree_attention_plain(*args, scale=128 ** -0.5)
+    torch.testing.assert_close(got.float(), want_out.float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.cuda

@@ -20,7 +20,10 @@ from sequoia_tpu.kernels.top_p import (  # noqa: E402
 )
 from sequoia_tpu.kernels.tree_attention import tree_attention as jax_tree_attention  # noqa: E402
 from sequoia_torch.kernels import top_p as tp  # noqa: E402
-from sequoia_torch.kernels.tree_attention import tree_attention  # noqa: E402
+from sequoia_torch.kernels.tree_attention import (  # noqa: E402
+    split_count, tile_extents, tree_attention, tree_attention_plain, tree_attention_split_plain)
+from sequoia_torch.kvcache.cache import (  # noqa: E402
+    quantize_kv_rows, quantize_kv_rows4, unpack_kv_rows4)
 
 NEG_INF = float("-inf")
 
@@ -109,6 +112,92 @@ def test_tree_attention_empty_scratch_matches_einsum(Q, M, Hkv, g):
     want = _jax_einsum(q, k, v, mask, sk, sv, smask, g, D ** -0.5)
     got = _port(q, k, v, mask, sk, sv, smask, D)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _split_case(case):
+    """Masks of the bf16 kernel's corner cases (Q = 20: a full and a ragged
+    16-query tile; M = 64, S = 16, so the JAX kernel pads no key)."""
+    Q, M, S, Hkv, g, D = 20, 64, 16, 2, 2, 16
+    q, k, v, mask, sk, sv, smask = _mk(Q, M, S, Hkv, g, D, seed=7)
+    prefix = np.broadcast_to(np.arange(M) < 37, (Q, M)).copy()   # ends mid-tile, dead tail
+    smask = np.tril(np.ones((Q, S), bool), k=-4)[:, :S]          # rows 0-3: no scratch key
+    if case == "prefix":
+        mask = prefix
+    elif case == "scratch_only":      # the first tile's rows attend only scratch keys
+        mask = prefix
+        mask[:16] = False
+        smask[:16, 0] = True
+    elif case == "dead_row":          # row 5 attends nothing: its tile walks everything
+        mask = prefix
+        mask[5] = False
+        smask[5] = False
+    return q, k, v, mask, sk, sv, smask, g, D
+
+
+def _quantized(k, v, fmt):
+    """(k, v, ks, vs) of the port for `fmt`, and the f32 rows they stand for."""
+    if fmt == "float":
+        return (torch.from_numpy(k), torch.from_numpy(v), None, None), (k, v)
+    quant = quantize_kv_rows if fmt == "int8" else (
+        lambda x: quantize_kv_rows4(x, packing=fmt[5:]))
+    ints = (lambda x: x) if fmt == "int8" else (lambda x: unpack_kv_rows4(x, packing=fmt[5:]))
+    (kq, ks), (vq, vs) = quant(torch.from_numpy(k)), quant(torch.from_numpy(v))
+    deq = [(ints(x).float() * s[..., None]).numpy() for x, s in ((kq, ks), (vq, vs))]
+    return (kq, vq, ks, vs), deq
+
+
+_JAX_SPLIT_CASES = {}
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4_head", "int4_dsplit"])
+@pytest.mark.parametrize("case", ["prefix", "scratch_only", "dead_row", "random"])
+def test_tree_attention_split_model_matches_pallas(case, fmt, splits):
+    """The model of the bf16 kernel's decomposition (prefix skip, key runs
+    over `splits` blocks of 4 warps, merges) against the JAX kernel in f32
+    within 1e-5 (the quantized rows dequantized for JAX), and against the
+    plain version in bf16 within 2e-2. At splits 7 most runs get no key."""
+    q, k, v, mask, sk, sv, smask, g, D = _split_case(case)
+    (kp, vp, ks, vs), (kd, vd) = _quantized(k, v, fmt)
+    key = (case, fmt)
+    if key not in _JAX_SPLIT_CASES:
+        _JAX_SPLIT_CASES[key] = np.asarray(jax_tree_attention(
+            jnp.asarray(q), jnp.asarray(kd), jnp.asarray(vd), _bias(mask), jnp.asarray(sk),
+            jnp.asarray(sv), _bias(smask), g=g, scale=D ** -0.5, block_m=32, interpret=True))
+    t = torch.from_numpy
+    args = (t(q), kp, vp, t(mask), t(sk), t(sv), t(smask))
+    got = tree_attention_split_plain(*args, scale=D ** -0.5, ks=ks, vs=vs, splits=splits)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), _JAX_SPLIT_CASES[key], rtol=1e-5, atol=1e-5)
+
+    bf = lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x  # noqa: E731
+    args = (bf(t(q)), bf(kp), bf(vp), t(mask), bf(t(sk)), bf(t(sv)), t(smask))
+    got = tree_attention_split_plain(*args, scale=D ** -0.5, ks=ks, vs=vs, splits=splits)
+    want = tree_attention_plain(*args, scale=D ** -0.5, ks=ks, vs=vs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("prefix", [[37, 12], [37, 16]]),
+    ("scratch_only", [[0, 12], [37, 16]]),
+    ("dead_row", [[64, 16], [37, 16]]),
+])
+def test_tile_extents_follow_the_mask(case, want):
+    """Per 16-query tile: one past the last attended key of each region, or
+    both regions whole when a row of the tile attends nothing."""
+    _, _, _, mask, _, _, smask, _, _ = _split_case(case)
+    assert tile_extents(torch.from_numpy(mask), torch.from_numpy(smask)).tolist() == want
+
+
+@pytest.mark.parametrize("Q,H,M,S,want", [
+    (64, 32, 256, 64, 3),     # 7B verify: 4 query tiles x 32 heads x 3 = 384 blocks
+    (1, 32, 256, 1, 5),       # 7B AR step: capped by 17 key tiles over 4 warps
+    (128, 32, 256, 0, 2),     # 7B prefill
+    (13, 12, 256, 64, 5),     # 68m grow level
+    (1024, 32, 256, 0, 1),    # enough query tiles alone
+])
+def test_split_count_fills_an_h100(Q, H, M, S, want):
+    assert split_count(Q, H, M, S, sms=132) == want
 
 
 def _rows(seed, rows, vocab):
