@@ -3,22 +3,27 @@
 
     python3 chip_smoke.py               # every phase (the contract run)
     python3 chip_smoke.py --attention   # phases 1, 2 and phase 3's tree attention
+    python3 chip_smoke.py --qmm         # phases 1, 2 and phase 3's top-p and matmuls
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile the CUDA kernels from sequoia_torch/csrc (nvcc);
+  2. build: compile the CUDA kernels from sequoia_torch/csrc (nvcc), with
+     each kernel's registers and spills (ptxas);
   3. kernels: each kernel against its plain PyTorch version at the shapes
      of the main paths: tree attention with a float, an int8, an int4
      head-paired and an int4 dsplit main cache (bf16: the tensor-core
      kernel, with its split count and the key tiles its prefix skip reads;
-     f32: the CUDA-core kernel); the top-p cutoffs; the quant
-     matmuls (int8, int4, panel-tiled int4 at R in {1, 64, 128}; w4a8, w8a8
-     also at 256) at every 7B projection shape and the lm_head, plus a ragged
-     small shape; the activation quantizer. With device times (CUDA graphs of
-     many launches, timed with CUDA events), the least time the card could
-     take, and the time of one PyTorch library call where one computes the
-     same function; and the host time of one quantized projection call
-     against one torch.matmul on the bf16 weight;
+     f32: the CUDA-core kernel); the top-p cutoffs at V = 32000 (one block
+     per row) and V = 128256 (a cluster per row); the quant matmuls (the
+     int8 wgmma kernel, weight-only and w8a8, at R in {1, 16, 64, 128, 256}
+     and 300, with its load path and cluster split; int4, panel-tiled int4
+     at R in {1, 64, 128}; w4a8 also at 256; the int8 f32-x kernel) at every
+     7B projection shape and the lm_head, plus a ragged small shape; the
+     activation quantizer. With device times (CUDA graphs of many launches,
+     timed with CUDA events), the least time the card could take, and the
+     time of one PyTorch library call where one computes the same function;
+     and the host time of one quantized projection call against one
+     torch.matmul on the bf16 weight;
   4. small parity: test-small, f32, on the card, with an f32, an int8, an
      int4 and a tiled-int4 target: greedy speculative decoding equals greedy
      AR token for token, the kernel forward equals the CPU forward, and
@@ -26,17 +31,20 @@ Phases, each fatal on failure:
      the f32 target with an int8, an int4 head-paired and an int4 dsplit KV
      cache: forward against the CPU forward, and greedy speculative decoding
      runs; then bf16 int8, int4 and tiled-int4 targets, whose card forward
-     (the tensor-core kernels at 24 and 21 rows) equals the CPU forward;
+     (the tensor-core kernels at 24 and 21 rows) equals the CPU forward. Its
+     launches count (the f32-x quant-matmul kernels run only here);
   5. full width: llama-68m -> llama-2-7b, bf16, random weights (seeded),
      the planned 64-node growmap, max_length 256, 2 synthetic 128-token
      prompts, T=0.6, P=0.9: the stochastic AR baseline and Sequoia through
      the testbed's entry points, with launch counts of every kernel; then
      the same target with kv_quant int8 and int4 (head-paired; one more
-     Sequoia prompt with the dsplit packing);
+     Sequoia prompt with the dsplit packing); then stochastic AR and Sequoia
+     at the Llama-3 vocabulary (llama-3.2-1b widths, 2 and 1 layers), where
+     both top-p kernels must run their cluster route;
   6. the same with the target's weights quantized: int8 weight-only (w8a8
-     off), int8 with w8a8 on (Sequoia), int4, and panel-tiled int4 (tile_int4
-     over the seven projections and the head); each kernel of a path must
-     launch on it;
+     off) and int8 with w8a8 on (Sequoia), both on the wgmma kernel; int4,
+     and panel-tiled int4 (tile_int4 over the seven projections and the
+     head); each kernel of a path must launch on it;
   7. the width curves (planner/profile.py, device time of one split-mode
      forward at widths 1..256): bf16 with each cache format, int8
      weight-only, int8 w8a8, int4, tiled int4, and the int4 target with every
@@ -92,8 +100,8 @@ def card_line() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """`name<int template arguments>` of a mangled kernel symbol (ptxas -v
-    names each kernel by its symbol)."""
+    """`name<int and bool template arguments>` of a mangled kernel symbol
+    (ptxas -v names each kernel by its symbol)."""
     rest, parts = mangled[2:], []        # after "_Z"; "N" opens a nested name
     if rest.startswith("N"):
         rest = rest[1:]
@@ -102,7 +110,7 @@ def kernel_name(mangled: str) -> str:
         size = int(rest[:n])
         parts.append(rest[n:n + size])
         rest = rest[n + size:]
-    args = re.findall(r"Li(\d+)E", rest.split("EEv")[0]) if rest.startswith("I") else []
+    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) if rest.startswith("I") else []
     return parts[-1] + (f"<{','.join(args)}>" if args else "") if parts else mangled
 
 
@@ -315,20 +323,35 @@ def top_p_bound(R, V, from_logits):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+TOP_P_SPECS = [  # counter (the route the wrapper picks from V), rows, from logits, V
+    ("top_p_threshold_from_logits", "gm", True, 32000),
+    ("top_p_threshold_fused", 1, False, 32000),
+    ("top_p_threshold_fused", "gm", False, 32000),
+    ("top_p_threshold_from_logits_cluster", "gm", True, 128256),   # Llama-3
+    ("top_p_threshold_from_logits_cluster", 1, True, 128256),
+    ("top_p_threshold_fused_cluster", 1, False, 128256),
+    ("top_p_threshold_fused_cluster", "gm", False, 128256),
+]
+
+
 def check_top_p(torch, gm, results):
+    """Both top-p kernels on both routes: V = 32000 (one block per row) and
+    V = 128256 (a cluster per row). The fused kernel must equal the plain
+    version bit for bit; the from-logits kernel may differ only at an
+    ill-conditioned boundary token, with |dt| <= 1e-6 on every other row."""
+    from sequoia_torch.kernels import build
     from sequoia_torch.kernels import top_p as tp
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    V, T = 32000, FULL["T"]
-    specs = [("top_p_threshold_from_logits", gm.size, True,
-              "sequoia_tpu/kernels/top_p.py:99"),
-             ("top_p_threshold_fused", 1, False, "sequoia_tpu/kernels/top_p.py:140"),
-             ("top_p_threshold_fused", gm.size, False, "sequoia_tpu/kernels/top_p.py:140")]
-    for name, R, from_logits, replaces in specs:
+    T = FULL["T"]
+    for name, R, from_logits, V in TOP_P_SPECS:
+        R = gm.size if R == "gm" else R
+        replaces = "sequoia_tpu/kernels/top_p.py:" + ("99" if from_logits else "140")
         worst, flips = 0.0, 0
         for top_p in (0.5, 0.9, 0.99):
             logits = torch.randn(R, V, generator=gen, device="cuda") * 4
             probs = torch.softmax(logits / T, dim=-1)
+            before = build.launches[name]
             if from_logits:
                 got = tp.top_p_threshold_from_logits(logits, top_p, T)
                 want = tp.top_p_threshold_from_logits_plain(logits, top_p, T)
@@ -336,14 +359,20 @@ def check_top_p(torch, gm, results):
                 got = tp.top_p_threshold_fused(probs, top_p)
                 want = tp.top_p_threshold_plain(probs, top_p)
             torch.cuda.synchronize()
+            if build.launches[name] != before + 1:
+                fail(f"{name} R={R} V={V}: the wrapper took another route")
+            if not from_logits and not torch.equal(got, want):
+                fail(f"{name} R={R} V={V} top_p={top_p}: not bit-identical to the plain "
+                     f"version: max |dt| {(got - want).abs().max().item()}")
             try:
                 flips += tp.boundary_disagreements(probs, got, want, top_p)
             except ValueError as e:
-                fail(f"{name} R={R} top_p={top_p}: nuclei differ: {e}")
+                fail(f"{name} R={R} V={V} top_p={top_p}: nuclei differ: {e}")
             same = ((probs >= got[:, None]) == (probs >= want[:, None])).all(dim=1)
             dt = torch.where(same, (got - want).abs(), 0.0).max().item()
             if dt > 1e-6:
-                fail(f"{name} R={R} top_p={top_p}: |dt| {dt} on a row with the same nucleus")
+                fail(f"{name} R={R} V={V} top_p={top_p}: |dt| {dt} on a row with the same "
+                     "nucleus")
             worst = max(worst, dt)
         top_p = FULL["P"]
         xs = [torch.randn(R, V, generator=gen, device="cuda") * 4 for _ in range(16)]
@@ -354,17 +383,21 @@ def check_top_p(torch, gm, results):
             xs = [torch.softmax(x / T, dim=-1) for x in xs]
             kern = [lambda x=x: tp.top_p_threshold_fused(x, top_p) for x in xs]
             plain = [lambda x=x: tp.top_p_threshold_plain(x, top_p) for x in xs]
-        ms, plain_ms = device_ms(kern), device_ms(plain)
+        ms, plain_ms = device_ms(kern), device_ms(plain, replays=5)
         bound, by = top_p_bound(R, V, from_logits)
-        log(f"  {name} R={R} V={V}: max|dt| {worst:.3g} on rows with the same nucleus, "
-            f"{flips} of {3 * R} rows differ only at an ill-conditioned boundary token; "
-            f"kernel {ms:.4f} ms"
-            f"  plain {plain_ms:.4f} ms  bound {bound:.5f} ms ({by})")
+        route = (f"cluster of {tp.cluster_size(V)} blocks per row" if V > tp.REGISTER_VOCAB
+                 else "one block per row")
+        log(f"  {name} R={R} V={V} ({route}): max|dt| {worst:.3g} on rows with the same "
+            f"nucleus, {flips} of {3 * R} rows differ only at an ill-conditioned boundary "
+            f"token{'' if from_logits else ' (thresholds bit-identical)'}; kernel {ms:.4f} ms"
+            f"  plain {plain_ms:.4f} ms  bound {bound:.5f} ms ({by}, {ms / bound:.1f}x); "
+            "library: none")
         if not any(e["name"] == name for e in results):
             results.append(dict(name=name, route="cuda", source="sequoia_torch/csrc/top_p.cu",
                                 replaces=replaces, shape=f"R={R} V={V} f32",
                                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound, bound_by=by, library_ms=None))
+        del xs, kern, plain
 
 
 QMM_SHAPES = [  # (K, N, out): the 7B projections and the f32-logit lm_head
@@ -372,19 +405,46 @@ QMM_SHAPES = [  # (K, N, out): the 7B projections and the f32-logit lm_head
 QMM_REPORT = (64, 4096, 11008)   # the shape of the kernels line: verify, MLP up
 QMM_SOURCE = "sequoia_torch/csrc/quant_matmul.cu"
 QMM_A8_SOURCE = "sequoia_torch/csrc/quant_matmul_a8.cu"
+QMM_SM90_SOURCE = "sequoia_torch/csrc/quant_matmul_int8_sm90.cu"
 QMM_KERNELS = {
-    # name: weight bits, rows, TPU counterpart, source, int8 activations
-    "quant_matmul_int8": (8, (1, 64, 128), "sequoia_tpu/kernels/quant_matmul.py:85",
-                          QMM_SOURCE, False),
+    # name: weight bits, rows at the 7B shapes (bf16 x), TPU counterpart, source,
+    # int8 activations
+    "quant_matmul_int8_wgmma": (8, (1, 16, 64, 128, 256),
+                                "sequoia_tpu/kernels/quant_matmul.py:85", QMM_SM90_SOURCE, False),
+    "quant_matmul_int8": (8, (), "sequoia_tpu/kernels/quant_matmul.py:85", QMM_SOURCE, False),
     "quant_matmul_int4": (4, (1, 64, 128), "sequoia_tpu/kernels/quant_matmul.py:125",
                           QMM_SOURCE, False),
     "quant_matmul_tiled": (4, (1, 64, 128), "sequoia_tpu/kernels/quant_matmul.py:197",
                            QMM_SOURCE, False),
     "quant_matmul_w4a8": (4, (1, 64, 128, 256), "sequoia_tpu/kernels/quant_matmul.py:99",
                           QMM_A8_SOURCE, True),
-    "quant_matmul_w8a8": (8, (1, 64, 128, 256), "sequoia_tpu/quant/qtensor.py:176",
-                          QMM_A8_SOURCE, True),
+    "quant_matmul_w8a8_wgmma": (8, (1, 16, 64, 128, 256), "sequoia_tpu/quant/qtensor.py:176",
+                                QMM_SM90_SOURCE, True),
 }
+
+
+def qmm_cases(name, rows):
+    """(R, K, N, x, out) of one kernel: every 7B shape at `rows` with bf16 x,
+    a ragged small shape, and f32 x for the weight-only kernels; the wgmma
+    kernels also at 300 rows (two row tiles) and the lm_head at 300.
+    `quant_matmul_int8` is the f32-x kernel alone (bf16 x runs the wgmma
+    kernel)."""
+    if name == "quant_matmul_int8":
+        return [(64, 4096, 4096, "f32", "f32"), (5, 96, 200, "f32", "f32")]
+    cases = [(R, K, N, "bf16", out) for K, N, out in QMM_SHAPES for R in rows]
+    cases.append((5, 96, 200, "bf16", "bf16"))        # ragged: masked loads and edges
+    if name.endswith("_wgmma"):
+        cases.append((300, 4096, 4096, "bf16", "bf16"))
+    elif not QMM_KERNELS[name][4]:
+        cases.append((64, 4096, 4096, "f32", "f32"))
+    return cases
+
+
+def qmm_report(name):
+    """The case of a kernel's entry in the kernels line."""
+    if name == "quant_matmul_int8":
+        return (64, 4096, 4096, "f32")
+    return QMM_REPORT + ("bf16",)
 
 
 def qmm_bound(R, K, N, bits, x_item, out_item, a8=False):
@@ -403,30 +463,39 @@ def qmm_calls(qm, name):
     if name == "quant_matmul_tiled":
         return (lambda x, q, s, o: qm.quant_matmul_tiled(x, q, s, out_dtype=o),
                 lambda x, q, s, o: qm.quant_matmul_tiled_plain(x, q, s, out_dtype=o))
-    if name == "quant_matmul_w8a8":
+    if name == "quant_matmul_w8a8_wgmma":
         return (lambda x, q, s, o: qm.quant_matmul_w8a8(x, q, s, out_dtype=o),
                 lambda x, q, s, o: qm.quant_matmul_w8a8_plain(x, q, s, out_dtype=o))
-    kw = dict(bits=8) if name == "quant_matmul_int8" else dict(bits=4)
+    kw = dict(bits=8) if name.startswith("quant_matmul_int8") else dict(bits=4)
     if name == "quant_matmul_w4a8":
         kw["unpack"] = "w4a8"
     return (lambda x, q, s, o: qm.quant_matmul(x, q, s, out_dtype=o, **kw),
             lambda x, q, s, o: qm.quant_matmul_plain(x, q, s, out_dtype=o, **kw))
 
 
+def sm90_route(qm, R, K, N, a8):
+    """The wgmma kernel's load path, cluster size and row tile for a shape."""
+    tma = N % 16 == 0 and K % (16 if a8 else 8) == 0
+    return (f"{'TMA' if tma else 'producer-warp copies'}, cluster of "
+            f"{qm._sm90_split(R, K, N, a8, 0)}, row tile {qm.row_tile(R)}")
+
+
 def check_quant_matmul(torch, results):
     """Every quant-matmul kernel against its plain version at every 7B shape
-    and a ragged small one, bf16 x (plus one f32-x case for the weight-only
-    kernels). Tolerances: the weight-only kernels (tiled included) 2e-2
-    relative for a bf16 output and 1e-4 for an f32 one (exact products, f32
-    sums in another order); the activation-quantized kernels 1e-6 for an f32
-    output and 2^-8 for a bf16 one (exact int32 products and the plain
-    version's order of the f32 rescale: only the output's rounding is left).
-    Timing cycles through enough weight matrices that a pass exceeds the 50
-    MB L2. The library yardstick is torch.matmul on the dequantized bf16
-    weight (cuBLAS, twice the int8 bytes); beside it torch._weight_int8pack_mm
+    and a ragged small one (`qmm_cases`). Tolerances: the weight-only
+    kernels (tiled included) 2e-2 relative for a bf16 output and 1e-4 for
+    an f32 one (exact products, f32 sums in another order); the
+    activation-quantized kernels 1e-6 for an f32 output and 2^-8 for a bf16
+    one (exact int32 products and the plain version's order of the f32
+    rescale: only the output's rounding is left). Timing cycles through
+    enough weight matrices that a pass exceeds the 50 MB L2. The library
+    yardstick is torch.matmul on the dequantized weight (cuBLAS; bf16, twice
+    the int8 bytes, or f32 for f32 x); beside it torch._weight_int8pack_mm
     for int8, and torch._int_mm (the int8 x int8 product alone, without
     quantizer and rescale) for w8a8, where the installed PyTorch takes the
-    shape."""
+    shape. The wgmma kernels' times against the kernels they replaced come
+    from sequoia_torch/cli/qmm_times.py, run on both checkouts in one call."""
+    from sequoia_torch.kernels import build
     from sequoia_torch.kernels import quant_matmul as qm
     from sequoia_torch.quant import qtensor
     from sequoia_torch.quant.qtensor import QuantizedTensor, dequantize, tile_int4
@@ -436,11 +505,7 @@ def check_quant_matmul(torch, results):
     for name, (bits, rows, replaces, source, a8) in QMM_KERNELS.items():
         kernel, plain_fn = qmm_calls(qm, name)
         tiled = name == "quant_matmul_tiled"
-        cases = [(R, K, N, "bf16", out) for K, N, out in QMM_SHAPES for R in rows]
-        cases.append((5, 96, 200, "bf16", "bf16"))        # ragged: byte loads, masked edges
-        if not a8:
-            cases.append((64, 4096, 4096, "f32", "f32"))
-        for R, K, N, xs, outs in cases:
+        for R, K, N, xs, outs in qmm_cases(name, rows):
             x_dt = torch.bfloat16 if xs == "bf16" else torch.float32
             out_dt = torch.bfloat16 if outs == "bf16" else torch.float32
             wbytes = K * N * bits // 8
@@ -453,9 +518,12 @@ def check_quant_matmul(torch, results):
             qs = [tile_int4(QuantizedTensor(q, s)).q for q, s in zip(rowmajor, ss)] \
                 if tiled else rowmajor
             x = torch.randn(R, K, generator=gen, device="cuda").to(x_dt)
+            before = build.launches[name]
             got = kernel(x, qs[0], ss[0], out_dt)
             want = plain_fn(x, qs[0], ss[0], out_dt)
             torch.cuda.synchronize()
+            if build.launches[name] != before + 1:
+                fail(f"{name} R={R} K={K} N={N} x {xs}: the wrapper took another kernel")
             if a8:
                 tol = 2 ** -8 if out_dt == torch.bfloat16 else 1e-6
             else:
@@ -469,60 +537,58 @@ def check_quant_matmul(torch, results):
             kern = [lambda i=i: kernel(x, qs[i], ss[i], out_dt) for i in range(n)]
             plain = [lambda i=i: plain_fn(x, qs[i], ss[i], out_dt) for i in range(n)]
             ms, plain_ms = device_ms(kern, replays=10), device_ms(plain, replays=3)
-            lib_ms = other_ms = host = None
+            deq = [dequantize(QuantizedTensor(rowmajor[i], ss[i]), K, x_dt) for i in range(n)]
+            lib_ms = device_ms([lambda i=i: torch.matmul(x, deq[i]) for i in range(n)],
+                               replays=10)
+            other_ms = host = None
             other = ""
-            if xs == "bf16":
-                deq = [dequantize(QuantizedTensor(rowmajor[i], ss[i]), K, torch.bfloat16)
-                       for i in range(n)]
-                lib_ms = device_ms([lambda i=i: torch.matmul(x, deq[i]) for i in range(n)],
-                                   replays=10)
-                if R == 1 and not a8 and not tiled:
-                    # the model's call on each weight kind, as one AR step makes it
-                    mm_out = None if outs == "bf16" else torch.float32
-                    wq = QuantizedTensor(qs[0], ss[0])
-                    qtensor.set_w8a8("off")
-                    host = (host_us(lambda: qtensor.matmul(x, wq, out_dtype=mm_out)),
-                            host_us(lambda: qtensor.matmul(x, deq[0], out_dtype=mm_out)))
-                del deq
-                if name == "quant_matmul_int8" and int8pack:
-                    qt = [q.T.contiguous() for q in qs]
-                    st = [s.reshape(-1).to(torch.bfloat16) for s in ss]
-                    try:
-                        torch._weight_int8pack_mm(x, qt[0], st[0])
-                    except (RuntimeError, NotImplementedError) as e:
-                        int8pack = False
-                        log(f"  torch._weight_int8pack_mm is not available on CUDA here: "
-                            f"{str(e).splitlines()[0][:100]}")
-                    else:
-                        other, other_ms = "_weight_int8pack_mm", device_ms(
-                            [lambda i=i: torch._weight_int8pack_mm(x, qt[i], st[i])
-                             for i in range(n)], replays=10)
-                    del qt, st
-                if name == "quant_matmul_w8a8" and int_mm and R > 16 and N % 8 == 0:
-                    x8, _ = qm.quantize_activations_plain(x)
-                    try:
-                        torch._int_mm(x8, qs[0])
-                    except (RuntimeError, NotImplementedError) as e:
-                        int_mm = False
-                        log(f"  torch._int_mm is not available here: "
-                            f"{str(e).splitlines()[0][:100]}")
-                    else:
-                        other, other_ms = "_int_mm", device_ms(
-                            [lambda i=i: torch._int_mm(x8, qs[i]) for i in range(n)],
-                            replays=10)
+            if R == 1 and not a8 and not tiled and xs == "bf16":
+                # the model's call on each weight kind, as one AR step makes it
+                mm_out = None if outs == "bf16" else torch.float32
+                wq = QuantizedTensor(qs[0], ss[0])
+                qtensor.set_w8a8("off")
+                host = (host_us(lambda: qtensor.matmul(x, wq, out_dtype=mm_out)),
+                        host_us(lambda: qtensor.matmul(x, deq[0], out_dtype=mm_out)))
+            del deq
+            if name == "quant_matmul_int8_wgmma" and int8pack:
+                qt = [q.T.contiguous() for q in qs]
+                st = [s.reshape(-1).to(torch.bfloat16) for s in ss]
+                try:
+                    torch._weight_int8pack_mm(x, qt[0], st[0])
+                except (RuntimeError, NotImplementedError) as e:
+                    int8pack = False
+                    log(f"  torch._weight_int8pack_mm is not available on CUDA here: "
+                        f"{str(e).splitlines()[0][:100]}")
+                else:
+                    other, other_ms = "_weight_int8pack_mm", device_ms(
+                        [lambda i=i: torch._weight_int8pack_mm(x, qt[i], st[i])
+                         for i in range(n)], replays=10)
+                del qt, st
+            if name == "quant_matmul_w8a8_wgmma" and int_mm and R > 16 and N % 8 == 0:
+                x8, _ = qm.quantize_activations_plain(x)
+                try:
+                    torch._int_mm(x8, qs[0])
+                except (RuntimeError, NotImplementedError) as e:
+                    int_mm = False
+                    log(f"  torch._int_mm is not available here: "
+                        f"{str(e).splitlines()[0][:100]}")
+                else:
+                    other, other_ms = "_int_mm", device_ms(
+                        [lambda i=i: torch._int_mm(x8, qs[i]) for i in range(n)], replays=10)
             bound, by = qmm_bound(R, K, N, bits, x.element_size(), got.element_size(), a8)
+            route = f"; {sm90_route(qm, R, K, N, a8)}" if name.endswith("_wgmma") else ""
             log(f"  {name} R={R} K={K} N={N} x {xs} out {outs}: max|err| {err:.3g} "
                 f"(tol {tol:.3g} x {peak:.3g}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                f"cuBLAS bf16 dequantized {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
+                f"cuBLAS {xs} dequantized {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
                 + (f"  {other} {other_ms:.4f} ms" if other_ms is not None else "")
                 + f"  bound {bound:.5f} ms ({by}, {ms / bound:.2f}x)"
-                f"  [{n} weights cycled]"
+                f"  [{n} weights cycled]{route}"
                 + (f"; host µs per qtensor.matmul call: quantized {host[0]:.1f}, "
                    f"bf16 weight {host[1]:.1f}" if host is not None else ""))
-            if (R, K, N) == QMM_REPORT and xs == "bf16":
+            if (R, K, N, xs) == qmm_report(name):
                 results.append(dict(
                     name=name, route="cuda", source=source, replaces=replaces,
-                    shape=f"R={R} K={K} N={N} x bf16 out bf16 (verify, MLP up)",
+                    shape=f"R={R} K={K} N={N} x {xs} out {outs}",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                     library_ms=lib_ms))
             del qs, rowmajor, ss, kern, plain
@@ -1013,6 +1079,63 @@ def plan_from_curves(curves, draft_time):
             f"(device time; draft w8 {draft_time * 1e3:.4f} ms)")
 
 
+def llama3_vocab(torch, gm):
+    """The Llama-3 vocabulary through both entry points, to show that both
+    top-p kernels run their cluster route on a real path: llama-3.2-1b's
+    widths (V = 128256) cut to 2 layers for the target and 1 for the draft,
+    random bf16 weights (seeded), the planned growmap, stochastic AR and
+    Sequoia (T=0.6, P=0.9) over 2 synthetic 64-token prompts, 32 new tokens
+    each. Returns the launches of this path."""
+    import dataclasses
+
+    import numpy as np
+
+    from sequoia_torch.core.config import get_config
+    from sequoia_torch.core.init import random_params
+    from sequoia_torch.engine.baseline import ARBaseline
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.kernels import build
+    from sequoia_torch.utils import hard_sync
+
+    base = get_config("llama-3.2-1b")
+    tcfg, dcfg = dataclasses.replace(base, num_layers=2), dataclasses.replace(base, num_layers=1)
+    target = random_params(tcfg, SEED + 5, dtype=torch.bfloat16, device="cuda")
+    draft = random_params(dcfg, SEED + 6, dtype=torch.bfloat16, device="cuda")
+    T, P, M = FULL["T"], FULL["P"], FULL["max_length"]
+    prompts = [np.random.default_rng(SEED + i).integers(3, tcfg.vocab_size, 64) for i in (0, 1)]
+    ar = ARBaseline(target, tcfg, max_length=M, temperature=T, top_p=P, device="cuda")
+    eng = SpecEngine(draft, dcfg, target, tcfg, gm, algorithm="sequoia", max_length=M,
+                     temperature=T, top_p=P, device="cuda")
+    ar.generate(prompts[0], max_new_tokens=4)            # warm up
+    eng.generate(prompts[0], max_new_tokens=4)
+    hard_sync("cuda")
+    build.reset_launches()                               # the path starts here
+    t0 = time.perf_counter()
+    n_ar = n_sq = steps = 0
+    for i, p in enumerate(prompts):
+        out = ar.generate(p, max_new_tokens=32, seed=SEED + i)
+        n_ar += len(out) - len(p)
+        if len(out) <= len(p) or out.min() < 0 or out.max() >= tcfg.vocab_size:
+            fail(f"Llama-3 vocabulary: AR produced invalid tokens {out[len(p):]}")
+        out = eng.generate(p, max_new_tokens=32, seed=SEED + i)
+        n_sq += eng.num_decoding_steps
+        steps += eng.num_large_model_steps
+        if len(out) <= len(p) or out.min() < 0 or out.max() >= tcfg.vocab_size:
+            fail(f"Llama-3 vocabulary: Sequoia produced invalid tokens {out[len(p):]}")
+    hard_sync("cuda")
+    launches = dict(build.launches)                      # ... and ends here
+    shown = {k: v for k, v in launches.items() if v}
+    log(f"  {n_ar} AR and {n_sq} Sequoia tokens ({steps} target steps) in "
+        f"{time.perf_counter() - t0:.1f} s; launches {shown}")
+    for k in ("top_p_threshold_from_logits_cluster", "top_p_threshold_fused_cluster"):
+        if launches[k] == 0:
+            fail(f"Llama-3 vocabulary: {k} never launched: {shown}")
+    for k in ("top_p_threshold_from_logits", "top_p_threshold_fused"):
+        if launches[k]:
+            fail(f"Llama-3 vocabulary: the one-block route {k} ran at V = 128256")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1053,22 +1176,29 @@ def main() -> None:
 
     log("[3] kernels vs plain versions")
     kernels = []
-    check_tree_attention(torch, gm, kernels)
+    if "--qmm" not in sys.argv[1:]:
+        check_tree_attention(torch, gm, kernels)
     if "--attention" in sys.argv[1:]:
         log(f"  --attention: tree attention only, {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}), flush=True)
         return
     check_top_p(torch, gm, kernels)
     check_quant_matmul(torch, kernels)
-
-    log("[4] small parity on the card")
-    small_parity(torch)
+    if "--qmm" in sys.argv[1:]:
+        log(f"  --qmm: top-p and the quant matmuls only, {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return
 
     launches, curves = {}, {}
 
     def add(counts):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+
+    log("[4] small parity on the card")
+    build.reset_launches()
+    small_parity(torch)
+    add(build.launches)   # f32 x: the CUDA-core quant-matmul kernels run here only
 
     from sequoia_torch.core import model as model_mod
     from sequoia_torch.kernels.quant_matmul import quant_matmul
@@ -1095,16 +1225,20 @@ def main() -> None:
     del models
     torch.cuda.empty_cache()
 
+    log("[5] stochastic AR and Sequoia at the Llama-3 vocabulary (V = 128256)")
+    add(llama3_vocab(torch, gm))
+    torch.cuda.empty_cache()
+
     log("[6] full width: int8 weights, weight-only (w8a8 off)")
     models = load_models(torch, quant_bits=8)
     qtensor.set_w8a8("off")
-    add(full_width(torch, gm, models, "int8", PATH_KERNELS + ("quant_matmul_int8",),
+    add(full_width(torch, gm, models, "int8", PATH_KERNELS + ("quant_matmul_int8_wgmma",),
                    extras=True))
-    curves["int8"], _ = width_curve(torch, models, "int8", need=("quant_matmul_int8",),
+    curves["int8"], _ = width_curve(torch, models, "int8", need=("quant_matmul_int8_wgmma",),
                                     host=True)
     log("[6] full width: int8 weights, w8a8 on (int8 activations, every row count)")
     qtensor.set_w8a8("on")
-    need = ("tree_attention", "top_p_threshold_from_logits", "quant_matmul_w8a8",
+    need = ("tree_attention", "top_p_threshold_from_logits", "quant_matmul_w8a8_wgmma",
             "quantize_activations")   # Sequoia only: the fused cutoff is the AR step's
     add(full_width(torch, gm, models, "int8 w8a8", need, run_ar=False))
     curves["int8 w8a8"], _ = width_curve(torch, models, "int8 w8a8", need=need[-2:], host=True)

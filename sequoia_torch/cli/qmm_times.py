@@ -1,0 +1,99 @@
+"""Device times of the int8-weight matmuls at the 7B projection shapes, for
+comparing two checkouts of the port on one card.
+
+    python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
+                                           [--label NAME] [--reps 3]
+
+Imports `sequoia_torch` from DIR (default: the checkout that holds this
+file) and builds its kernels there, so the same script times an older
+checkout: run it as parent, change, change, parent within one call to the
+card, and compare only within that call. For each kernel (int8 weight-only
+with bf16 x, `quant_matmul(bits=8)`; int8 weights with int8 activations,
+`quant_matmul_w8a8`), each (K, N) of llama-2-7b's projections and lm_head
+and each row count R, prints one JSON line with the device ms of one call:
+the median of `--reps` runs, each a CUDA graph of calls cycling through
+enough weights to exceed the 50 MB L2, replayed under CUDA events. Also
+times torch.matmul on the dequantized bf16 weight (cuBLAS), the yardstick.
+Exits non-zero without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+
+
+def device_ms(torch, fns, replays: int = 10) -> float:
+    """One call's device ms: `fns` captured once into a CUDA graph, the
+    graph replayed under CUDA events, the median replay over len(fns)."""
+    for f in fns[:3]:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for f in fns:
+            f()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times) / len(fns)
+
+
+def main() -> None:
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=here, help="checkout whose sequoia_torch is timed")
+    ap.add_argument("--rows", default="1,16,64,128,256")
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("qmm_times: no CUDA card")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from sequoia_torch.kernels import build
+    from sequoia_torch.kernels import quant_matmul as qm
+
+    build.load()
+    label = args.label or os.path.abspath(args.root)
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    for K, N in SHAPES:
+        n = max(2, -(-150_000_000 // (K * N)))
+        qs = [torch.randint(-128, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+              for _ in range(n)]
+        ss = [torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001 for _ in range(n)]
+        deq = [(q.float() * s).to(torch.bfloat16) for q, s in zip(qs, ss)]
+        out = torch.float32 if N == 32000 else torch.bfloat16
+        for R in map(int, args.rows.split(",")):
+            x = torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
+            calls = {
+                "int8": lambda i: qm.quant_matmul(x, qs[i], ss[i], bits=8, out_dtype=out),
+                "w8a8": lambda i: qm.quant_matmul_w8a8(x, qs[i], ss[i], out_dtype=out),
+                "cublas_bf16": lambda i: torch.matmul(x, deq[i]),
+            }
+            for name, call in calls.items():
+                ms = statistics.median(
+                    device_ms(torch, [lambda i=i: call(i) for i in range(n)])
+                    for _ in range(args.reps))
+                print(json.dumps({"label": label, "kernel": name, "R": R, "K": K, "N": N,
+                                  "ms": round(ms, 5),
+                                  "card": torch.cuda.get_device_name(0)}), flush=True)
+        del qs, ss, deq
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,18 @@
-// Fused dequantize + matmul for int8 and packed-int4 weights, for Hopper.
+// Fused dequantize + matmul for packed-int4 weights (and int8 weights with
+// f32 activations), for Hopper.
 //
-// Replaces the Pallas kernels sequoia_tpu/kernels/quant_matmul.py::
-// quant_matmul with bits=8 (_kernel_int8) and bits=4 (_kernel_int4, both its
-// "shift" and "float" unpack variants, which compute the same numbers):
+// Replaces the Pallas kernel sequoia_tpu/kernels/quant_matmul.py::
+// quant_matmul with bits=4 (_kernel_int4, both its "shift" and "float"
+// unpack variants, which compute the same numbers), and serves bits=8
+// (_kernel_int8) for f32 x on the CUDA cores; bf16 x at bits=8 runs the
+// wgmma kernel of quant_matmul_int8_sm90.cu:
 //   out[R, N] = (x[R, K] @ w[K, N]) * scale[1, N], f32 accumulation, cast to
 //   the output type once at the end.
 // int8: q[K, N] int8, w = q. int4: q[K/2, N] int8, half-split packed: byte
 // [k, n] holds w[k, n] in its low nibble and w[K/2 + k, n] in its high
-// nibble, both sign-extended (0x8 is -8). The int8 -> bf16 and nibble ->
-// bf16 conversions are exact, so with bf16 x the products are those of the
-// plain version and only the order of the f32 sums differs.
+// nibble, both sign-extended (0x8 is -8). The nibble -> bf16 conversion is
+// exact, so with bf16 x the products are those of the plain version and
+// only the order of the f32 sums differs.
 //
 // Bound on the H100: bytes. At every shape of the 7B path (R = 1, 64, 128;
 // (K, N) = (4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)) the
@@ -55,14 +58,14 @@
 //   panel's columns past N are computed on the stored zeros and not written.
 //   Nothing is padded or copied (the TPU wrapper pads q, x and the scale to
 //   block multiples).
-// Later work: wgmma with TMA loads and a producer warp, and a split that
-// adapts to R.
+// Later work: int4 on the design of quant_matmul_int8_sm90.cu.
 
-#include "qmm_common.cuh"
+#include "common.cuh"
 
 namespace {
 
-using namespace qmm;
+using namespace sq;
+using namespace sq::qmm;
 
 constexpr int kBK = 64;                  // logical k per stage
 constexpr int kXStride = kBK + 8;        // bf16 per x row in shared memory
@@ -77,35 +80,26 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int BITS, int MT>
+template <int MT>
 struct Smem {
-  static constexpr int kRows = BITS == 8 ? kBK : kBK / 2;   // q rows per stage
+  static constexpr int kRows = kBK / 2;   // packed q rows per stage
   alignas(16) uint8_t w[kRows * kWStride];
   alignas(16) __nv_bfloat16 x[16 * MT * kXStride];
 };
 
-// Start copying one stage into `sm`: q rows [kq0, kq0 + kRows) of the
-// block's 128 columns, and x's matching columns (int4: the low-half columns
-// kq0.. and the high-half K/2 + kq0..) of the block's 16*MT rows. `qt` points
+// Start copying one stage into `sm`: packed q rows [kq0, kq0 + kRows) of the
+// block's 128 columns, and x's matching columns (the low-half columns kq0..
+// and the high-half K/2 + kq0..) of the block's 16*MT rows. `qt` points
 // at the block's first column in q row 0, `ldq` is q's row stride and `ncols`
 // the number of its columns that exist. Rows, columns and k past the ends are
 // zero. VEC: 16-byte cp.async, in flight until cp_async_wait; otherwise byte
 // / element loads stored at once.
-template <int BITS, int MT, bool VEC>
-__device__ __forceinline__ void load_stage(Smem<BITS, MT>& sm, const int8_t* __restrict__ qt,
+template <int MT, bool VEC>
+__device__ __forceinline__ void load_stage(Smem<MT>& sm, const int8_t* __restrict__ qt,
                                            int ldq, int ncols,
                                            const __nv_bfloat16* __restrict__ xg, int R, int K,
                                            int r0, int kq0, int kq_end) {
-  constexpr int kRows = Smem<BITS, MT>::kRows;
+  constexpr int kRows = Smem<MT>::kRows;
   constexpr int kWPer = kRows * kBN / 16 / kThreads;   // 16-byte pieces per thread
   constexpr int kXPer = 16 * MT * kBK / 8 / kThreads;
 #pragma unroll
@@ -116,7 +110,7 @@ __device__ __forceinline__ void load_stage(Smem<BITS, MT>& sm, const int8_t* __r
     uint8_t* dst = &sm.w[(c / 8) * kWStride + col];
     if (VEC) {
       const bool ok = kq < kq_end && col < ncols;
-      cp_async16(dst, ok ? src : qt, ok);
+      cp_async(dst, ok ? src : qt, ok, 16);
     } else {
       copy16_bytes(dst, src, kq < kq_end, col, ncols);
     }
@@ -125,19 +119,13 @@ __device__ __forceinline__ void load_stage(Smem<BITS, MT>& sm, const int8_t* __r
   for (int i = 0; i < kXPer; ++i) {
     const int c = threadIdx.x + i * kThreads;
     const int r = r0 + c / 8, c8 = c % 8;
-    int k, kk;   // x column, and its q row for the bound check
-    if (BITS == 8) {
-      k = kq0 + c8 * 8;
-      kk = k;
-    } else {
-      kk = kq0 + (c8 % 4) * 8;
-      k = (c8 / 4) * (K / 2) + kk;
-    }
+    const int kk = kq0 + (c8 % 4) * 8;      // the q row, for the bound check
+    const int k = (c8 / 4) * (K / 2) + kk;  // the x column
     const __nv_bfloat16* src = xg + static_cast<int64_t>(r) * K + k;
     __nv_bfloat16* dst = &sm.x[(c / 8) * kXStride + c8 * 8];
     if (VEC) {
       const bool ok = r < R && kk < kq_end;
-      cp_async16(dst, ok ? src : xg, ok);
+      cp_async(dst, ok ? src : xg, ok, 16);
     } else {
       uint32_t v[4] = {0, 0, 0, 0};
 #pragma unroll
@@ -150,8 +138,8 @@ __device__ __forceinline__ void load_stage(Smem<BITS, MT>& sm, const int8_t* __r
 }
 
 // A fragments of the MT row tiles at x columns [kc, kc + 16) of the stage.
-template <int BITS, int MT>
-__device__ __forceinline__ void load_a(const Smem<BITS, MT>& sm, int kc, int g, int t,
+template <int MT>
+__device__ __forceinline__ void load_a(const Smem<MT>& sm, int kc, int g, int t,
                                        uint32_t (&a)[MT][4]) {
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -179,16 +167,16 @@ __device__ __forceinline__ void mma_step(const uint32_t (&a)[MT][4], uint32_t w0
   }
 }
 
-template <int BITS, int MT, bool VEC>
+template <int MT, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 quant_matmul_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                  const float* __restrict__ scale, void* __restrict__ out,
                  float* __restrict__ partial, int R, int K, int N, int kq_per_split,
                  int64_t panel_stride, int out_bf16) {
-  using Sm = Smem<BITS, MT>;
+  using Sm = Smem<MT>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   Sm* bufs = reinterpret_cast<Sm*>(smem_raw);   // kStages stages
-  const int Kq = BITS == 8 ? K : K / 2;
+  const int Kq = K / 2;
   const int r0 = blockIdx.x * 16 * MT, n0 = blockIdx.y * kBN;
   const int kq_begin = blockIdx.z * kq_per_split;
   const int kq_end = min(kq_begin + kq_per_split, Kq);
@@ -213,48 +201,41 @@ quant_matmul_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   for (int st = 0; st < kStages - 1; ++st) {
     const int kq = kq_begin + st * Sm::kRows;
     if (kq < kq_end)
-      load_stage<BITS, MT, VEC>(bufs[st], qt, ldq, ncols, x, R, K, r0, kq, kq_end);
-    cp_async_commit();
+      load_stage<MT, VEC>(bufs[st], qt, ldq, ncols, x, R, K, r0, kq, kq_end);
+    cp_commit();
   }
   int it = 0;
   for (int kq0 = kq_begin; kq0 < kq_end; kq0 += Sm::kRows, ++it) {
-    cp_async_wait<kStages - 2>();   // this thread's copies of stage `it` landed
+    cp_wait<kStages - 2>();   // this thread's copies of stage `it` landed
     __syncthreads();                // everyone's; and stage it-1 is no longer read
     const int kq_next = kq0 + (kStages - 1) * Sm::kRows;
     if (kq_next < kq_end)
-      load_stage<BITS, MT, VEC>(bufs[(it + kStages - 1) % kStages], qt, ldq, ncols, x, R, K,
-                                r0, kq_next, kq_end);
-    cp_async_commit();
+      load_stage<MT, VEC>(bufs[(it + kStages - 1) % kStages], qt, ldq, ncols, x, R, K, r0,
+                          kq_next, kq_end);
+    cp_commit();
     const Sm& sm = bufs[it % kStages];
     // This lane's q word: columns 4g .. 4g+3 of the warp's 32.
     const uint8_t* wl = sm.w + warp * 32 + 4 * g;
 
 #pragma unroll
-    for (int s = 0; s < 2 * (BITS == 8 ? 2 : 1); ++s) {   // 16-row steps of q
+    for (int s = 0; s < 2; ++s) {   // 16-row steps of q
       const uint8_t* p = wl + (16 * s + 2 * t) * kWStride;
       const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
       const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + kWStride);
       const uint32_t w2 = *reinterpret_cast<const uint32_t*>(p + 8 * kWStride);
       const uint32_t w3 = *reinterpret_cast<const uint32_t*>(p + 9 * kWStride);
       uint32_t a[MT][4];
-      if (BITS == 8) {
-        // int8 byte b -> b ^ 0x80 = b + 128 in [0, 256)
-        load_a<BITS, MT>(sm, 16 * s, g, t, a);
-        mma_step<MT>(a, w0 ^ 0x80808080u, w1 ^ 0x80808080u, w2 ^ 0x80808080u,
-                     w3 ^ 0x80808080u, 8388608.f + 128.f, acc);
-      } else {
-        // nibble v -> v ^ 8 = v + 8 in [0, 16); low nibbles pair with x's
-        // low-half columns (stage columns 0..31), high with 32..63.
-        const uint32_t f0 = w0 ^ 0x88888888u, f1 = w1 ^ 0x88888888u;
-        const uint32_t f2 = w2 ^ 0x88888888u, f3 = w3 ^ 0x88888888u;
-        load_a<BITS, MT>(sm, 16 * s, g, t, a);
-        mma_step<MT>(a, f0 & 0x0F0F0F0Fu, f1 & 0x0F0F0F0Fu, f2 & 0x0F0F0F0Fu,
-                     f3 & 0x0F0F0F0Fu, 8388608.f + 8.f, acc);
-        load_a<BITS, MT>(sm, 32 + 16 * s, g, t, a);
-        mma_step<MT>(a, (f0 >> 4) & 0x0F0F0F0Fu, (f1 >> 4) & 0x0F0F0F0Fu,
-                     (f2 >> 4) & 0x0F0F0F0Fu, (f3 >> 4) & 0x0F0F0F0Fu,
-                     8388608.f + 8.f, acc);
-      }
+      // nibble v -> v ^ 8 = v + 8 in [0, 16); low nibbles pair with x's
+      // low-half columns (stage columns 0..31), high with 32..63.
+      const uint32_t f0 = w0 ^ 0x88888888u, f1 = w1 ^ 0x88888888u;
+      const uint32_t f2 = w2 ^ 0x88888888u, f3 = w3 ^ 0x88888888u;
+      load_a<MT>(sm, 16 * s, g, t, a);
+      mma_step<MT>(a, f0 & 0x0F0F0F0Fu, f1 & 0x0F0F0F0Fu, f2 & 0x0F0F0F0Fu,
+                   f3 & 0x0F0F0F0Fu, 8388608.f + 8.f, acc);
+      load_a<MT>(sm, 32 + 16 * s, g, t, a);
+      mma_step<MT>(a, (f0 >> 4) & 0x0F0F0F0Fu, (f1 >> 4) & 0x0F0F0F0Fu,
+                   (f2 >> 4) & 0x0F0F0F0Fu, (f3 >> 4) & 0x0F0F0F0Fu,
+                   8388608.f + 8.f, acc);
     }
   }
 
@@ -263,7 +244,7 @@ quant_matmul_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   // own layout would scatter every store over eight rows.
   // C fragment: rows g and g+8 of each row tile, tile columns 2t and 2t+1;
   // tile column c of tile j is the warp's column 4c + j.
-  cp_async_wait<0>();
+  cp_wait<0>();
   __syncthreads();
   float* tile = reinterpret_cast<float*>(smem_raw);   // [16*MT][kOutStride]
 #pragma unroll
@@ -341,24 +322,59 @@ quant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ q,
     if (r0 + r < R) store_out(out, static_cast<int64_t>(r0 + r) * N + n, acc[r] * scale[n], out_bf16);
 }
 
-template <int BITS, int MT, bool VEC>
+template <int MT, bool VEC>
 cudaError_t launch_mma(const void* x, const void* q, const float* scale, void* out,
                        float* partial, int R, int K, int N, int splits, int kq_per_split,
                        int64_t panel_stride, int out_bf16, cudaStream_t stream) {
   const dim3 grid((R + 16 * MT - 1) / (16 * MT), (N + kBN - 1) / kBN, splits);
-  constexpr int kSmem = kStages * static_cast<int>(sizeof(Smem<BITS, MT>));
+  constexpr int kSmem = kStages * static_cast<int>(sizeof(Smem<MT>));
   static_assert(16 * MT * kOutStride * 4 <= kSmem, "the output tile reuses the stages");
   static bool smem_set = false;   // above 48 KB only after this attribute
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        quant_matmul_mma<BITS, MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        quant_matmul_mma<MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  quant_matmul_mma<BITS, MT, VEC><<<grid, kThreads, kSmem, stream>>>(
+  quant_matmul_mma<MT, VEC><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q), scale, out,
       splits > 1 ? partial : nullptr, R, K, N, kq_per_split, panel_stride, out_bf16);
   return cudaGetLastError();
+}
+
+// bf16 x through the int4 tensor-core kernel (and its K-split reduce).
+int launch_int4_mma(const void* x, const void* q, const float* sc, void* out, void* partial,
+                    int R, int K, int N, int splits, int kq_per_split, int out_dtype,
+                    int64_t panel_stride, bool tiled, cudaStream_t st) {
+  if (splits < 1 || (splits > 1 && (partial == nullptr || kq_per_split <= 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Kq = K / 2;
+  if (splits == 1) kq_per_split = Kq;   // one split: the tail stage is masked
+  else if (kq_per_split % Smem<1>::kRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies need 16-byte row starts: x rows always, q rows unless
+  // they are 128-byte panel rows.
+  const bool vec = (tiled || N % 16 == 0) && K % 16 == 0;
+  float* ws = static_cast<float*>(partial);
+  cudaError_t err;
+#define SEQ_QMM_CASE(MT)                                                                \
+  err = vec ? launch_mma<MT, true>(x, q, sc, out, ws, R, K, N, splits, kq_per_split,     \
+                                   panel_stride, out_dtype, st)                         \
+            : launch_mma<MT, false>(x, q, sc, out, ws, R, K, N, splits, kq_per_split,    \
+                                    panel_stride, out_dtype, st);
+  if (R <= 16) {
+    SEQ_QMM_CASE(1)
+  } else if (R <= 32) {
+    SEQ_QMM_CASE(2)
+  } else {
+    SEQ_QMM_CASE(4)
+  }
+#undef SEQ_QMM_CASE
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int64_t total = static_cast<int64_t>(R) * N;
+  quant_matmul_reduce<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
+      ws, sc, out, R, N, splits, out_dtype);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // tiled: q is the panel layout [ceil(N / 128), K/2, 128] (int4 only).
@@ -378,35 +394,10 @@ int launch(const void* x, const void* q, const void* scale, void* out, void* par
                                                       out, R, K, N, panel_stride, out_dtype);
     return static_cast<int>(cudaGetLastError());
   }
-  if (x_dtype != 1 || splits < 1 || (splits > 1 && (partial == nullptr || kq_per_split <= 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int Kq = BITS == 8 ? K : K / 2;
-  if (splits == 1) kq_per_split = Kq;   // one split: the tail stage is masked
-  else if (kq_per_split % Smem<BITS, 1>::kRows)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // 16-byte copies need 16-byte row starts: x rows always, q rows unless
-  // they are 128-byte panel rows.
-  const bool vec = (tiled || N % 16 == 0) && K % (BITS == 8 ? 8 : 16) == 0;
-  float* ws = static_cast<float*>(partial);
-  cudaError_t err;
-#define SEQ_QMM_CASE(MT)                                                                \
-  err = vec ? launch_mma<BITS, MT, true>(x, q, sc, out, ws, R, K, N, splits,            \
-                                         kq_per_split, panel_stride, out_dtype, st)     \
-            : launch_mma<BITS, MT, false>(x, q, sc, out, ws, R, K, N, splits,           \
-                                          kq_per_split, panel_stride, out_dtype, st);
-  if (R <= 16) {
-    SEQ_QMM_CASE(1)
-  } else if (R <= 32) {
-    SEQ_QMM_CASE(2)
-  } else {
-    SEQ_QMM_CASE(4)
-  }
-#undef SEQ_QMM_CASE
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t total = static_cast<int64_t>(R) * N;
-  quant_matmul_reduce<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
-      ws, sc, out, R, N, splits, out_dtype);
-  return static_cast<int>(cudaGetLastError());
+  // bf16 x: int4 here; int8 has its own kernel (quant_matmul_int8_sm90.cu).
+  if (x_dtype != 1 || BITS != 4) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_int4_mma(x, q, sc, out, partial, R, K, N, splits, kq_per_split, out_dtype,
+                         panel_stride, tiled, st);
 }
 
 }  // namespace
@@ -415,10 +406,10 @@ extern "C" {
 
 // x [R, K] (x_dtype 0 = float32, 1 = bfloat16), q int8 ([K, N] or packed
 // [K/2, N]), scale float32 [N], out [R, N] (out_dtype 0 = float32,
-// 1 = bfloat16). With bf16 x and splits > 1, partial is a float32
-// workspace [splits, R, N] and each split covers kq_per_split q rows (a
-// multiple of the stage: 64 for int8, 32 for int4). x and q 16-byte
-// aligned; the wrapper checks shapes, types and alignment.
+// 1 = bfloat16). int8 takes f32 x only. With bf16 x and splits > 1, partial
+// is a float32 workspace [splits, R, N] and each split covers kq_per_split q
+// rows (a multiple of the stage, 32). x and q 16-byte aligned; the wrapper
+// checks shapes, types and alignment.
 int sequoia_quant_matmul_int8(const void* x, const void* q, const void* scale, void* out,
                               void* partial, int R, int K, int N, int splits,
                               int kq_per_split, int x_dtype, int out_dtype, void* stream) {

@@ -2,18 +2,18 @@
 // per-row activation quantizer that feeds them, for Hopper.
 //
 // Replaces the Pallas kernel sequoia_tpu/kernels/quant_matmul.py::
-// quant_matmul(unpack="w4a8") (_kernel_int4_w4a8), and gives the w8a8 route
-// of sequoia_tpu/quant/qtensor.py::_matmul_w8a8 (an XLA int8 dot there) the
-// same kernel without the nibble step:
+// quant_matmul(unpack="w4a8") (_kernel_int4_w4a8):
 //   x8[R, K] int8, sx[R] f32 = per-row quantization of x (below);
 //   acc[R, N] = x8 @ w, exact in int32;
 //   out = float(acc) * sx[r] * scale[n], in that order, cast once.
-// bits = 8: q[K, N] int8, w = q. bits = 4: q[K/2, N], half-split packed: byte
-// [k, n] holds w[k, n] in its low nibble and w[K/2 + k, n] in its high
-// nibble, both signed. The TPU kernel casts every K block's int32 partial to
-// f32 and adds in f32; that equals one int32 sum while |acc| < 2^24, which
-// holds at int4 for K <= 18000 (127 * 7 * K); this kernel sums in int32 over
-// the whole K either way.
+// q[K/2, N], half-split packed: byte [k, n] holds w[k, n] in its low nibble
+// and w[K/2 + k, n] in its high nibble, both signed. The TPU kernel casts
+// every K block's int32 partial to f32 and adds in f32; that equals one
+// int32 sum while |acc| < 2^24, which holds for K <= 18000 (127 * 7 * K);
+// this kernel sums in int32 over the whole K either way. Its int8-weight
+// sibling (the w8a8 route of sequoia_tpu/quant/qtensor.py::_matmul_w8a8)
+// runs on quant_matmul_int8_sm90.cu and takes x8 and sx from the quantizer
+// here.
 //
 // The activation quantizer (JAX computes it with XLA ops, outside any
 // kernel): sx = max(amax(|x|), 1e-8) / 127, x8 = clip(round(x / sx), +-127),
@@ -23,7 +23,7 @@
 //
 // Bound on the H100: bytes, as for the float-activation kernels (the weight
 // stream) at the widths of a tree verify: 2*R*K*N operations at the int8
-// peak of 1979 TOP/s pass the weight bytes at R ~ 295 (int8) / 148 (int4).
+// peak of 1979 TOP/s pass the int4 weight bytes at R ~ 148.
 // Measured times are in PERF.md.
 //
 // Design: the block, stage and split structure of quant_matmul.cu (one
@@ -43,21 +43,22 @@
 // - int4: a nibble becomes an int8 without sign extension: (b << 4) & 0xF0
 //   is 16 * low nibble as a signed byte, b & 0xF0 is 16 * high nibble. The
 //   sum is 16 * acc (below 2^31 for K <= 18000) and is shifted back once.
-// Later work: wgmma, and a wider tile for R >= 128 (each 64-row block of a
-// wide call streams its weight tile again, from L2 at best).
+// Later work: the design of quant_matmul_int8_sm90.cu (each 64-row block of
+// a wide call streams its weight tile again, from L2 at best).
 
-#include "qmm_common.cuh"
+#include "common.cuh"
 
 namespace {
 
-using namespace qmm;
+using namespace sq;
+using namespace sq::qmm;
 
 constexpr int kRowsI = 64;               // q rows per stage
 
-template <int BITS, int MT>
+template <int MT>
 struct SmemI {
-  // x8 bytes per row and stage: 64 k (int8), or 64 low-half + 64 high-half k.
-  static constexpr int kXBytes = BITS == 8 ? 64 : 128;
+  // x8 bytes per row and stage: 64 low-half + 64 high-half k.
+  static constexpr int kXBytes = 128;
   static constexpr int kXStride = kXBytes + 16;
   alignas(16) uint8_t w[kRowsI * kWStride];
   alignas(16) int8_t x[16 * MT * kXStride];
@@ -90,11 +91,11 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&b)
 // its columns that exist), and the matching x8 columns of the block's 16*MT
 // rows (int4: the low-half columns kq0.. and the high-half K/2 + kq0..).
 // Rows, columns and k past the ends are zero.
-template <int BITS, int MT, bool VEC>
-__device__ __forceinline__ void load_stage(SmemI<BITS, MT>& sm, const int8_t* __restrict__ qt,
+template <int MT, bool VEC>
+__device__ __forceinline__ void load_stage(SmemI<MT>& sm, const int8_t* __restrict__ qt,
                                            int ldq, int ncols, const int8_t* __restrict__ xg,
                                            int R, int K, int r0, int kq0, int kq_end) {
-  using Sm = SmemI<BITS, MT>;
+  using Sm = SmemI<MT>;
   constexpr int kWPer = kRowsI * kBN / 16 / kThreads;
 #pragma unroll
   for (int i = 0; i < kWPer; ++i) {
@@ -104,7 +105,7 @@ __device__ __forceinline__ void load_stage(SmemI<BITS, MT>& sm, const int8_t* __
     uint8_t* dst = &sm.w[row * kWStride + swizzle(row, col)];
     if (VEC) {
       const bool ok = kq < kq_end && col < ncols;
-      cp_async16(dst, ok ? src : qt, ok);
+      cp_async(dst, ok ? src : qt, ok, 16);
     } else {
       copy16_bytes(dst, src, kq < kq_end, col, ncols);
     }
@@ -118,28 +119,28 @@ __device__ __forceinline__ void load_stage(SmemI<BITS, MT>& sm, const int8_t* __
     if (c >= kXChunks) break;
     const int rr = c / kPerRow, ch = c % kPerRow, r = r0 + rr;
     const int kk = kq0 + (ch % 4) * 16;                     // the chunk's q row, for the bound
-    const int k = BITS == 8 ? kk : (ch / 4) * (K / 2) + kk;  // its x8 column
+    const int k = (ch / 4) * (K / 2) + kk;                  // its x8 column
     const int8_t* src = xg + static_cast<int64_t>(r) * K + k;
     int8_t* dst = &sm.x[rr * Sm::kXStride + ch * 16];
     if (VEC) {
       const bool ok = r < R && kk < kq_end;
-      cp_async16(dst, ok ? src : xg, ok);
+      cp_async(dst, ok ? src : xg, ok, 16);
     } else {
       copy16_bytes(reinterpret_cast<uint8_t*>(dst), src, r < R, kk, kq_end);
     }
   }
 }
 
-template <int BITS, int MT, bool VEC>
+template <int MT, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 quant_matmul_a8_mma(const int8_t* __restrict__ x8, const float* __restrict__ sx,
                     const int8_t* __restrict__ q, const float* __restrict__ scale,
                     void* __restrict__ out, int* __restrict__ partial, int R, int K, int N,
                     int kq_per_split, int out_bf16) {
-  using Sm = SmemI<BITS, MT>;
+  using Sm = SmemI<MT>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   Sm* bufs = reinterpret_cast<Sm*>(smem_raw);   // kStages stages
-  const int Kq = BITS == 8 ? K : K / 2;
+  const int Kq = K / 2;
   const int r0 = blockIdx.x * 16 * MT, n0 = blockIdx.y * kBN;
   const int kq_begin = blockIdx.z * kq_per_split;
   const int kq_end = min(kq_begin + kq_per_split, Kq);
@@ -159,18 +160,18 @@ quant_matmul_a8_mma(const int8_t* __restrict__ x8, const float* __restrict__ sx,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     const int kq = kq_begin + st * kRowsI;
-    if (kq < kq_end) load_stage<BITS, MT, VEC>(bufs[st], qt, N, ncols, x8, R, K, r0, kq, kq_end);
-    cp_async_commit();
+    if (kq < kq_end) load_stage<MT, VEC>(bufs[st], qt, N, ncols, x8, R, K, r0, kq, kq_end);
+    cp_commit();
   }
   int it = 0;
   for (int kq0 = kq_begin; kq0 < kq_end; kq0 += kRowsI, ++it) {
-    cp_async_wait<kStages - 2>();   // this thread's copies of stage `it` landed
+    cp_wait<kStages - 2>();   // this thread's copies of stage `it` landed
     __syncthreads();                // everyone's; and stage it-1 is no longer read
     const int kq_next = kq0 + (kStages - 1) * kRowsI;
     if (kq_next < kq_end)
-      load_stage<BITS, MT, VEC>(bufs[(it + kStages - 1) % kStages], qt, N, ncols, x8, R, K, r0,
+      load_stage<MT, VEC>(bufs[(it + kStages - 1) % kStages], qt, N, ncols, x8, R, K, r0,
                                 kq_next, kq_end);
-    cp_async_commit();
+    cp_commit();
     const Sm& sm = bufs[it % kStages];
     const int wcol = warp * 32 + 4 * g;   // this lane's q word: columns 4g .. 4g+3 of the warp's 32
 
@@ -191,9 +192,9 @@ quant_matmul_a8_mma(const int8_t* __restrict__ x8, const float* __restrict__ sx,
       }
       transpose4(w, b1);
 #pragma unroll
-      for (int hf = 0; hf < (BITS == 8 ? 1 : 2); ++hf) {
-        // A fragments: x8 bytes [kc, kc + 32) of the stage (int4: the low
-        // half pairs with the low nibbles, the high half with the high).
+      for (int hf = 0; hf < 2; ++hf) {
+        // A fragments: x8 bytes [kc, kc + 32) of the stage (the low half
+        // pairs with the low nibbles, the high half with the high).
         const int kc = 32 * s + 64 * hf;
         uint32_t a[MT][4];
 #pragma unroll
@@ -206,11 +207,9 @@ quant_matmul_a8_mma(const int8_t* __restrict__ x8, const float* __restrict__ sx,
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          uint32_t f0 = b0[j], f1 = b1[j];
-          if (BITS == 4) {   // 16 * nibble as a signed byte
-            f0 = hf == 0 ? (f0 << 4) & 0xF0F0F0F0u : f0 & 0xF0F0F0F0u;
-            f1 = hf == 0 ? (f1 << 4) & 0xF0F0F0F0u : f1 & 0xF0F0F0F0u;
-          }
+          // 16 * nibble as a signed byte
+          const uint32_t f0 = hf == 0 ? (b0[j] << 4) & 0xF0F0F0F0u : b0[j] & 0xF0F0F0F0u;
+          const uint32_t f1 = hf == 0 ? (b1[j] << 4) & 0xF0F0F0F0u : b1[j] & 0xF0F0F0F0u;
 #pragma unroll
           for (int m = 0; m < MT; ++m) mma_s8(acc[m][j], a[m], f0, f1);
         }
@@ -222,7 +221,7 @@ quant_matmul_a8_mma(const int8_t* __restrict__ x8, const float* __restrict__ sx,
   // that whole row segments are stored. C fragment: rows g and g+8 of each row
   // tile, tile columns 2t and 2t+1; tile column c of tile j is the warp's
   // column 4c + j.
-  cp_async_wait<0>();
+  cp_wait<0>();
   __syncthreads();
   int* tile = reinterpret_cast<int*>(smem_raw);   // [16*MT][kOutStride]
 #pragma unroll
@@ -232,7 +231,7 @@ quant_matmul_a8_mma(const int8_t* __restrict__ x8, const float* __restrict__ sx,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         tile[(m * 16 + g + 8 * (i / 2)) * kOutStride + warp * 32 + 4 * (2 * t + i % 2) + j] =
-            BITS == 8 ? acc[m][j][i] : acc[m][j][i] >> 4;   // int4: the sum is 16 * acc
+            acc[m][j][i] >> 4;   // the sum is 16 * acc
   __syncthreads();
   const int rows = min(16 * MT, R - r0);
   int* part = partial != nullptr ? partial + static_cast<int64_t>(blockIdx.z) * R * N : nullptr;
@@ -259,43 +258,42 @@ __global__ void quant_matmul_a8_reduce(const int* __restrict__ partial,
   store_out(out, i, static_cast<float>(s) * sx[i / N] * scale[i % N], out_bf16);
 }
 
-template <int BITS, int MT, bool VEC>
+template <int MT, bool VEC>
 cudaError_t launch_mma(const int8_t* x8, const float* sx, const int8_t* q, const float* scale,
                        void* out, int* partial, int R, int K, int N, int splits,
                        int kq_per_split, int out_bf16, cudaStream_t stream) {
   const dim3 grid((R + 16 * MT - 1) / (16 * MT), (N + kBN - 1) / kBN, splits);
-  constexpr int kSmem = kStages * static_cast<int>(sizeof(SmemI<BITS, MT>));
+  constexpr int kSmem = kStages * static_cast<int>(sizeof(SmemI<MT>));
   static_assert(16 * MT * kOutStride * 4 <= kSmem, "the output tile reuses the stages");
   static bool smem_set = false;   // above 48 KB only after this attribute
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        quant_matmul_a8_mma<BITS, MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        quant_matmul_a8_mma<MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  quant_matmul_a8_mma<BITS, MT, VEC><<<grid, kThreads, kSmem, stream>>>(
+  quant_matmul_a8_mma<MT, VEC><<<grid, kThreads, kSmem, stream>>>(
       x8, sx, q, scale, out, splits > 1 ? partial : nullptr, R, K, N, kq_per_split, out_bf16);
   return cudaGetLastError();
 }
 
-template <int BITS>
 int launch(const int8_t* x8, const float* sx, const int8_t* q, const float* scale, void* out,
            int* partial, int R, int K, int N, int splits, int kq_per_split, int out_dtype,
            cudaStream_t st) {
-  if (R <= 0 || N <= 0 || K <= 0 || (BITS == 4 && K % 2) || out_dtype < 0 || out_dtype > 1 ||
+  if (R <= 0 || N <= 0 || K <= 0 || K % 2 || out_dtype < 0 || out_dtype > 1 ||
       splits < 1 || (splits > 1 && (partial == nullptr || kq_per_split <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int Kq = BITS == 8 ? K : K / 2;
+  const int Kq = K / 2;
   if (splits == 1) kq_per_split = Kq;   // one split: the tail stage is masked
   else if (kq_per_split % kRowsI) return static_cast<int>(cudaErrorInvalidValue);
   // 16-byte copies need 16-byte row starts and whole 16-byte chunks of k.
   const bool vec = N % 16 == 0 && K % 16 == 0 && Kq % 16 == 0;
   cudaError_t err;
 #define SEQ_QMM_CASE(MT)                                                                 \
-  err = vec ? launch_mma<BITS, MT, true>(x8, sx, q, scale, out, partial, R, K, N, splits, \
-                                         kq_per_split, out_dtype, st)                    \
-            : launch_mma<BITS, MT, false>(x8, sx, q, scale, out, partial, R, K, N,       \
-                                          splits, kq_per_split, out_dtype, st);
+  err = vec ? launch_mma<MT, true>(x8, sx, q, scale, out, partial, R, K, N, splits,       \
+                                   kq_per_split, out_dtype, st)                          \
+            : launch_mma<MT, false>(x8, sx, q, scale, out, partial, R, K, N, splits,      \
+                                    kq_per_split, out_dtype, st);
   if (R <= 16) {
     SEQ_QMM_CASE(1)
   } else if (R <= 32) {
@@ -361,10 +359,10 @@ int sequoia_quantize_activations(const void* x, void* x8, void* sx, int R, int K
   return static_cast<int>(cudaGetLastError());
 }
 
-// x8 [R, K] int8, sx [R] float32, q int8 ([K, N] at bits 8, packed [K/2, N]
-// at bits 4), scale float32 [N], out [R, N] (out_dtype 0 = float32,
-// 1 = bfloat16). With splits > 1, partial is an int32 workspace
-// [splits, R, N] and each split covers kq_per_split q rows (a multiple of 64).
+// x8 [R, K] int8, sx [R] float32, q int8 packed [K/2, N] (bits 4 only),
+// scale float32 [N], out [R, N] (out_dtype 0 = float32, 1 = bfloat16). With
+// splits > 1, partial is an int32 workspace [splits, R, N] and each split
+// covers kq_per_split q rows (a multiple of 64).
 // x8 and q 16-byte aligned; the wrapper checks shapes, types and alignment.
 int sequoia_quant_matmul_a8(const void* x8, const void* sx, const void* q, const void* scale,
                             void* out, void* partial, int R, int K, int N, int bits,
@@ -375,10 +373,8 @@ int sequoia_quant_matmul_a8(const void* x8, const void* sx, const void* q, const
   const float* sxp = static_cast<const float*>(sx);
   const float* sc = static_cast<const float*>(scale);
   int* ws = static_cast<int*>(partial);
-  if (bits == 8)
-    return launch<8>(x8p, sxp, qp, sc, out, ws, R, K, N, splits, kq_per_split, out_dtype, st);
-  if (bits == 4)
-    return launch<4>(x8p, sxp, qp, sc, out, ws, R, K, N, splits, kq_per_split, out_dtype, st);
+  if (bits == 4)   // bits = 8: quant_matmul_int8_sm90.cu
+    return launch(x8p, sxp, qp, sc, out, ws, R, K, N, splits, kq_per_split, out_dtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,557 @@
+// int8-weight matmuls on Hopper's wgmma + TMA, one templated kernel with two
+// instantiations:
+//   weight-only: out[R, N] = (x[R, K] bf16 @ q[K, N] int8) * scale[N], f32
+//     accumulation, cast once (replaces the Pallas kernel
+//     sequoia_tpu/kernels/quant_matmul.py::quant_matmul bits=8, _kernel_int8);
+//   w8a8: out = float(x8[R, K] @ q[K, N]) * sx[r] * scale[n], in that order,
+//     the int8 product exact in int32 (the w8a8 route of
+//     sequoia_tpu/quant/qtensor.py::_matmul_w8a8, an XLA int8 dot there; x8
+//     and sx come from the activation quantizer of quant_matmul_a8.cu).
+// q keeps JAX's [K, N] layout; nothing is re-laid out at load time.
+//
+// Bound on the H100: the weight stream. At (K, N) = (4096, 11008) the int8
+// weight is 45 MB, 0.0135 ms at 3.35 TB/s; 2*R*K*N bf16 operations pass the
+// bytes only near R = 295 (int8 operations near R = 590).
+//
+// Design: the weight is streamed once for every R <= 256.
+// - A and B are swapped: out^T[N, R] = W^T[N, K] x^T[K, R]. The weight tile
+//   is wgmma's 64-row A operand, in registers; x (or x8) [R, K] is the B
+//   operand, K-major in shared memory, as wgmma wants it for bf16 and s8
+//   alike; R is wgmma's N (8..256). One block covers all R rows (up to 256)
+//   of its 128 output columns, so each weight byte crosses device memory
+//   once. R > 256 runs ceil(R / 256) row tiles (grid z).
+// - A block is one producer warpgroup and two consumer warpgroups (64
+//   weight columns each); setmaxnreg moves the producer's registers to the
+//   consumers (40 / 232), which the 256-row tile's 128 accumulators need.
+//   The producer's lane 0 keeps a ring of up to 16 stages full with TMA
+//   (one stage: 64 k of bf16 x or 128 k of x8, i.e. 128-byte rows of x, and
+//   the matching 128-byte rows of q), each completion counted on the
+//   stage's "full" mbarrier; every consumer warp arrives on its "empty"
+//   mbarrier once the wgmmas that read the stage have completed. Both tiles
+//   land in the 128-byte swizzle, which the wgmma descriptor of x reads
+//   directly and which puts q's 16-bit reads on distinct banks (bf16; s8's
+//   are at most 2-way).
+// - The A fragment (per warp, the mma.sync A layout of its 16 rows) needs
+//   k-pairs (bf16) or k-quads (s8) of one weight column, and q keeps a
+//   column's k in different rows. M-row g of a warp is weight column 2g of
+//   its 16 and row g + 8 column 2g + 1, so one 16-bit load per k row holds
+//   both of a lane's columns; prmt byte permutes transpose those loads into
+//   the fragment. bf16: each byte then becomes an exact bf16 (the 2^23
+//   trick, int8x4_to_bf16); s8 takes the bytes as they are.
+// - Each k step's fragment has registers of its own, fenced, and its wgmmas
+//   form one commit group; a stage's groups run while the next stage's
+//   fragments are built, and the previous stage's are waited for once per
+//   stage. ptxas serializes every wgmma of the kernel if a register that a
+//   wgmma in flight reads is rewritten, which the allocator otherwise does
+//   for a fragment read by a single wgmma: the fragments are read once more
+//   after their wgmmas are done, which keeps them in registers of their own.
+// - K is split across the 1-4 blocks of a thread-block cluster where the
+//   column tiles alone would leave SMs idle: the largest split whose
+//   clusters all fit on the card in one wave (kernels/quant_matmul.py::
+//   split_cluster, from the card's cluster occupancy). Each block stages its
+//   partial [R, 128] tile in its own shared memory; after a cluster barrier,
+//   rank b reduces the rows r with r % split == b over the ranks in rank
+//   order through distributed shared memory, applies the scale (and sx) and
+//   stores whole row segments. No device-memory workspace, no second launch.
+// - TMA needs 16-byte strides: N % 16 == 0 for q, and K % 8 (bf16) or
+//   K % 16 (int8) for x. Other shapes (no model of the repo has one) take the
+//   same kernel with the producer warp copying the stages itself, masked,
+//   into the same swizzled layout; the choice is made before the launch.
+// - Capturable in a CUDA graph: the tensor maps are encoded on the host per
+//   call and passed by value (__grid_constant__), the shared-memory
+//   attribute is set once per instantiation, nothing synchronizes.
+
+#include <cuda.h>
+#include <dlfcn.h>
+#include <cooperative_groups.h>
+#include <cstring>
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace sq;
+
+constexpr int kConsumers = 2;                        // warpgroups, 64 weight columns each
+constexpr int kBM = 64 * kConsumers;                 // output columns per block
+constexpr int kThreadsW = 128 * (kConsumers + 1);    // the producer warpgroup first
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // 128 * 40 + 256 * 232 <= 65536
+constexpr int kRowBytes = 128;                       // one swizzled tile row (= kBM bytes of q)
+constexpr int kTileStride = kBM + 4;                 // words per row of the staged output tile
+constexpr int kSmemBudget = 200 * 1024;
+constexpr int kMaxStages = 16;                       // bytes in flight for the small row tiles
+constexpr int kMaxRT = 256;
+
+template <bool A8, int RT>
+struct Cfg {
+  static constexpr int kKB = A8 ? 128 : 64;          // k per stage: 128 bytes of an x row
+  static constexpr int kXBytes = RT * kRowBytes;     // x tile: RT rows
+  static constexpr int kQBytes = kKB * kRowBytes;    // q tile: kKB rows of kBM bytes
+  static constexpr int kStageBytes = kXBytes + kQBytes;
+  static constexpr int kStages = kSmemBudget / kStageBytes < kMaxStages ? kSmemBudget / kStageBytes
+                                                                        : kMaxStages;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+  static constexpr int kChunkN = RT < 64 ? RT : 64;  // wgmma N of one instruction
+  static constexpr int kChunks = RT / kChunkN;
+  static constexpr int kSteps = 4;                   // wgmma k steps per stage (16 or 32 k)
+  static_assert(kStages >= 4, "at least three stages in flight");
+  static_assert(RT * kTileStride * 4 <= kStages * kStageBytes,
+                "the output tile reuses the stages");
+};
+
+struct Params {
+  const void* x;         // [R, K] bf16 (weight-only) or int8 (w8a8)
+  const int8_t* q;       // [K, N]
+  const float* sx;       // [R] (w8a8)
+  const float* scale;    // [N]
+  void* out;             // [R, N] f32 or bf16
+  int R, K, N;
+  int stages_per_split;  // K stages of each cluster rank
+  int out_bf16;
+  int tma;               // 1: TMA loads; 0: the producer warp copies (unaligned shapes)
+};
+
+// Byte offset of (row, byte) in a tile of 128-byte rows in the 128-byte
+// swizzle: the row's 16-byte chunks are permuted by row % 8 (the tile is
+// 1024-byte aligned), as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them.
+__device__ __forceinline__ int swz(int row, int byte) {
+  return row * kRowBytes + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// The producer warp's copy of one stage where TMA cannot address the
+// tensors: the same bytes in the same swizzled layout, zero outside them.
+template <bool A8, int RT>
+__device__ void copy_stage(uint8_t* xs, uint8_t* qs, const Params& p, int k0, int r0, int n0,
+                           int lane) {
+  using C = Cfg<A8, RT>;
+  for (int i = lane; i < RT * (kRowBytes / 4); i += 32) {
+    const int r = i / (kRowBytes / 4), b = (i % (kRowBytes / 4)) * 4, row = r0 + r;
+    uint32_t v = 0;
+    if (row < p.R) {
+      if (A8) {
+        const int8_t* src = static_cast<const int8_t*>(p.x) + static_cast<int64_t>(row) * p.K;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + b + j < p.K) v |= uint32_t(static_cast<uint8_t>(src[k0 + b + j])) << (8 * j);
+      } else {
+        const uint16_t* src =
+            static_cast<const uint16_t*>(p.x) + static_cast<int64_t>(row) * p.K;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (k0 + b / 2 + j < p.K) v |= uint32_t(src[k0 + b / 2 + j]) << (16 * j);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(xs + swz(r, b)) = v;
+  }
+  for (int i = lane; i < C::kKB * (kRowBytes / 4); i += 32) {
+    const int kr = i / (kRowBytes / 4), b = (i % (kRowBytes / 4)) * 4, k = k0 + kr;
+    uint32_t v = 0;
+    if (k < p.K) {
+      const int8_t* src = p.q + static_cast<int64_t>(k) * p.N + n0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + b + j < p.N) v |= uint32_t(static_cast<uint8_t>(src[b + j])) << (8 * j);
+    }
+    *reinterpret_cast<uint32_t*>(qs + swz(kr, b)) = v;
+  }
+}
+
+// Byte offsets, in a stage's q tile, of the lane's 16-bit loads (columns
+// col and col + 1): row r0 + d with r0 = 2t (bf16, d < 2) or 4t (s8, d < 4)
+// is at off[d], and the rows 8 (bf16) or 16 (s8) apart that load_a also
+// reads are whole multiples of 8 rows further: the swizzle depends only on
+// row % 8, so they are off[d] plus a constant.
+template <bool A8>
+struct AOffsets {
+  static constexpr int kN = A8 ? 4 : 2;
+  int off[kN];
+  __device__ __forceinline__ AOffsets(int col, int t) {
+#pragma unroll
+    for (int d = 0; d < kN; ++d) off[d] = swz(kN * t + d, col);
+  }
+};
+
+// The A fragment of k step ks of a stage for the lane's two weight columns
+// col, col+1 (M-rows g and g+8 of its warp) from the stage's q tile `qs`.
+// bf16 (16 k): a0 = row g, k 2t..2t+1; a1 = row g+8; a2, a3 the same at
+// k + 8. s8 (32 k): a0 = row g, k 4t..4t+3; a1 = row g+8; a2, a3 at k + 16.
+// A 16-bit load at (k, col) holds q[k][col] (low byte) and q[k][col + 1].
+template <bool A8>
+__device__ __forceinline__ void load_a(const uint8_t* qs, const AOffsets<A8>& o, int ks,
+                                       uint32_t (&a)[4]) {
+  auto h = [&](int d, int rows) -> uint32_t {   // row (kN t + d + rows)
+    return *reinterpret_cast<const uint16_t*>(qs + o.off[d] + rows * kRowBytes);
+  };
+  if (!A8) {
+    // [q[k][col], q[k+1][col], q[k][col+1], q[k+1][col+1]], k = 16 ks + 2t
+    const uint32_t p0 = __byte_perm(h(0, 16 * ks), h(1, 16 * ks), 0x5140);
+    const uint32_t p8 = __byte_perm(h(0, 16 * ks + 8), h(1, 16 * ks + 8), 0x5140);
+    int8x4_to_bf16(p0, a[0], a[1]);
+    int8x4_to_bf16(p8, a[2], a[3]);
+  } else {
+    const int k = 32 * ks;   // + 4t
+    const uint32_t l01 = __byte_perm(h(0, k), h(1, k), 0x5140);
+    const uint32_t l23 = __byte_perm(h(2, k), h(3, k), 0x5140);
+    const uint32_t u01 = __byte_perm(h(0, k + 16), h(1, k + 16), 0x5140);
+    const uint32_t u23 = __byte_perm(h(2, k + 16), h(3, k + 16), 0x5140);
+    a[0] = __byte_perm(l01, l23, 0x5410);   // column col, k .. k+3
+    a[1] = __byte_perm(l01, l23, 0x7632);   // column col + 1
+    a[2] = __byte_perm(u01, u23, 0x5410);
+    a[3] = __byte_perm(u01, u23, 0x7632);
+  }
+}
+
+template <bool A8, int RT>
+__global__ void __launch_bounds__(kThreadsW, 1)
+qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+          const Params p) {
+  using C = Cfg<A8, RT>;
+  using Acc = typename std::conditional<A8, int, float>::type;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kStages * C::kStageBytes);
+  uint64_t* empty = full + C::kStages;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int n0 = blockIdx.y * kBM, r0 = blockIdx.z * RT;
+  const int nk = (p.K + C::kKB - 1) / C::kKB;
+  const int s_begin = rank * p.stages_per_split;
+  const int nst = max(0, min(nk, s_begin + p.stages_per_split) - s_begin);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    if (p.tma) {
+      prefetch_tensormap(&xmap);
+      prefetch_tensormap(&qmap);
+    }
+    for (int i = 0; i < C::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * kConsumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // Producer warpgroup: warp 0 keeps the ring full (TMA: lane 0 alone;
+    // copies: the whole warp). It gives most of its registers to the
+    // consumers and joins only the epilogue's two cluster barriers.
+    setmaxnreg_dec<kProducerRegs>();
+    for (int s = 0; warp == 0 && s < nst && (lane == 0 || !p.tma); ++s) {
+      const int slot = s % C::kStages;
+      if (s >= C::kStages) mbar_wait(&empty[slot], ((s / C::kStages) & 1) ^ 1);
+      uint8_t* xs = smem + slot * C::kStageBytes;
+      uint8_t* qs = xs + C::kXBytes;
+      const int k0 = (s_begin + s) * C::kKB;
+      if (p.tma) {
+        mbar_arrive_expect_tx(&full[slot], C::kStageBytes);
+        tma_load_2d(xs, &xmap, &full[slot], k0, r0);
+        tma_load_2d(qs, &qmap, &full[slot], n0, k0);
+      } else {
+        copy_stage<A8, RT>(xs, qs, p, k0, r0, n0, lane);
+        fence_proxy_async();   // x is read by wgmma, through the async proxy
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[slot]);
+      }
+    }
+    __syncwarp();
+    cluster.sync();
+    cluster.sync();
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4 - 1, g = lane / 4, t = lane % 4;
+  const int col = 64 * wg + 16 * (warp % 4) + 2 * g;   // the lane's columns col, col + 1
+  const AOffsets<A8> offs(col, t);
+  Acc acc[C::kChunks][C::kChunkN / 2];
+#pragma unroll
+  for (int j = 0; j < C::kChunks; ++j)
+#pragma unroll
+    for (int i = 0; i < C::kChunkN / 2; ++i) {
+      acc[j][i] = 0;
+      fence_reg(acc[j][i]);
+    }
+  // A stage: the fragments of its k steps are built first (all loads in
+  // flight at once), each into registers of its own (a stage's four and the
+  // previous stage's four may both feed wgmmas in flight); then each is
+  // fenced and its wgmmas form one commit group, so that nothing but wgmmas
+  // lies between a fence and its commit. After the stage's four groups are
+  // issued, the previous stage's are waited for and its slot released.
+  uint32_t af[2][C::kSteps][4];
+  uint32_t live = 0;
+  auto stage = [&](int s, uint32_t (&a)[C::kSteps][4], uint32_t (&prev)[C::kSteps][4]) {
+    const int slot = s % C::kStages;
+    mbar_wait(&full[slot], (s / C::kStages) & 1);
+    const uint8_t* xs = smem + slot * C::kStageBytes;
+    uint64_t dsc[C::kSteps][C::kChunks];
+    const uint64_t d0 = desc_k128(xs);
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+#pragma unroll
+      for (int j = 0; j < C::kChunks; ++j) {   // x rows [64j, 64j + 64), k bytes 32 ks..
+        dsc[ks][j] = d0 + ((j * 64 * kRowBytes) >> 4) + 2 * ks;
+        fence_reg(dsc[ks][j]);
+      }
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks) load_a<A8>(xs + C::kXBytes, offs, ks, a[ks]);
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_reg(a[ks][i]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < C::kChunks; ++j) wgmma_rs(acc[j], a[ks], dsc[ks][j]);
+      wgmma_commit();
+    }
+    wgmma_wait<C::kSteps>();
+    // The previous stage's fragments are read once more (into `live`) after
+    // its wgmmas are known to be done, so that the register allocator keeps
+    // every fragment in flight in registers of its own: one rewritten under
+    // a wgmma in flight makes ptxas serialize all wgmmas.
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) live ^= prev[ks][i];
+    if (s > 0 && lane == 0) mbar_arrive(&empty[(s - 1) % C::kStages]);
+  };
+  for (int s = 0; s < nst; s += 2) {
+    stage(s, af[0], af[1]);
+    if (s + 1 < nst) stage(s + 1, af[1], af[0]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < C::kChunks; ++j)
+#pragma unroll
+    for (int i = 0; i < C::kChunkN / 2; ++i) fence_reg(acc[j][i]);
+
+  // The partial tile, transposed to [r][column], over the stages once both
+  // consumer warpgroups are done with them. D fragment: M-row g (column col)
+  // and g + 8 (col + 1) at r = 8 i + 2 t + e of each chunk.
+  named_barrier(1, 4 * 32 * kConsumers);
+  Acc* tile = reinterpret_cast<Acc*>(smem);   // [RT][kTileStride]
+  if (p.R < 0) reinterpret_cast<uint32_t*>(tile)[threadIdx.x] = live;   // never: a use of `live`
+#pragma unroll
+  for (int j = 0; j < C::kChunks; ++j)
+#pragma unroll
+    for (int i = 0; i < C::kChunkN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = j * C::kChunkN + 8 * i + 2 * t + e;
+        Acc* dst = tile + r * kTileStride + col;
+        dst[0] = acc[j][4 * i + e];
+        dst[1] = acc[j][4 * i + 2 + e];
+      }
+  cluster.sync();   // every rank's tile is written and visible across the cluster
+
+  // Rank `rank` reduces rows r = rank, rank + csize, ... over the ranks in
+  // rank order, then scales and stores 4 columns per step.
+  const int rows = min(RT, p.R - r0);
+  const int my_rows = rows > rank ? (rows - rank + csize - 1) / csize : 0;
+  const bool vec = p.N % 4 == 0;
+  for (int i = threadIdx.x - 128; i < my_rows * (kBM / 4); i += 128 * kConsumers) {
+    const int r = rank + (i / (kBM / 4)) * csize, c = (i % (kBM / 4)) * 4, n = n0 + c;
+    if (n >= p.N) continue;
+    Acc v[4];
+    const Acc* src = cluster.map_shared_rank(tile, 0) + r * kTileStride + c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = src[e];
+    for (int b = 1; b < csize; ++b) {
+      const Acc* o = cluster.map_shared_rank(tile, b) + r * kTileStride + c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] += o[e];
+    }
+    const int64_t base = static_cast<int64_t>(r0 + r) * p.N + n;
+    float y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float s = n + e < p.N ? p.scale[n + e] : 0.f;
+      y[e] = A8 ? static_cast<float>(v[e]) * p.sx[r0 + r] * s : static_cast<float>(v[e]) * s;
+    }
+    if (vec && p.out_bf16) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out) + base) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    } else if (vec) {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + base) =
+          make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < p.N) store_out(p.out, base + e, y[e], p.out_bf16);
+    }
+  }
+  cluster.sync();   // no block leaves while another rank reads its tile
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+using EncodeFn = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled, looked up in libcuda.so.1, which the CUDA runtime
+// has loaded (no link against libcuda).
+EncodeFn encoder() {
+  static EncodeFn fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h == nullptr ? nullptr
+                        : reinterpret_cast<EncodeFn>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A 2-D row-major tensor [outer, inner] of `row_bytes` per row, read in
+// boxes [box_outer, box_inner] in the 128-byte swizzle, zero-filled outside.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
+            uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
+  const EncodeFn fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <bool A8, int RT>
+cudaLaunchConfig_t config(int splits, int N, int R, cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + kBM - 1) / kBM, (R + RT - 1) / RT);
+  cfg.blockDim = dim3(kThreadsW);
+  cfg.dynamicSmemBytes = Cfg<A8, RT>::kSmem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool A8, int RT>
+cudaError_t set_smem() {
+  static bool done = false;   // above 48 KB only after this attribute; once
+  if (!done) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm8_sm90<A8, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<A8, RT>::kSmem);
+    if (err != cudaSuccess) return err;
+    done = true;
+  }
+  return cudaSuccess;
+}
+
+template <bool A8, int RT>
+cudaError_t launch(const Params& p, int splits, cudaStream_t st) {
+  using C = Cfg<A8, RT>;
+  cudaError_t err = set_smem<A8, RT>();
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, qmap;
+  memset(&xmap, 0, sizeof(xmap));
+  memset(&qmap, 0, sizeof(qmap));
+  if (p.tma) {
+    const bool ok =
+        encode(&xmap, A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x,
+               p.K, p.R, static_cast<uint64_t>(p.K) * (A8 ? 1 : 2), C::kKB, RT) &&
+        encode(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, kBM, C::kKB);
+    if (!ok) return cudaErrorInvalidValue;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<A8, RT>(splits, p.N, p.R, st, attr);
+  return cudaLaunchKernelEx(&cfg, qmm8_sm90<A8, RT>, xmap, qmap, p);
+}
+
+template <bool A8, int RT>
+int max_clusters(int splits) {
+  if (set_smem<A8, RT>() != cudaSuccess) return -1;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<A8, RT>(splits, kBM, RT, nullptr, attr);
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(qmm8_sm90<A8, RT>), &cfg);
+  return err == cudaSuccess ? n : -1;
+}
+
+// The row tile: wgmma's N, the least of 8, 16, .., 256 that holds R rows.
+int row_tile(int R) {
+  int rt = 8;
+  while (rt < R && rt < kMaxRT) rt *= 2;
+  return rt;
+}
+
+template <bool A8>
+int dispatch(const Params& p, int splits, cudaStream_t st) {
+  switch (row_tile(p.R)) {
+    case 8: return launch<A8, 8>(p, splits, st);
+    case 16: return launch<A8, 16>(p, splits, st);
+    case 32: return launch<A8, 32>(p, splits, st);
+    case 64: return launch<A8, 64>(p, splits, st);
+    case 128: return launch<A8, 128>(p, splits, st);
+    default: return launch<A8, 256>(p, splits, st);
+  }
+}
+
+template <bool A8>
+int dispatch_clusters(int rt, int splits) {
+  switch (rt) {
+    case 8: return max_clusters<A8, 8>(splits);
+    case 16: return max_clusters<A8, 16>(splits);
+    case 32: return max_clusters<A8, 32>(splits);
+    case 64: return max_clusters<A8, 64>(splits);
+    case 128: return max_clusters<A8, 128>(splits);
+    default: return max_clusters<A8, 256>(splits);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// x [R, K] (a8 = 0: bfloat16; a8 = 1: int8 x8 with sx [R] float32), q int8
+// [K, N], scale float32 [N], out [R, N] (out_dtype 0 = float32,
+// 1 = bfloat16); K split over a cluster of `splits` (1..8) blocks. x and q
+// 16-byte aligned; the wrapper checks shapes, types and alignment. TMA when
+// the strides allow it (see the file note).
+int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* scale, void* out,
+                      int R, int K, int N, int a8, int splits, int out_dtype, void* stream) {
+  if (R <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > 8 || out_dtype < 0 ||
+      out_dtype > 1 || (a8 && sx == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.x = x;
+  p.q = static_cast<const int8_t*>(q);
+  p.sx = static_cast<const float*>(sx);
+  p.scale = static_cast<const float*>(scale);
+  p.out = out;
+  p.R = R;
+  p.K = K;
+  p.N = N;
+  const int kb = a8 ? 128 : 64;
+  const int nk = (K + kb - 1) / kb;
+  p.stages_per_split = (nk + splits - 1) / splits;
+  p.out_bf16 = out_dtype;
+  p.tma = N % 16 == 0 && K % (a8 ? 16 : 8) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a8 ? dispatch<true>(p, splits, st) : dispatch<false>(p, splits, st);
+}
+
+// Clusters of `splits` blocks of the kernel for row tile `rt` that the card
+// holds at once (cudaOccupancyMaxActiveClusters); negative on error.
+int sequoia_qmm8_sm90_max_clusters(int a8, int rt, int splits) {
+  if (splits < 1 || splits > 8) return -1;
+  return a8 ? dispatch_clusters<true>(rt, splits) : dispatch_clusters<false>(rt, splits);
+}
+
+}  // extern "C"

@@ -67,11 +67,11 @@
 // of a row hit distinct banks); a quantized tile's integers are expanded on
 // their way from registers to shared memory.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
+
+using namespace sq;
 
 constexpr int kQT = 16;              // query rows per block
 constexpr int kLanes = 8;            // threads per query row
@@ -356,18 +356,6 @@ struct TcLayout {
   static constexpr int kVecs = kKT * kRowBytes / kVec;        // raw vectors per tile
 };
 
-// 4 int8 values (one word) as two bf16x2: 2^23 + (b + 128) is exact in f32
-// (one prmt), so one subtraction gives b; b's f32 has 16 zero low bits, so
-// its high half is the exact bf16.
-__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j)) - 8388736.f;
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-}
 // 4 nibbles (the low nibble of each byte of `n`, high nibbles zero) as two
 // bf16x2: the bf16 with bits 0x4300 | (v + 8) is 128 + v + 8, exactly; one
 // bf16x2 subtraction of 136 gives v.
@@ -436,40 +424,6 @@ struct RawTile {
   }
 };
 
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = ok ? bytes : 0;   // src-size 0 zero-fills without reading src
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(d), "l"(src), "r"(n));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" :: "r"(d), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(d), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);

@@ -10,9 +10,9 @@ Port of `sequoia_tpu/kernels/quant_matmul.py`:
 - `quant_matmul(..., bits=4, unpack="w4a8")` (`_kernel_int4_w4a8`): the
   activations are quantized per row to int8 first (`quantize_activations`),
   the products run int8 x int8 -> int32 on the int8 tensor cores, and
-  `out = float(acc) * sx [R, 1] * scale [1, N]`. The same kernel without the
-  nibble step is `quant_matmul_w8a8`, the int8-weight product that
-  `quant/qtensor.py`'s w8a8 route needs at every row count. The int32 sum
+  `out = float(acc) * sx [R, 1] * scale [1, N]`. The int8-weight product
+  with quantized activations is `quant_matmul_w8a8`, the route that
+  `quant/qtensor.py`'s w8a8 mode needs at every row count. The int32 sum
   runs over the whole K. (JAX casts each K block's int32 partial to f32 and
   adds in f32, which equals one int32 sum while the total stays under 2^24:
   at int4 for K <= 18000, since 127 * 7 * K < 2^24.)
@@ -28,13 +28,21 @@ Layouts, as in JAX:
 - tiled int4: q `[nt, K/2, bn0]`, panel n holding columns
   `[n bn0, (n + 1) bn0)` of the packed matrix, zero past N.
 
-On a CUDA tensor each function launches its kernel of `csrc/quant_matmul.cu`
-or `csrc/quant_matmul_a8.cu` (or raises); on a CPU tensor it runs its plain
-version. What differs from the TPU versions: no block-size arguments
-(Pallas's VMEM budget has no meaning here); no padding of q, x or scale (the
-kernels mask ragged edges); the K axis is split across blocks, with partials
-summed by a second small kernel, where the output tiles alone would leave
-the card's SMs idle; bf16 x runs on the tensor cores (`mma.sync`), f32 x on
+On a CUDA tensor each function launches its kernel (or raises); on a CPU
+tensor it runs its plain version. The kernels:
+- int8 weights with bf16 x (`quant_matmul_int8_wgmma`) and w8a8
+  (`quant_matmul_w8a8_wgmma`): `csrc/quant_matmul_int8_sm90.cu`, wgmma + TMA,
+  the weight streamed once for R <= 256, K split inside a thread-block
+  cluster (`split_cluster`); `quant_matmul_int8_sm90_model` is a CPU model
+  of its decomposition, on no path;
+- int8 weights with f32 x (`quant_matmul_int8`, the CUDA cores in full f32)
+  and every int4 product: `csrc/quant_matmul.cu`; w4a8 and the activation
+  quantizer: `csrc/quant_matmul_a8.cu`.
+What differs from the TPU versions: no block-size arguments (Pallas's VMEM
+budget has no meaning here); no padding of q, x or scale (the kernels mask
+ragged edges); in the int4 kernels the K axis is split across blocks, with
+partials summed by a second small kernel, where the output tiles alone
+would leave the card's SMs idle; bf16 x runs on the tensor cores, f32 x on
 the CUDA cores in full f32; the tiled kernel takes `bn0 == 128` only (its
 plain version any `bn0`).
 """
@@ -50,13 +58,17 @@ from . import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NAME = {8: "quant_matmul_int8", 4: "quant_matmul_int4"}
-_NAME_A8 = {8: "quant_matmul_w8a8", 4: "quant_matmul_w4a8"}
 UNPACK = ("auto", "shift", "float", "w4a8")
 # Kernel geometry, as in csrc/quant_matmul.cu and csrc/quant_matmul_a8.cu.
 _BN = 128                   # output columns per block; the tiled kernel's bn0
 _STAGE = {8: 64, 4: 32}     # q rows per K stage, float activations
 _STAGE_A8 = 64              # q rows per K stage, int8 activations
 _TARGET_BLOCKS = 264        # two blocks for each of the H100's 132 SMs
+# ... and in csrc/quant_matmul_int8_sm90.cu.
+SM90_BM = 128               # output columns per block (two warpgroups of 64)
+SM90_KB = {False: 64, True: 128}   # k per stage: bf16 x, int8 x8 (128 bytes)
+SM90_MAX_RT = 256           # rows per block (wgmma's largest N)
+SM90_MAX_SPLIT = 4          # blocks per cluster, each a slice of K
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -142,6 +154,61 @@ def split_k(R: int, K: int, N: int, bits: int, stage: int = 0) -> tuple:
     return math.ceil(stages / per), per * stage
 
 
+def row_tile(R: int) -> int:
+    """Rows per block of the wgmma kernel (its wgmma N): the least of 8,
+    16, .., 256 that holds R; 256 (and R / 256 row tiles) above."""
+    rt = 8
+    while rt < min(R, SM90_MAX_RT):
+        rt *= 2
+    return rt
+
+
+def split_cluster(R: int, K: int, N: int, a8: bool, max_clusters) -> int:
+    """Cluster size (1..4) of the wgmma kernel: the blocks of a cluster
+    share one 128-column tile and split its K stages. `max_clusters(c)` is
+    how many clusters of c blocks the card holds at once
+    (cudaOccupancyMaxActiveClusters). The largest c whose clusters all fit
+    in one wave, keeping >= 4 stages per block; 1 when even single blocks
+    take more than one wave (on the H100 a second wave of clusters ran
+    slower than one wave of whole tiles; PERF.md §6)."""
+    tiles = math.ceil(N / SM90_BM) * math.ceil(R / SM90_MAX_RT)
+    stages = math.ceil(K / SM90_KB[a8])
+    best = 1
+    for c in range(2, SM90_MAX_SPLIT + 1):
+        if stages < 4 * c:
+            break
+        if tiles <= max_clusters(c):
+            best = c
+    return best
+
+
+def quant_matmul_int8_sm90_model(x, q, scale, *, sx=None, splits: int = 1, out_dtype=None):
+    """CPU model of the wgmma kernel's decomposition (`csrc/
+    quant_matmul_int8_sm90.cu`), on no path: K cut in stages of 64 (bf16 x)
+    or 128 (int8 x8) k, dealt to `splits` cluster ranks in contiguous runs
+    of ceil(stages / splits); each rank sums its stages in order (f32, or
+    exactly in integers for x8); the ranks' partials are added in rank
+    order; then the epilogue: `acc * scale`, or `float(acc) * sx * scale` in
+    that order. `sx` [R, 1] (or [R]) marks x as x8."""
+    a8 = sx is not None
+    R, K = x.shape
+    N = q.shape[1]
+    kb = SM90_KB[a8]
+    per = math.ceil(math.ceil(K / kb) / splits) * kb
+    total = None
+    for b in range(splits):
+        acc = torch.zeros((R, N), dtype=torch.int64 if a8 else torch.float32)
+        for k0 in range(b * per, min(K, (b + 1) * per), kb):
+            xs, qs = x[:, k0:k0 + kb], q[k0:k0 + kb]
+            acc += xs.long() @ qs.long() if a8 else xs.float() @ qs.float()
+        total = acc if total is None else total + acc
+    if a8:
+        y = total.float() * sx.reshape(-1, 1) * scale.float().reshape(1, -1)
+    else:
+        y = total * scale.float().reshape(1, -1)
+    return y.to(out_dtype or (torch.float32 if a8 else x.dtype))
+
+
 def _check(x, q, scale, bits, out_dtype, *, tiled=False):
     name = "quant_matmul_tiled" if tiled else "quant_matmul"
     if bits not in (8, 4):
@@ -206,6 +273,35 @@ def _launch_float(fn, counter, x, q, scale, bits, out_dtype):
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _max_clusters(a8: bool, rt: int, c: int, device: int) -> int:
+    with torch.cuda.device(device):
+        return build.load().sequoia_qmm8_sm90_max_clusters(int(a8), rt, c)
+
+
+@functools.lru_cache(maxsize=1024)
+def _sm90_split(R: int, K: int, N: int, a8: bool, device: int) -> int:
+    rt = row_tile(R)
+    return split_cluster(R, K, N, a8, functools.partial(_max_clusters, a8, rt, device=device))
+
+
+def _launch_int8_sm90(x, q, scale, out_dtype, sx=None):
+    """The wgmma kernel: bf16 x, or int8 x8 with its row scales `sx`."""
+    R, K = x.shape
+    N = q.shape[1]
+    a8 = sx is not None
+    splits = _sm90_split(R, K, N, a8, x.device.index)
+    out = torch.empty((R, N), dtype=out_dtype, device=x.device)
+    rc = build.load().sequoia_qmm8_sm90(
+        x.data_ptr(), q.data_ptr(), sx.data_ptr() if a8 else None, scale.data_ptr(),
+        out.data_ptr(), R, K, N, int(a8), splits, _DTYPE_CODE[out_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    counter = "quant_matmul_w8a8_wgmma" if a8 else "quant_matmul_int8_wgmma"
+    build.check(rc, counter)
+    build.launches[counter] += 1
+    return out
+
+
 def quantize_activations(x: torch.Tensor):
     """`(x8 [R, K] int8, sx [R, 1] f32)`: see `quantize_activations_plain`.
     One kernel on the card (`csrc/quant_matmul_a8.cu`)."""
@@ -227,21 +323,21 @@ def quantize_activations(x: torch.Tensor):
     return x8, sx
 
 
-def _quant_matmul_a8(x, q, scale, bits, out_dtype):
-    """Quantize x per row, then the int8 x int8 (or int8 x int4) kernel."""
-    _check(x, q, scale, bits, out_dtype)
+def _quant_matmul_w4a8(x, q, scale, out_dtype):
+    """Quantize x per row, then the int8 x int4 kernel."""
+    _check(x, q, scale, 4, out_dtype)
     x8, sx = quantize_activations(x)
     R, K = x.shape
     N = q.shape[1]
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
-    splits, per = split_k(R, K, N, bits, _STAGE_A8)
+    splits, per = split_k(R, K, N, 4, _STAGE_A8)
     ws = _workspace(splits, R, N, torch.int32, x.device)
     rc = build.load().sequoia_quant_matmul_a8(
         x8.data_ptr(), sx.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), R, K, N, bits, splits, per,
+        None if ws is None else ws.data_ptr(), R, K, N, 4, splits, per,
         _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, _NAME_A8[bits])
-    build.launches[_NAME_A8[bits]] += 1
+    build.check(rc, "quant_matmul_w4a8")
+    build.launches["quant_matmul_w4a8"] += 1
     return out
 
 
@@ -260,8 +356,10 @@ def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"
         raise ValueError(f"unsupported device {x.device}")
     out_dtype = out_dtype or x.dtype
     if unpack == "w4a8":
-        return _quant_matmul_a8(x, q, scale, 4, out_dtype)
+        return _quant_matmul_w4a8(x, q, scale, out_dtype)
     _check(x, q, scale, bits, out_dtype)
+    if bits == 8 and x.dtype == torch.bfloat16:
+        return _launch_int8_sm90(x, q, scale, out_dtype)
     lib = build.load()
     fn = lib.sequoia_quant_matmul_int8 if bits == 8 else lib.sequoia_quant_matmul_int4
     return _launch_float(fn, _NAME[bits], x, q, scale, bits, out_dtype)
@@ -274,7 +372,10 @@ def quant_matmul_w8a8(x, q, scale, *, out_dtype=None):
         return quant_matmul_w8a8_plain(x, q, scale, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _quant_matmul_a8(x, q, scale, 8, out_dtype or x.dtype)
+    out_dtype = out_dtype or x.dtype
+    _check(x, q, scale, 8, out_dtype)
+    x8, sx = quantize_activations(x)
+    return _launch_int8_sm90(x8, q, scale, out_dtype, sx=sx)
 
 
 def quant_matmul_tiled(x, q, scale, *, out_dtype=None):

@@ -7,7 +7,10 @@ with keep = p >= t, where c* = inf{c : sum(p[p > c]) <= top_p} is found by
 p = softmax(logits / T) itself; `top_p_threshold_fused` takes p.
 
 On a CUDA tensor each function launches its kernel from `csrc/top_p.cu`
-(or raises); on a CPU tensor it runs the plain version.
+(or raises); on a CPU tensor it runs the plain version. The kernel has two
+routes, chosen from V before the launch, each with its own launch counter:
+up to `REGISTER_VOCAB` one block holds a row in registers; above it a
+cluster of `cluster_size(V)` blocks does (any V; Llama-3's 128256 takes 4).
 """
 
 from __future__ import annotations
@@ -17,6 +20,17 @@ import torch
 from . import build
 
 ITERS = 32
+# As in csrc/top_p.cu: 512 threads x 64 register values per block, and at
+# most 8 blocks (the portable cluster size) per row.
+REGISTER_VOCAB = 512 * 64
+MAX_CLUSTER = 8
+
+
+def cluster_size(V: int) -> int:
+    """Blocks per row of the cluster route (V > REGISTER_VOCAB): enough for
+    64 register values per thread, at most 8 (past 8 * 32768 the kernel
+    re-reads the rest of the row in each pass)."""
+    return min(MAX_CLUSTER, -(-V // REGISTER_VOCAB))
 
 
 def top_p_threshold_plain(probs: torch.Tensor, top_p: float,
@@ -93,11 +107,6 @@ def _check_rows(x: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name}: expected float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
-    lib = build.load()
-    if x.shape[1] > lib.sequoia_top_p_max_vocab():
-        raise NotImplementedError(
-            f"{name}: vocab {x.shape[1]} exceeds the register-resident row "
-            f"({lib.sequoia_top_p_max_vocab()})")
 
 
 def top_p_threshold_from_logits(logits: torch.Tensor, top_p: float,
@@ -110,13 +119,14 @@ def top_p_threshold_from_logits(logits: torch.Tensor, top_p: float,
         raise ValueError(f"unsupported device {logits.device}")
     _check_rows(logits, "top_p_threshold_from_logits")
     R, V = logits.shape
+    cluster = V > REGISTER_VOCAB
     out = torch.empty(R, dtype=torch.float32, device=logits.device)
-    lib = build.load()
-    rc = lib.sequoia_top_p_from_logits(
-        logits.data_ptr(), out.data_ptr(), R, V, float(top_p),
-        float(temperature), torch.cuda.current_stream(logits.device).cuda_stream)
-    build.check(rc, "top_p_threshold_from_logits")
-    build.launches["top_p_threshold_from_logits"] += 1
+    rc = build.load().sequoia_top_p_from_logits(
+        logits.data_ptr(), out.data_ptr(), R, V, float(top_p), float(temperature),
+        int(cluster), torch.cuda.current_stream(logits.device).cuda_stream)
+    counter = "top_p_threshold_from_logits" + ("_cluster" if cluster else "")
+    build.check(rc, counter)
+    build.launches[counter] += 1
     return out
 
 
@@ -128,11 +138,12 @@ def top_p_threshold_fused(probs: torch.Tensor, top_p: float) -> torch.Tensor:
         raise ValueError(f"unsupported device {probs.device}")
     _check_rows(probs, "top_p_threshold_fused")
     R, V = probs.shape
+    cluster = V > REGISTER_VOCAB
     out = torch.empty(R, dtype=torch.float32, device=probs.device)
-    lib = build.load()
-    rc = lib.sequoia_top_p_fused(
-        probs.data_ptr(), out.data_ptr(), R, V, float(top_p),
+    rc = build.load().sequoia_top_p_fused(
+        probs.data_ptr(), out.data_ptr(), R, V, float(top_p), int(cluster),
         torch.cuda.current_stream(probs.device).cuda_stream)
-    build.check(rc, "top_p_threshold_fused")
-    build.launches["top_p_threshold_fused"] += 1
+    counter = "top_p_threshold_fused" + ("_cluster" if cluster else "")
+    build.check(rc, counter)
+    build.launches[counter] += 1
     return out

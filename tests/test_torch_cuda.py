@@ -178,6 +178,30 @@ def test_top_p_kernels_match_plain(rows, vocab, top_p):
     assert torch.where(same, (got - want).abs(), 0.0).max().item() <= 1e-6
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_p", [0.5, 0.9, 0.99])
+@pytest.mark.parametrize("rows", [1, 64])
+def test_top_p_cluster_route_matches_plain(rows, top_p):
+    """V = 128256 (Llama-3) runs the cluster route, under its own counters:
+    the fused kernel bit-identical to the plain version, the from-logits
+    kernel within `boundary_disagreements`; likewise past 8 blocks of
+    register rows (V = 300000, re-read in each pass)."""
+    _need_cuda()
+    for vocab in (128256, 300000):
+        gen = torch.Generator(device="cuda").manual_seed(rows + vocab)
+        logits = torch.randn(rows, vocab, generator=gen, device="cuda") * 3
+        probs = torch.softmax(logits / 0.6, dim=-1)
+        before = dict(qmm.build.launches)
+        got = tp.top_p_threshold_fused(probs, top_p)
+        torch.testing.assert_close(got, tp.top_p_threshold_plain(probs, top_p), rtol=0, atol=0)
+        got = tp.top_p_threshold_from_logits(logits, top_p, 0.6)
+        want = tp.top_p_threshold_from_logits_plain(logits, top_p, 0.6)
+        tp.boundary_disagreements(probs, got, want, top_p)
+        for name in ("top_p_threshold_fused", "top_p_threshold_from_logits"):
+            assert qmm.build.launches[name + "_cluster"] == before[name + "_cluster"] + 1
+            assert qmm.build.launches[name] == before[name]
+
+
 def _qmm_inputs(R, K, N, bits, dtype, seed):
     """Random q bytes (every nibble, -8 included) and positive scales."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -190,16 +214,19 @@ def _qmm_inputs(R, K, N, bits, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("R", [1, 5, 64, 128])
+@pytest.mark.parametrize("R", [1, 5, 64, 128, 256, 300])
 @pytest.mark.parametrize("K,N,out_dtype", [
     (4096, 4096, None), (4096, 11008, None), (11008, 4096, None),
     (4096, 32000, torch.float32),   # the lm_head: f32 logits
     (96, 200, None),                # ragged: byte loads, masked edges
     (96, 200, torch.float32),
+    (200, 136, None),               # ragged K (a partial stage), N % 16 != 0
 ])
 def test_quant_matmul_kernel_matches_plain(bits, R, K, N, out_dtype):
     """bf16 x: bf16 out within 2e-2 of the largest |plain|, f32 out within
-    1e-4 (the products are exact; only the f32 sum order differs)."""
+    1e-4 (the products are exact; only the f32 sum order differs). bits=8
+    runs the wgmma kernel (TMA where N % 16 == 0 and K % 8 == 0, else the
+    producer warp's copies)."""
     _need_cuda()
     x, q, scale = _qmm_inputs(R, K, N, bits, torch.bfloat16, R + K + N + bits)
     got = qmm.quant_matmul(x, q, scale, bits=bits, out_dtype=out_dtype)
@@ -304,9 +331,11 @@ def test_quant_matmul_raises_instead_of_falling_back():
         qmm.quant_matmul(misaligned, q, scale, bits=8)
     with pytest.raises(ValueError):
         qmm.quant_matmul(x, q.cpu(), scale, bits=8)
-    before = qmm.build.launches["quant_matmul_int8"]
+    before = dict(qmm.build.launches)
     qmm.quant_matmul(x, q, scale, bits=8)
-    assert qmm.build.launches["quant_matmul_int8"] == before + 1
+    assert qmm.build.launches["quant_matmul_int8_wgmma"] == before["quant_matmul_int8_wgmma"] + 1
+    qmm.quant_matmul(x.float(), q, scale, bits=8)
+    assert qmm.build.launches["quant_matmul_int8"] == before["quant_matmul_int8"] + 1
 
 
 def test_boundary_disagreements_rejects_a_real_difference():
