@@ -15,10 +15,11 @@ Phases, each fatal on failure:
      kernel, with its split count and the key tiles its prefix skip reads;
      f32: the CUDA-core kernel); the top-p cutoffs at V = 32000 (one block
      per row) and V = 128256 (a cluster per row); the quant matmuls (the
-     int8 wgmma kernel, weight-only and w8a8, at R in {1, 16, 64, 128, 256}
-     and 300, with its load path and cluster split; int4, panel-tiled int4
-     at R in {1, 64, 128}; w4a8 also at 256; the int8 f32-x kernel) at every
-     7B projection shape and the lm_head, plus a ragged small shape; the
+     wgmma kernels: int8 weight-only, w8a8, int4 and panel-tiled int4 at R
+     in {1, 16, 64, 128, 256} and 300, each with its load path, cluster
+     split, row tile and stage depth; w4a8 at R in {1, 64, 128, 256}; the
+     f32-x kernels for int8, int4 and tiled int4) at every 7B projection
+     shape and the lm_head, plus a ragged small shape; the
      activation quantizer. With device times (CUDA graphs of many launches,
      timed with CUDA events), the least time the card could take, and the
      time of one PyTorch library call where one computes the same function;
@@ -42,9 +43,9 @@ Phases, each fatal on failure:
      at the Llama-3 vocabulary (llama-3.2-1b widths, 2 and 1 layers), where
      both top-p kernels must run their cluster route;
   6. the same with the target's weights quantized: int8 weight-only (w8a8
-     off) and int8 with w8a8 on (Sequoia), both on the wgmma kernel; int4,
-     and panel-tiled int4 (tile_int4 over the seven projections and the
-     head); each kernel of a path must launch on it;
+     off) and int8 with w8a8 on (Sequoia), int4, and panel-tiled int4
+     (tile_int4 over the seven projections and the head), all on the wgmma
+     kernels; each kernel of a path must launch on it;
   7. the width curves (planner/profile.py, device time of one split-mode
      forward at widths 1..256): bf16 with each cache format, int8
      weight-only, int8 w8a8, int4, tiled int4, and the int4 target with every
@@ -406,16 +407,20 @@ QMM_REPORT = (64, 4096, 11008)   # the shape of the kernels line: verify, MLP up
 QMM_SOURCE = "sequoia_torch/csrc/quant_matmul.cu"
 QMM_A8_SOURCE = "sequoia_torch/csrc/quant_matmul_a8.cu"
 QMM_SM90_SOURCE = "sequoia_torch/csrc/quant_matmul_int8_sm90.cu"
+QMM_SM90_4_SOURCE = "sequoia_torch/csrc/quant_matmul_int4_sm90.cu"
+SM90_ROWS = (1, 16, 64, 128, 256)
 QMM_KERNELS = {
     # name: weight bits, rows at the 7B shapes (bf16 x), TPU counterpart, source,
-    # int8 activations
-    "quant_matmul_int8_wgmma": (8, (1, 16, 64, 128, 256),
-                                "sequoia_tpu/kernels/quant_matmul.py:85", QMM_SM90_SOURCE, False),
+    # int8 activations. The f32-x kernels (no rows) run the f32 cases alone.
+    "quant_matmul_int8_wgmma": (8, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:85",
+                                QMM_SM90_SOURCE, False),
     "quant_matmul_int8": (8, (), "sequoia_tpu/kernels/quant_matmul.py:85", QMM_SOURCE, False),
-    "quant_matmul_int4": (4, (1, 64, 128), "sequoia_tpu/kernels/quant_matmul.py:125",
-                          QMM_SOURCE, False),
-    "quant_matmul_tiled": (4, (1, 64, 128), "sequoia_tpu/kernels/quant_matmul.py:197",
-                           QMM_SOURCE, False),
+    "quant_matmul_int4_wgmma": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:125",
+                                QMM_SM90_4_SOURCE, False),
+    "quant_matmul_int4": (4, (), "sequoia_tpu/kernels/quant_matmul.py:125", QMM_SOURCE, False),
+    "quant_matmul_tiled_wgmma": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:197",
+                                 QMM_SM90_4_SOURCE, False),
+    "quant_matmul_tiled": (4, (), "sequoia_tpu/kernels/quant_matmul.py:197", QMM_SOURCE, False),
     "quant_matmul_w4a8": (4, (1, 64, 128, 256), "sequoia_tpu/kernels/quant_matmul.py:99",
                           QMM_A8_SOURCE, True),
     "quant_matmul_w8a8_wgmma": (8, (1, 16, 64, 128, 256), "sequoia_tpu/quant/qtensor.py:176",
@@ -424,43 +429,42 @@ QMM_KERNELS = {
 
 
 def qmm_cases(name, rows):
-    """(R, K, N, x, out) of one kernel: every 7B shape at `rows` with bf16 x,
-    a ragged small shape, and f32 x for the weight-only kernels; the wgmma
-    kernels also at 300 rows (two row tiles) and the lm_head at 300.
-    `quant_matmul_int8` is the f32-x kernel alone (bf16 x runs the wgmma
-    kernel)."""
-    if name == "quant_matmul_int8":
+    """(R, K, N, x, out) of one kernel: every 7B shape at `rows` with bf16 x
+    and a ragged small shape; the wgmma kernels also at 300 rows (two row
+    tiles). The f32-x kernels (`rows` empty) at one 7B shape and the ragged
+    one."""
+    if not rows:
         return [(64, 4096, 4096, "f32", "f32"), (5, 96, 200, "f32", "f32")]
     cases = [(R, K, N, "bf16", out) for K, N, out in QMM_SHAPES for R in rows]
     cases.append((5, 96, 200, "bf16", "bf16"))        # ragged: masked loads and edges
     if name.endswith("_wgmma"):
         cases.append((300, 4096, 4096, "bf16", "bf16"))
-    elif not QMM_KERNELS[name][4]:
-        cases.append((64, 4096, 4096, "f32", "f32"))
     return cases
 
 
 def qmm_report(name):
     """The case of a kernel's entry in the kernels line."""
-    if name == "quant_matmul_int8":
+    if not QMM_KERNELS[name][1]:
         return (64, 4096, 4096, "f32")
     return QMM_REPORT + ("bf16",)
 
 
 def qmm_bound(R, K, N, bits, x_item, out_item, a8=False):
     """Least time: the packed weight, x, the output and the scale move
-    once; 2*R*K*N operations at the tensor-core peak of the product's type
-    (bf16, or int8 for the activation-quantized kernels)."""
+    once; 2*R*K*N operations at the peak of the product's type and unit
+    (bf16 tensor cores; int8 for the activation-quantized kernels; f32 x on
+    the CUDA cores, where the f32-x kernels keep their products)."""
     nbytes = K * N * bits // 8 + R * K * x_item + R * N * out_item + N * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * R * K * N / PEAK_FLOPS["int8" if a8 else "bf16"] * 1e3
+    peak = PEAK_FLOPS["int8" if a8 else "f32" if x_item == 4 else "bf16"]
+    t_ops = 2 * R * K * N / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def qmm_calls(qm, name):
     """(kernel wrapper, plain version) of one quant-matmul kernel, both as
     f(x, q, scale, out_dtype)."""
-    if name == "quant_matmul_tiled":
+    if name.startswith("quant_matmul_tiled"):
         return (lambda x, q, s, o: qm.quant_matmul_tiled(x, q, s, out_dtype=o),
                 lambda x, q, s, o: qm.quant_matmul_tiled_plain(x, q, s, out_dtype=o))
     if name == "quant_matmul_w8a8_wgmma":
@@ -473,11 +477,22 @@ def qmm_calls(qm, name):
             lambda x, q, s, o: qm.quant_matmul_plain(x, q, s, out_dtype=o, **kw))
 
 
-def sm90_route(qm, R, K, N, a8):
-    """The wgmma kernel's load path, cluster size and row tile for a shape."""
-    tma = N % 16 == 0 and K % (16 if a8 else 8) == 0
+def sm90_route(qm, name, R, K, N):
+    """A wgmma kernel's load path, cluster size, row tile and stage depth
+    for a shape (the stage bytes and shared-memory budgets of
+    csrc/quant_matmul_int8_sm90.cu and csrc/quant_matmul_int4_sm90.cu)."""
+    kind = ("int4" if "int4" in name or "tiled" in name else
+            "w8a8" if "w8a8" in name else "int8")
+    rt = qm.row_tile(R)
+    if kind == "int4":
+        tma = ("tiled" in name or N % 16 == 0) and K % 8 == 0
+        stage, budget = 2 * rt * 128 + 64 * 128, 216 * 1024
+    else:
+        tma = N % 16 == 0 and K % (16 if kind == "w8a8" else 8) == 0
+        stage, budget = rt * 128 + (128 if kind == "w8a8" else 64) * 128, 200 * 1024
     return (f"{'TMA' if tma else 'producer-warp copies'}, cluster of "
-            f"{qm._sm90_split(R, K, N, a8, 0)}, row tile {qm.row_tile(R)}")
+            f"{qm._sm90_split(R, K, N, kind, 0)}, row tile {rt}, "
+            f"{min(budget // stage, 16)} stages of {stage // 1024} KB")
 
 
 def check_quant_matmul(torch, results):
@@ -504,7 +519,7 @@ def check_quant_matmul(torch, results):
     int8pack, int_mm = hasattr(torch, "_weight_int8pack_mm"), hasattr(torch, "_int_mm")
     for name, (bits, rows, replaces, source, a8) in QMM_KERNELS.items():
         kernel, plain_fn = qmm_calls(qm, name)
-        tiled = name == "quant_matmul_tiled"
+        tiled = name.startswith("quant_matmul_tiled")
         for R, K, N, xs, outs in qmm_cases(name, rows):
             x_dt = torch.bfloat16 if xs == "bf16" else torch.float32
             out_dt = torch.bfloat16 if outs == "bf16" else torch.float32
@@ -576,7 +591,7 @@ def check_quant_matmul(torch, results):
                     other, other_ms = "_int_mm", device_ms(
                         [lambda i=i: torch._int_mm(x8, qs[i]) for i in range(n)], replays=10)
             bound, by = qmm_bound(R, K, N, bits, x.element_size(), got.element_size(), a8)
-            route = f"; {sm90_route(qm, R, K, N, a8)}" if name.endswith("_wgmma") else ""
+            route = f"; {sm90_route(qm, name, R, K, N)}" if name.endswith("_wgmma") else ""
             log(f"  {name} R={R} K={K} N={N} x {xs} out {outs}: max|err| {err:.3g} "
                 f"(tol {tol:.3g} x {peak:.3g}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"cuBLAS {xs} dequantized {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
@@ -1248,9 +1263,9 @@ def main() -> None:
 
     log("[6] full width: int4 weights (weight-only)")
     models = load_models(torch, quant_bits=4)
-    add(full_width(torch, gm, models, "int4", PATH_KERNELS + ("quant_matmul_int4",),
+    add(full_width(torch, gm, models, "int4", PATH_KERNELS + ("quant_matmul_int4_wgmma",),
                    extras=True))
-    curves["int4"], _ = width_curve(torch, models, "int4", need=("quant_matmul_int4",),
+    curves["int4"], _ = width_curve(torch, models, "int4", need=("quant_matmul_int4_wgmma",),
                                     host=True)
     log("[6] int4 weights, every projection through unpack=\"w4a8\" (the profiler's "
         "entry point; qtensor.matmul has no route to it)")
@@ -1270,9 +1285,10 @@ def main() -> None:
     log("[6] full width: panel-tiled int4 weights (tile_int4 over the projections and the head)")
     models = (tile_model(models[0]),) + models[1:]
     torch.cuda.empty_cache()
-    add(full_width(torch, gm, models, "tiled int4", PATH_KERNELS + ("quant_matmul_tiled",)))
+    add(full_width(torch, gm, models, "tiled int4",
+                   PATH_KERNELS + ("quant_matmul_tiled_wgmma",)))
     curves["tiled int4"], _ = width_curve(torch, models, "tiled int4",
-                                          need=("quant_matmul_tiled",))
+                                          need=("quant_matmul_tiled_wgmma",))
     del models
     torch.cuda.empty_cache()
 

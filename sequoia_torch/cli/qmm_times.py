@@ -1,20 +1,21 @@
-"""Device times of the int8-weight matmuls at the 7B projection shapes, for
+"""Device times of the quantized matmuls at the 7B projection shapes, for
 comparing two checkouts of the port on one card.
 
     python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
-                                           [--label NAME] [--reps 3]
+        [--kernels int8,w8a8,int4,tiled,cublas_bf16] [--label NAME] [--reps 3]
 
 Imports `sequoia_torch` from DIR (default: the checkout that holds this
 file) and builds its kernels there, so the same script times an older
 checkout: run it as parent, change, change, parent within one call to the
-card, and compare only within that call. For each kernel (int8 weight-only
-with bf16 x, `quant_matmul(bits=8)`; int8 weights with int8 activations,
-`quant_matmul_w8a8`), each (K, N) of llama-2-7b's projections and lm_head
-and each row count R, prints one JSON line with the device ms of one call:
-the median of `--reps` runs, each a CUDA graph of calls cycling through
-enough weights to exceed the 50 MB L2, replayed under CUDA events. Also
-times torch.matmul on the dequantized bf16 weight (cuBLAS), the yardstick.
-Exits non-zero without a CUDA card.
+card, and compare only within that call. For each kernel of `--kernels`
+(bf16 x throughout: int8 weight-only, `quant_matmul(bits=8)`; int8 weights
+with int8 activations, `quant_matmul_w8a8`; packed int4,
+`quant_matmul(bits=4)`; panel-tiled int4, `quant_matmul_tiled`; and the
+yardstick, torch.matmul on a dequantized bf16 weight, i.e. cuBLAS), each
+(K, N) of llama-2-7b's projections and lm_head and each row count R, prints
+one JSON line with the device ms of one call: the median of `--reps` runs,
+each a CUDA graph of calls cycling through enough weights to exceed the 50
+MB L2, replayed under CUDA events. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import statistics
 import sys
 
 SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+KERNELS = ("int8", "w8a8", "int4", "tiled", "cublas_bf16")
 
 
 def device_ms(torch, fns, replays: int = 10) -> float:
@@ -56,6 +58,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=here, help="checkout whose sequoia_torch is timed")
     ap.add_argument("--rows", default="1,16,64,128,256")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
@@ -66,34 +69,50 @@ def main() -> None:
     sys.path.insert(0, os.path.abspath(args.root))
     from sequoia_torch.kernels import build
     from sequoia_torch.kernels import quant_matmul as qm
+    from sequoia_torch.quant.qtensor import QuantizedTensor, tile_int4
 
+    kernels = args.kernels.split(",")
+    if set(kernels) - set(KERNELS):
+        sys.exit(f"qmm_times: unknown kernels {set(kernels) - set(KERNELS)}")
     build.load()
     label = args.label or os.path.abspath(args.root)
     gen = torch.Generator(device="cuda").manual_seed(1234)
+
+    def weights(rows, N, n):
+        return ([torch.randint(-128, 128, (rows, N), generator=gen, device="cuda",
+                               dtype=torch.int8) for _ in range(n)],
+                [torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001
+                 for _ in range(n)])
+
     for K, N in SHAPES:
-        n = max(2, -(-150_000_000 // (K * N)))
-        qs = [torch.randint(-128, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
-              for _ in range(n)]
-        ss = [torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001 for _ in range(n)]
-        deq = [(q.float() * s).to(torch.bfloat16) for q, s in zip(qs, ss)]
+        # enough weights per kernel that one pass exceeds the L2
+        n8, n4 = (max(2, -(-150_000_000 // nbytes)) for nbytes in (K * N, K * N // 2))
+        q8, s8 = weights(K, N, n8) if {"int8", "w8a8", "cublas_bf16"} & set(kernels) else ([], [])
+        q4, s4 = weights(K // 2, N, n4) if {"int4", "tiled"} & set(kernels) else ([], [])
+        t4 = [tile_int4(QuantizedTensor(q, s)).q for q, s in zip(q4, s4)] \
+            if "tiled" in kernels else []
+        deq = [(q.float() * s).to(torch.bfloat16) for q, s in zip(q8, s8)] \
+            if "cublas_bf16" in kernels else []
         out = torch.float32 if N == 32000 else torch.bfloat16
         for R in map(int, args.rows.split(",")):
             x = torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
             calls = {
-                "int8": lambda i: qm.quant_matmul(x, qs[i], ss[i], bits=8, out_dtype=out),
-                "w8a8": lambda i: qm.quant_matmul_w8a8(x, qs[i], ss[i], out_dtype=out),
-                "cublas_bf16": lambda i: torch.matmul(x, deq[i]),
+                "int8": (n8, lambda i: qm.quant_matmul(x, q8[i], s8[i], bits=8, out_dtype=out)),
+                "w8a8": (n8, lambda i: qm.quant_matmul_w8a8(x, q8[i], s8[i], out_dtype=out)),
+                "int4": (n4, lambda i: qm.quant_matmul(x, q4[i], s4[i], bits=4, out_dtype=out)),
+                "tiled": (n4, lambda i: qm.quant_matmul_tiled(x, t4[i], s4[i], out_dtype=out)),
+                "cublas_bf16": (n8, lambda i: torch.matmul(x, deq[i])),
             }
-            for name, call in calls.items():
+            for name in kernels:
+                n, call = calls[name]
                 ms = statistics.median(
                     device_ms(torch, [lambda i=i: call(i) for i in range(n)])
                     for _ in range(args.reps))
                 print(json.dumps({"label": label, "kernel": name, "R": R, "K": K, "N": N,
                                   "ms": round(ms, 5),
                                   "card": torch.cuda.get_device_name(0)}), flush=True)
-        del qs, ss, deq
+        del q8, s8, q4, s4, t4, deq
         torch.cuda.empty_cache()
-
 
 if __name__ == "__main__":
     main()

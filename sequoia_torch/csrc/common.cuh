@@ -1,9 +1,9 @@
 // Device helpers shared by the port's CUDA sources: the asynchronous copies,
 // the warp-level tensor-core product and the int8 -> bf16 expansion of the
-// sm_80-style kernels (tree_attention.cu, quant_matmul.cu,
-// quant_matmul_a8.cu), the Hopper pieces of quant_matmul_int8_sm90.cu
-// (mbarrier, TMA, wgmma with its shared-memory descriptor), and the
-// quantized-matmul geometry and output store.
+// sm_80-style kernels (tree_attention.cu, quant_matmul_a8.cu), the Hopper
+// pieces of the wgmma kernels (mbarrier, TMA, wgmma with its shared-memory
+// descriptor; qmm_sm90.cuh builds on them), and the quantized-matmul
+// geometry and output store.
 
 #pragma once
 
@@ -122,6 +122,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       "[%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same for a 3-D tensor map (coordinates innermost first).
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -26,25 +26,24 @@
 // peak of 1979 TOP/s pass the int4 weight bytes at R ~ 148.
 // Measured times are in PERF.md.
 //
-// Design: the block, stage and split structure of quant_matmul.cu (one
-// block of 4 warps per 16*MT-row by 128-column tile and K slice; 4 stages of
-// 64 q rows in flight through cp.async; K split across blocks with int32
-// partials summed by a second kernel; the output tile staged through shared
-// memory). What differs:
+// Design: one block of 4 warps per 16*MT-row by 128-column tile and K
+// slice; 4 stages of 64 q rows in flight through cp.async; K split across
+// blocks (kernels/quant_matmul.py::split_k) with int32 partials summed by a
+// second kernel; the output tile staged through shared memory. Then:
 // - mma.sync m16n8k32 (s8 x s8 -> s32). Its B fragment wants four
 //   consecutive k of one column in one register, and q keeps a column's k in
 //   four different rows: each lane loads the words of rows 4t .. 4t+3 (its
 //   warp's columns 4g .. 4g+3) and transposes the 4x4 bytes with eight prmt
 //   into the B registers of four n8 tiles (column 4c + j is column c of tile
-//   j, as in quant_matmul.cu).
+//   j).
 // - Those loads hit rows 144 bytes apart: q's 16-byte chunks are stored
 //   swizzled (chunk ^ 2 in rows 8..15 of every 16) so that the four row
 //   groups of a load fall on distinct banks.
 // - int4: a nibble becomes an int8 without sign extension: (b << 4) & 0xF0
 //   is 16 * low nibble as a signed byte, b & 0xF0 is 16 * high nibble. The
 //   sum is 16 * acc (below 2^31 for K <= 18000) and is shifted back once.
-// Later work: the design of quant_matmul_int8_sm90.cu (each 64-row block of
-// a wide call streams its weight tile again, from L2 at best).
+// Later work: the s8 instantiation of quant_matmul_int4_sm90.cu (each 64-row
+// block of a wide call streams its weight tile again, from L2 at best).
 
 #include "common.cuh"
 

@@ -11,7 +11,7 @@
 //
 // Bound on the H100: the weight stream. At (K, N) = (4096, 11008) the int8
 // weight is 45 MB, 0.0135 ms at 3.35 TB/s; 2*R*K*N bf16 operations pass the
-// bytes only near R = 295 (int8 operations near R = 590).
+// bytes only near R = 148 (int8 operations near R = 295).
 //
 // Design: the weight is streamed once for every R <= 256.
 // - A and B are swapped: out^T[N, R] = W^T[N, K] x^T[K, R]. The weight tile
@@ -61,29 +61,14 @@
 //   call and passed by value (__grid_constant__), the shared-memory
 //   attribute is set once per instantiation, nothing synchronizes.
 
-#include <cuda.h>
-#include <dlfcn.h>
-#include <cooperative_groups.h>
-#include <cstring>
-#include <type_traits>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "qmm_sm90.cuh"
 
 namespace {
 
 using namespace sq;
+using namespace sq::sm90;
 
-constexpr int kConsumers = 2;                        // warpgroups, 64 weight columns each
-constexpr int kBM = 64 * kConsumers;                 // output columns per block
-constexpr int kThreadsW = 128 * (kConsumers + 1);    // the producer warpgroup first
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // 128 * 40 + 256 * 232 <= 65536
-constexpr int kRowBytes = 128;                       // one swizzled tile row (= kBM bytes of q)
-constexpr int kTileStride = kBM + 4;                 // words per row of the staged output tile
 constexpr int kSmemBudget = 200 * 1024;
-constexpr int kMaxStages = 16;                       // bytes in flight for the small row tiles
-constexpr int kMaxRT = 256;
 
 template <bool A8, int RT>
 struct Cfg {
@@ -91,8 +76,7 @@ struct Cfg {
   static constexpr int kXBytes = RT * kRowBytes;     // x tile: RT rows
   static constexpr int kQBytes = kKB * kRowBytes;    // q tile: kKB rows of kBM bytes
   static constexpr int kStageBytes = kXBytes + kQBytes;
-  static constexpr int kStages = kSmemBudget / kStageBytes < kMaxStages ? kSmemBudget / kStageBytes
-                                                                        : kMaxStages;
+  static constexpr int kStages = min_int(kSmemBudget / kStageBytes, kMaxStages);
   static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
   static constexpr int kChunkN = RT < 64 ? RT : 64;  // wgmma N of one instruction
   static constexpr int kChunks = RT / kChunkN;
@@ -113,13 +97,6 @@ struct Params {
   int out_bf16;
   int tma;               // 1: TMA loads; 0: the producer warp copies (unaligned shapes)
 };
-
-// Byte offset of (row, byte) in a tile of 128-byte rows in the 128-byte
-// swizzle: the row's 16-byte chunks are permuted by row % 8 (the tile is
-// 1024-byte aligned), as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them.
-__device__ __forceinline__ int swz(int row, int byte) {
-  return row * kRowBytes + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
-}
 
 // The producer warp's copy of one stage where TMA cannot address the
 // tensors: the same bytes in the same swizzled layout, zero outside them.
@@ -216,7 +193,6 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
   uint64_t* empty = full + C::kStages;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int csize = static_cast<int>(cluster.num_blocks());
   const int n0 = blockIdx.y * kBM, r0 = blockIdx.z * RT;
   const int nk = (p.K + C::kKB - 1) / C::kKB;
   const int s_begin = rank * p.stages_per_split;
@@ -265,6 +241,7 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
   }
 
   setmaxnreg_inc<kConsumerRegs>();
+  const float4 sc = epilogue_scale(p.scale, n0, p.N);
   const int wg = warp / 4 - 1, g = lane / 4, t = lane % 4;
   const int col = 64 * wg + 16 * (warp % 4) + 2 * g;   // the lane's columns col, col + 1
   const AOffsets<A8> offs(col, t);
@@ -329,116 +306,13 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 #pragma unroll
     for (int i = 0; i < C::kChunkN / 2; ++i) fence_reg(acc[j][i]);
 
-  // The partial tile, transposed to [r][column], over the stages once both
-  // consumer warpgroups are done with them. D fragment: M-row g (column col)
-  // and g + 8 (col + 1) at r = 8 i + 2 t + e of each chunk.
-  named_barrier(1, 4 * 32 * kConsumers);
-  Acc* tile = reinterpret_cast<Acc*>(smem);   // [RT][kTileStride]
-  if (p.R < 0) reinterpret_cast<uint32_t*>(tile)[threadIdx.x] = live;   // never: a use of `live`
-#pragma unroll
-  for (int j = 0; j < C::kChunks; ++j)
-#pragma unroll
-    for (int i = 0; i < C::kChunkN / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = j * C::kChunkN + 8 * i + 2 * t + e;
-        Acc* dst = tile + r * kTileStride + col;
-        dst[0] = acc[j][4 * i + e];
-        dst[1] = acc[j][4 * i + 2 + e];
-      }
-  cluster.sync();   // every rank's tile is written and visible across the cluster
-
-  // Rank `rank` reduces rows r = rank, rank + csize, ... over the ranks in
-  // rank order, then scales and stores 4 columns per step.
-  const int rows = min(RT, p.R - r0);
-  const int my_rows = rows > rank ? (rows - rank + csize - 1) / csize : 0;
-  const bool vec = p.N % 4 == 0;
-  for (int i = threadIdx.x - 128; i < my_rows * (kBM / 4); i += 128 * kConsumers) {
-    const int r = rank + (i / (kBM / 4)) * csize, c = (i % (kBM / 4)) * 4, n = n0 + c;
-    if (n >= p.N) continue;
-    Acc v[4];
-    const Acc* src = cluster.map_shared_rank(tile, 0) + r * kTileStride + c;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = src[e];
-    for (int b = 1; b < csize; ++b) {
-      const Acc* o = cluster.map_shared_rank(tile, b) + r * kTileStride + c;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] += o[e];
-    }
-    const int64_t base = static_cast<int64_t>(r0 + r) * p.N + n;
-    float y[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float s = n + e < p.N ? p.scale[n + e] : 0.f;
-      y[e] = A8 ? static_cast<float>(v[e]) * p.sx[r0 + r] * s : static_cast<float>(v[e]) * s;
-    }
-    if (vec && p.out_bf16) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
-      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out) + base) =
-          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                     *reinterpret_cast<const uint32_t*>(&hi));
-    } else if (vec) {
-      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + base) =
-          make_float4(y[0], y[1], y[2], y[3]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (n + e < p.N) store_out(p.out, base + e, y[e], p.out_bf16);
-    }
-  }
-  cluster.sync();   // no block leaves while another rank reads its tile
+  cluster_epilogue<RT, C::kChunks, C::kChunkN>(cluster, acc, live, smem, col, t, r0, n0, p.R,
+                                                p.N, sc, p.sx, p.out, p.out_bf16);
 }
 
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-
-using EncodeFn = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled, looked up in libcuda.so.1, which the CUDA runtime
-// has loaded (no link against libcuda).
-EncodeFn encoder() {
-  static EncodeFn fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h == nullptr ? nullptr
-                        : reinterpret_cast<EncodeFn>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// A 2-D row-major tensor [outer, inner] of `row_bytes` per row, read in
-// boxes [box_outer, box_inner] in the 128-byte swizzle, zero-filled outside.
-bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
-            uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
-  const EncodeFn fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
-template <bool A8, int RT>
-cudaLaunchConfig_t config(int splits, int N, int R, cudaStream_t st, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (N + kBM - 1) / kBM, (R + RT - 1) / RT);
-  cfg.blockDim = dim3(kThreadsW);
-  cfg.dynamicSmemBytes = Cfg<A8, RT>::kSmem;
-  cfg.stream = st;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
 
 template <bool A8, int RT>
 cudaError_t set_smem() {
@@ -462,32 +336,21 @@ cudaError_t launch(const Params& p, int splits, cudaStream_t st) {
   memset(&qmap, 0, sizeof(qmap));
   if (p.tma) {
     const bool ok =
-        encode(&xmap, A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x,
-               p.K, p.R, static_cast<uint64_t>(p.K) * (A8 ? 1 : 2), C::kKB, RT) &&
-        encode(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, kBM, C::kKB);
+        encode_2d(&xmap, A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  p.x, p.K, p.R, static_cast<uint64_t>(p.K) * (A8 ? 1 : 2), C::kKB, RT) &&
+        encode_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, kBM, C::kKB);
     if (!ok) return cudaErrorInvalidValue;
   }
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<A8, RT>(splits, p.N, p.R, st, attr);
+  const cudaLaunchConfig_t cfg = launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr);
   return cudaLaunchKernelEx(&cfg, qmm8_sm90<A8, RT>, xmap, qmap, p);
 }
 
 template <bool A8, int RT>
-int max_clusters(int splits) {
+int clusters(int splits) {
   if (set_smem<A8, RT>() != cudaSuccess) return -1;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<A8, RT>(splits, kBM, RT, nullptr, attr);
-  int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(
-      &n, reinterpret_cast<const void*>(qmm8_sm90<A8, RT>), &cfg);
-  return err == cudaSuccess ? n : -1;
-}
-
-// The row tile: wgmma's N, the least of 8, 16, .., 256 that holds R rows.
-int row_tile(int R) {
-  int rt = 8;
-  while (rt < R && rt < kMaxRT) rt *= 2;
-  return rt;
+  return max_clusters(reinterpret_cast<const void*>(qmm8_sm90<A8, RT>), splits, RT,
+                      Cfg<A8, RT>::kSmem);
 }
 
 template <bool A8>
@@ -505,12 +368,12 @@ int dispatch(const Params& p, int splits, cudaStream_t st) {
 template <bool A8>
 int dispatch_clusters(int rt, int splits) {
   switch (rt) {
-    case 8: return max_clusters<A8, 8>(splits);
-    case 16: return max_clusters<A8, 16>(splits);
-    case 32: return max_clusters<A8, 32>(splits);
-    case 64: return max_clusters<A8, 64>(splits);
-    case 128: return max_clusters<A8, 128>(splits);
-    default: return max_clusters<A8, 256>(splits);
+    case 8: return clusters<A8, 8>(splits);
+    case 16: return clusters<A8, 16>(splits);
+    case 32: return clusters<A8, 32>(splits);
+    case 64: return clusters<A8, 64>(splits);
+    case 128: return clusters<A8, 128>(splits);
+    default: return clusters<A8, 256>(splits);
   }
 }
 
@@ -520,12 +383,12 @@ extern "C" {
 
 // x [R, K] (a8 = 0: bfloat16; a8 = 1: int8 x8 with sx [R] float32), q int8
 // [K, N], scale float32 [N], out [R, N] (out_dtype 0 = float32,
-// 1 = bfloat16); K split over a cluster of `splits` (1..8) blocks. x and q
+// 1 = bfloat16); K split over a cluster of `splits` (1..4) blocks. x and q
 // 16-byte aligned; the wrapper checks shapes, types and alignment. TMA when
 // the strides allow it (see the file note).
 int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* scale, void* out,
                       int R, int K, int N, int a8, int splits, int out_dtype, void* stream) {
-  if (R <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > 8 || out_dtype < 0 ||
+  if (R <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > kMaxSplit || out_dtype < 0 ||
       out_dtype > 1 || (a8 && sx == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -550,7 +413,7 @@ int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* 
 // Clusters of `splits` blocks of the kernel for row tile `rt` that the card
 // holds at once (cudaOccupancyMaxActiveClusters); negative on error.
 int sequoia_qmm8_sm90_max_clusters(int a8, int rt, int splits) {
-  if (splits < 1 || splits > 8) return -1;
+  if (splits < 1 || splits > kMaxSplit) return -1;
   return a8 ? dispatch_clusters<true>(rt, splits) : dispatch_clusters<false>(rt, splits);
 }
 

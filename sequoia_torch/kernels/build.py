@@ -42,13 +42,13 @@ SIGNATURES = {
                                   _c_double, _c_float, _c_int, _c_void_p],
     "sequoia_top_p_fused": [_c_void_p, _c_void_p, _c_int, _c_int, _c_double,
                             _c_int, _c_void_p],
-    "sequoia_quant_matmul_int8": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
-    "sequoia_quant_matmul_int4": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
-    "sequoia_quant_matmul_int4_tiled": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
+    "sequoia_quant_matmul_f32": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],
     "sequoia_quantize_activations": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
     "sequoia_quant_matmul_a8": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p],
     "sequoia_qmm8_sm90": [_c_void_p] * 5 + [_c_int] * 6 + [_c_void_p],
     "sequoia_qmm8_sm90_max_clusters": [_c_int] * 3,
+    "sequoia_qmm4_sm90": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],
+    "sequoia_qmm4_sm90_max_clusters": [_c_int] * 2,
 }
 
 launches = dict.fromkeys((
@@ -56,8 +56,9 @@ launches = dict.fromkeys((
     "tree_attention_kv4_dsplit", "top_p_threshold_from_logits",
     "top_p_threshold_fused", "top_p_threshold_from_logits_cluster",
     "top_p_threshold_fused_cluster", "quant_matmul_int8", "quant_matmul_int8_wgmma",
-    "quant_matmul_int4", "quant_matmul_tiled", "quantize_activations",
-    "quant_matmul_w8a8_wgmma", "quant_matmul_w4a8"), 0)
+    "quant_matmul_int4", "quant_matmul_int4_wgmma", "quant_matmul_tiled",
+    "quant_matmul_tiled_wgmma", "quantize_activations", "quant_matmul_w8a8_wgmma",
+    "quant_matmul_w4a8"), 0)
 
 _lib = None
 _lock = threading.Lock()

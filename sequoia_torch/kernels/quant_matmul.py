@@ -30,21 +30,23 @@ Layouts, as in JAX:
 
 On a CUDA tensor each function launches its kernel (or raises); on a CPU
 tensor it runs its plain version. The kernels:
-- int8 weights with bf16 x (`quant_matmul_int8_wgmma`) and w8a8
-  (`quant_matmul_w8a8_wgmma`): `csrc/quant_matmul_int8_sm90.cu`, wgmma + TMA,
-  the weight streamed once for R <= 256, K split inside a thread-block
-  cluster (`split_cluster`); `quant_matmul_int8_sm90_model` is a CPU model
-  of its decomposition, on no path;
-- int8 weights with f32 x (`quant_matmul_int8`, the CUDA cores in full f32)
-  and every int4 product: `csrc/quant_matmul.cu`; w4a8 and the activation
-  quantizer: `csrc/quant_matmul_a8.cu`.
+- bf16 x: wgmma + TMA, the weight streamed once for R <= 256, K split
+  inside a thread-block cluster (`split_cluster`): int8 weights
+  (`quant_matmul_int8_wgmma`) and w8a8 (`quant_matmul_w8a8_wgmma`) on
+  `csrc/quant_matmul_int8_sm90.cu`, int4 (`quant_matmul_int4_wgmma`) and
+  tiled int4 (`quant_matmul_tiled_wgmma`) on `csrc/quant_matmul_int4_sm90.cu`;
+  `quant_matmul_int8_sm90_model` and `quant_matmul_int4_sm90_model` are CPU
+  models of their decompositions, on no path;
+- f32 x (the f32 test models), every weight format: the CUDA cores in full
+  f32, `csrc/quant_matmul.cu` (counters `quant_matmul_int8`,
+  `quant_matmul_int4`, `quant_matmul_tiled`);
+- w4a8 and the activation quantizer: `csrc/quant_matmul_a8.cu`.
 What differs from the TPU versions: no block-size arguments (Pallas's VMEM
 budget has no meaning here); no padding of q, x or scale (the kernels mask
-ragged edges); in the int4 kernels the K axis is split across blocks, with
-partials summed by a second small kernel, where the output tiles alone
-would leave the card's SMs idle; bf16 x runs on the tensor cores, f32 x on
-the CUDA cores in full f32; the tiled kernel takes `bn0 == 128` only (its
-plain version any `bn0`).
+ragged edges); the K axis is split across the blocks of a cluster (or, for
+w4a8, across blocks with partials summed by a second small kernel) where
+the output tiles alone would leave the card's SMs idle; the tiled kernels
+take `bn0 == 128` only (the plain version any `bn0`).
 """
 
 from __future__ import annotations
@@ -57,16 +59,17 @@ import torch
 from . import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_NAME = {8: "quant_matmul_int8", 4: "quant_matmul_int4"}
+_F32_NAME = {8: "quant_matmul_int8", 4: "quant_matmul_int4"}
 UNPACK = ("auto", "shift", "float", "w4a8")
-# Kernel geometry, as in csrc/quant_matmul.cu and csrc/quant_matmul_a8.cu.
-_BN = 128                   # output columns per block; the tiled kernel's bn0
-_STAGE = {8: 64, 4: 32}     # q rows per K stage, float activations
-_STAGE_A8 = 64              # q rows per K stage, int8 activations
+# Kernel geometry, as in csrc/quant_matmul_a8.cu (w4a8) ...
+_BN = 128                   # output columns per block; the tiled kernels' bn0
+_STAGE_A8 = 64              # q rows per K stage
 _TARGET_BLOCKS = 264        # two blocks for each of the H100's 132 SMs
-# ... and in csrc/quant_matmul_int8_sm90.cu.
+# ... and in csrc/quant_matmul_int8_sm90.cu, csrc/quant_matmul_int4_sm90.cu.
 SM90_BM = 128               # output columns per block (two warpgroups of 64)
-SM90_KB = {False: 64, True: 128}   # k per stage: bf16 x, int8 x8 (128 bytes)
+# Logical k per stage: 128 bytes of a bf16 x row (int8), of an x8 row
+# (w8a8), or 64 packed q rows (int4: their low and high nibbles).
+SM90_KB = {"int8": 64, "w8a8": 128, "int4": 128}
 SM90_MAX_RT = 256           # rows per block (wgmma's largest N)
 SM90_MAX_SPLIT = 4          # blocks per cluster, each a slice of K
 
@@ -137,12 +140,11 @@ def quant_matmul_tiled_plain(x, q, scale, *, out_dtype=None):
 
 
 @functools.lru_cache(maxsize=1024)
-def split_k(R: int, K: int, N: int, bits: int, stage: int = 0) -> tuple:
-    """`(splits, q rows per split)` for the tensor-core kernels: enough
-    blocks to fill the card, but the 4-byte partials stay within half the
-    weight's bytes, and every split holds whole K stages of `stage` q rows
-    (default: the float-activation kernel's)."""
-    stage = stage or _STAGE[bits]
+def split_k(R: int, K: int, N: int, bits: int, stage: int) -> tuple:
+    """`(splits, q rows per split)` for the block-split kernel of w4a8
+    (`csrc/quant_matmul_a8.cu`): enough blocks to fill the card, but the
+    4-byte partials stay within half the weight's bytes, and every split
+    holds whole K stages of `stage` q rows."""
     mt = 1 if R <= 16 else 2 if R <= 32 else 4          # 16-row MMA tiles per block
     tiles = math.ceil(R / (16 * mt)) * math.ceil(N / _BN)
     Kq = K if bits == 8 else K // 2
@@ -163,16 +165,16 @@ def row_tile(R: int) -> int:
     return rt
 
 
-def split_cluster(R: int, K: int, N: int, a8: bool, max_clusters) -> int:
-    """Cluster size (1..4) of the wgmma kernel: the blocks of a cluster
-    share one 128-column tile and split its K stages. `max_clusters(c)` is
-    how many clusters of c blocks the card holds at once
-    (cudaOccupancyMaxActiveClusters). The largest c whose clusters all fit
-    in one wave, keeping >= 4 stages per block; 1 when even single blocks
-    take more than one wave (on the H100 a second wave of clusters ran
-    slower than one wave of whole tiles; PERF.md §6)."""
+def split_cluster(R: int, K: int, N: int, kb: int, max_clusters) -> int:
+    """Cluster size (1..4) of a wgmma kernel whose stages hold `kb` logical
+    k (`SM90_KB`): the blocks of a cluster share one 128-column tile and
+    split its K stages. `max_clusters(c)` is how many clusters of c blocks
+    the card holds at once (cudaOccupancyMaxActiveClusters). The largest c
+    whose clusters all fit in one wave, keeping >= 4 stages per block; 1
+    when even single blocks take more than one wave (on the H100 a second
+    wave of clusters ran slower than one wave of whole tiles; PERF.md §6)."""
     tiles = math.ceil(N / SM90_BM) * math.ceil(R / SM90_MAX_RT)
-    stages = math.ceil(K / SM90_KB[a8])
+    stages = math.ceil(K / kb)
     best = 1
     for c in range(2, SM90_MAX_SPLIT + 1):
         if stages < 4 * c:
@@ -193,7 +195,7 @@ def quant_matmul_int8_sm90_model(x, q, scale, *, sx=None, splits: int = 1, out_d
     a8 = sx is not None
     R, K = x.shape
     N = q.shape[1]
-    kb = SM90_KB[a8]
+    kb = SM90_KB["w8a8" if a8 else "int8"]
     per = math.ceil(math.ceil(K / kb) / splits) * kb
     total = None
     for b in range(splits):
@@ -207,6 +209,37 @@ def quant_matmul_int8_sm90_model(x, q, scale, *, sx=None, splits: int = 1, out_d
     else:
         y = total * scale.float().reshape(1, -1)
     return y.to(out_dtype or (torch.float32 if a8 else x.dtype))
+
+
+def quant_matmul_int4_sm90_model(x, q, scale, *, splits: int = 1, out_dtype=None):
+    """CPU model of the int4 wgmma kernel's decomposition (`csrc/
+    quant_matmul_int4_sm90.cu`), on no path: the K/2 packed rows cut in
+    stages of 64, dealt to `splits` cluster ranks in contiguous runs of
+    ceil(stages / splits); each rank sums its stages in order, each stage's
+    16-row k steps in order, each step the low-nibble product (x columns
+    k..) and then the high-nibble one (x columns K/2 + k..), in f32; the
+    ranks' partials are added in rank order; then `acc * scale`. `q` is
+    packed `[K/2, N]` or the panel layout `[nt, K/2, bn0]` (untiled first:
+    the panels move bytes, not sums)."""
+    N = scale.shape[-1]
+    if q.dim() == 3:
+        q = untile(q, N)
+    R, K = x.shape
+    Kq = K // 2
+    w = unpack_int4(q).float()
+    lo, hi = w[:Kq], w[Kq:]
+    xf = x.float()
+    kp = SM90_KB["int4"] // 2
+    per = math.ceil(math.ceil(Kq / kp) / splits) * kp
+    total = None
+    for b in range(splits):
+        acc = torch.zeros((R, N), dtype=torch.float32)
+        for k0 in range(b * per, min(Kq, (b + 1) * per), 16):
+            k1 = min(Kq, k0 + 16)
+            acc += xf[:, k0:k1] @ lo[k0:k1]
+            acc += xf[:, Kq + k0:Kq + k1] @ hi[k0:k1]
+        total = acc if total is None else total + acc
+    return (total * scale.float().reshape(1, -1)).to(out_dtype or x.dtype)
 
 
 def _check(x, q, scale, bits, out_dtype, *, tiled=False):
@@ -250,7 +283,7 @@ def _check(x, q, scale, bits, out_dtype, *, tiled=False):
 
 
 def _workspace(splits, R, N, dtype, device):
-    """The partials of the K splits. Freed on return, which is safe: the
+    """The partials of w4a8's K splits. Freed on return, which is safe: the
     caching allocator hands the block only to work queued after this launch
     on the same stream."""
     if splits == 1:
@@ -258,45 +291,63 @@ def _workspace(splits, R, N, dtype, device):
     return torch.empty((splits, R, N), dtype=dtype, device=device)
 
 
-def _launch_float(fn, counter, x, q, scale, bits, out_dtype):
+def _launch_f32(counter, x, q, scale, bits, out_dtype, *, tiled=False):
+    """The CUDA-core kernel: f32 x, any weight format."""
     R, K = x.shape
     N = scale.shape[-1]
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
-    splits, per = split_k(R, K, N, bits) if x.dtype == torch.bfloat16 else (1, 0)
-    ws = _workspace(splits, R, N, torch.float32, x.device)
-    rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), R, K, N, splits, per,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = build.load().sequoia_quant_matmul_f32(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, K, N, bits,
+        int(tiled), _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, counter)
     build.launches[counter] += 1
     return out
 
 
 @functools.lru_cache(maxsize=64)
-def _max_clusters(a8: bool, rt: int, c: int, device: int) -> int:
+def _max_clusters(kind: str, rt: int, c: int, device: int) -> int:
     with torch.cuda.device(device):
-        return build.load().sequoia_qmm8_sm90_max_clusters(int(a8), rt, c)
+        lib = build.load()
+        if kind == "int4":
+            return lib.sequoia_qmm4_sm90_max_clusters(rt, c)
+        return lib.sequoia_qmm8_sm90_max_clusters(int(kind == "w8a8"), rt, c)
 
 
 @functools.lru_cache(maxsize=1024)
-def _sm90_split(R: int, K: int, N: int, a8: bool, device: int) -> int:
+def _sm90_split(R: int, K: int, N: int, kind: str, device: int) -> int:
+    """The cluster size of wgmma kernel `kind` ("int8", "w8a8", "int4")."""
     rt = row_tile(R)
-    return split_cluster(R, K, N, a8, functools.partial(_max_clusters, a8, rt, device=device))
+    return split_cluster(R, K, N, SM90_KB[kind],
+                         functools.partial(_max_clusters, kind, rt, device=device))
 
 
 def _launch_int8_sm90(x, q, scale, out_dtype, sx=None):
-    """The wgmma kernel: bf16 x, or int8 x8 with its row scales `sx`."""
+    """The int8 wgmma kernel: bf16 x, or int8 x8 with its row scales `sx`."""
     R, K = x.shape
     N = q.shape[1]
     a8 = sx is not None
-    splits = _sm90_split(R, K, N, a8, x.device.index)
+    splits = _sm90_split(R, K, N, "w8a8" if a8 else "int8", x.device.index)
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     rc = build.load().sequoia_qmm8_sm90(
         x.data_ptr(), q.data_ptr(), sx.data_ptr() if a8 else None, scale.data_ptr(),
         out.data_ptr(), R, K, N, int(a8), splits, _DTYPE_CODE[out_dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     counter = "quant_matmul_w8a8_wgmma" if a8 else "quant_matmul_int8_wgmma"
+    build.check(rc, counter)
+    build.launches[counter] += 1
+    return out
+
+
+def _launch_int4_sm90(x, q, scale, out_dtype, *, tiled=False):
+    """The int4 wgmma kernel: bf16 x, packed `[K/2, N]` or panel-tiled q."""
+    R, K = x.shape
+    N = scale.shape[-1]
+    splits = _sm90_split(R, K, N, "int4", x.device.index)
+    out = torch.empty((R, N), dtype=out_dtype, device=x.device)
+    rc = build.load().sequoia_qmm4_sm90(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, K, N, int(tiled),
+        splits, _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    counter = "quant_matmul_tiled_wgmma" if tiled else "quant_matmul_int4_wgmma"
     build.check(rc, counter)
     build.launches[counter] += 1
     return out
@@ -358,11 +409,11 @@ def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"
     if unpack == "w4a8":
         return _quant_matmul_w4a8(x, q, scale, out_dtype)
     _check(x, q, scale, bits, out_dtype)
-    if bits == 8 and x.dtype == torch.bfloat16:
+    if x.dtype == torch.float32:
+        return _launch_f32(_F32_NAME[bits], x, q, scale, bits, out_dtype)
+    if bits == 8:
         return _launch_int8_sm90(x, q, scale, out_dtype)
-    lib = build.load()
-    fn = lib.sequoia_quant_matmul_int8 if bits == 8 else lib.sequoia_quant_matmul_int4
-    return _launch_float(fn, _NAME[bits], x, q, scale, bits, out_dtype)
+    return _launch_int4_sm90(x, q, scale, out_dtype)
 
 
 def quant_matmul_w8a8(x, q, scale, *, out_dtype=None):
@@ -387,5 +438,6 @@ def quant_matmul_tiled(x, q, scale, *, out_dtype=None):
         raise ValueError(f"unsupported device {x.device}")
     out_dtype = out_dtype or x.dtype
     _check(x, q, scale, 4, out_dtype, tiled=True)
-    return _launch_float(build.load().sequoia_quant_matmul_int4_tiled,
-                         "quant_matmul_tiled", x, q, scale, 4, out_dtype)
+    if x.dtype == torch.float32:
+        return _launch_f32("quant_matmul_tiled", x, q, scale, 4, out_dtype, tiled=True)
+    return _launch_int4_sm90(x, q, scale, out_dtype, tiled=True)

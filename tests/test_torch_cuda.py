@@ -214,7 +214,7 @@ def _qmm_inputs(R, K, N, bits, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("R", [1, 5, 64, 128, 256, 300])
+@pytest.mark.parametrize("R", [1, 5, 16, 64, 128, 256, 300])
 @pytest.mark.parametrize("K,N,out_dtype", [
     (4096, 4096, None), (4096, 11008, None), (11008, 4096, None),
     (4096, 32000, torch.float32),   # the lm_head: f32 logits
@@ -224,9 +224,9 @@ def _qmm_inputs(R, K, N, bits, dtype, seed):
 ])
 def test_quant_matmul_kernel_matches_plain(bits, R, K, N, out_dtype):
     """bf16 x: bf16 out within 2e-2 of the largest |plain|, f32 out within
-    1e-4 (the products are exact; only the f32 sum order differs). bits=8
-    runs the wgmma kernel (TMA where N % 16 == 0 and K % 8 == 0, else the
-    producer warp's copies)."""
+    1e-4 (the products are exact; only the f32 sum order differs). Both
+    widths run their wgmma kernel (TMA where N % 16 == 0 and K % 8 == 0,
+    else the producer warp's copies); R = 300 takes two row tiles."""
     _need_cuda()
     x, q, scale = _qmm_inputs(R, K, N, bits, torch.bfloat16, R + K + N + bits)
     got = qmm.quant_matmul(x, q, scale, bits=bits, out_dtype=out_dtype)
@@ -252,13 +252,14 @@ def test_quant_matmul_f32_x_matches_plain(bits, R, K, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("R", [1, 5, 64, 128])
+@pytest.mark.parametrize("R", [1, 5, 16, 64, 128, 256, 300])
 @pytest.mark.parametrize("K,N,out_dtype", [
     (4096, 4096, None), (11008, 4096, None), (4096, 32000, torch.float32),
     (96, 200, None),                # a ragged last panel, K below one stage
 ])
 def test_quant_matmul_tiled_kernel_matches_plain(R, K, N, out_dtype, x_dtype):
-    """The panel-tiled int4 kernel at the row-major int4 kernel's tolerances."""
+    """The panel-tiled int4 kernels (bf16 x: the wgmma kernel's 3-D tensor
+    map; f32 x: the CUDA cores) at the row-major int4 kernel's tolerances."""
     _need_cuda()
     x, q, scale = _qmm_inputs(R, K, N, 4, x_dtype, R + K + N)
     tiled = tile_int4(QuantizedTensor(q, scale))
@@ -336,6 +337,19 @@ def test_quant_matmul_raises_instead_of_falling_back():
     assert qmm.build.launches["quant_matmul_int8_wgmma"] == before["quant_matmul_int8_wgmma"] + 1
     qmm.quant_matmul(x.float(), q, scale, bits=8)
     assert qmm.build.launches["quant_matmul_int8"] == before["quant_matmul_int8"] + 1
+    # int4 and tiled int4: bf16 x on the wgmma kernel, f32 x on the CUDA cores
+    _, q4, scale4 = _qmm_inputs(4, 96, 200, 4, torch.bfloat16, 1)
+    tiled = tile_int4(QuantizedTensor(q4, scale4))
+    calls = (("quant_matmul_int4", lambda x: qmm.quant_matmul(x, q4, scale4, bits=4)),
+             ("quant_matmul_tiled", lambda x: qmm.quant_matmul_tiled(x, tiled.q, tiled.scale)))
+    for name, call in calls:
+        before = dict(qmm.build.launches)
+        call(x)
+        assert qmm.build.launches[name + "_wgmma"] == before[name + "_wgmma"] + 1
+        assert qmm.build.launches[name] == before[name]
+        call(x.float())
+        assert qmm.build.launches[name] == before[name] + 1
+        assert qmm.build.launches[name + "_wgmma"] == before[name + "_wgmma"] + 1
 
 
 def test_boundary_disagreements_rejects_a_real_difference():

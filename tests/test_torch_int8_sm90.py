@@ -246,15 +246,16 @@ def _h100(c):
     (5, 512, 256, False, 2),         # 8 stages: at most 2 ranks of 4
 ])
 def test_split_cluster_chooser(R, K, N, a8, want):
-    assert tqmm.split_cluster(R, K, N, a8, _h100) == want
+    kb = tqmm.SM90_KB["w8a8" if a8 else "int8"]
+    assert tqmm.split_cluster(R, K, N, kb, _h100) == want
 
 
 def test_split_cluster_skips_sizes_the_card_cannot_hold():
     held = {1: 132, 2: 66, 3: 0, 4: -1}
-    assert tqmm.split_cluster(64, 4096, 4096, False, held.get) == 2
+    assert tqmm.split_cluster(64, 4096, 4096, tqmm.SM90_KB["int8"], held.get) == 2
     # More resident clusters (small blocks): 86 tiles fit one wave of 3.
     roomy = {1: 264, 2: 132, 3: 88, 4: 66}
-    assert tqmm.split_cluster(1, 4096, 11008, False, roomy.get) == 3
+    assert tqmm.split_cluster(1, 4096, 11008, tqmm.SM90_KB["int8"], roomy.get) == 3
 
 
 @pytest.mark.parametrize("R,want", [(1, 8), (8, 8), (9, 16), (64, 64), (65, 128),

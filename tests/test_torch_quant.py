@@ -141,7 +141,7 @@ def test_split_k_covers_k_in_whole_stages():
     for R in (1, 5, 64, 128):
         for K, N in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000), (96, 200)):
             for bits, stage in ((8, 64), (4, 32)):
-                splits, per = tqmm.split_k(R, K, N, bits)
+                splits, per = tqmm.split_k(R, K, N, bits, stage)
                 Kq = K if bits == 8 else K // 2
                 assert per % stage == 0 and splits >= 1
                 assert (splits - 1) * per < Kq <= splits * per   # no empty split
