@@ -15,16 +15,20 @@ Phases, each fatal on failure:
      kernel, with its split count and the key tiles its prefix skip reads;
      f32: the CUDA-core kernel); the top-p cutoffs at V = 32000 (one block
      per row) and V = 128256 (a cluster per row); the quant matmuls (the
-     wgmma kernels: int8 weight-only, w8a8, int4 and panel-tiled int4 at R
-     in {1, 16, 64, 128, 256} and 300, each with its load path, cluster
-     split, row tile and stage depth; w4a8 at R in {1, 64, 128, 256}; the
-     f32-x kernels for int8, int4 and tiled int4) at every 7B projection
-     shape and the lm_head, plus a ragged small shape; the
-     activation quantizer. With device times (CUDA graphs of many launches,
-     timed with CUDA events), the least time the card could take, and the
-     time of one PyTorch library call where one computes the same function;
-     and the host time of one quantized projection call against one
-     torch.matmul on the bf16 weight;
+     wgmma kernels: int8 weight-only, w8a8, int4, panel-tiled int4 and
+     w4a8 at R in {1, 16, 64, 128, 256} and 300, each with its load path,
+     cluster split, row tile and stage depth; the f32-x kernels for int8,
+     int4 and tiled int4) at every 7B projection shape and the lm_head,
+     plus a ragged small shape; the two int8-activation routes (w4a8, w8a8)
+     with every cycled call of the timing graph held to its plain version,
+     the quantizer and the matmul timed apart and together, with and
+     without the programmatic dependent launch, and w4a8 beside the bf16-x
+     int4 kernel; the activation quantizer against an empty kernel of its
+     grid. With device times (CUDA graphs of many launches, timed with CUDA
+     events), the least time the card could take, and the time of one
+     PyTorch library call where one computes the same function; and the
+     host time of one quantized projection call against one torch.matmul
+     on the bf16 weight;
   4. small parity: test-small, f32, on the card, with an f32, an int8, an
      int4 and a tiled-int4 target: greedy speculative decoding equals greedy
      AR token for token, the kernel forward equals the CPU forward, and
@@ -101,8 +105,9 @@ def card_line() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """`name<int and bool template arguments>` of a mangled kernel symbol
-    (ptxas -v names each kernel by its symbol)."""
+    """`name<template arguments>` of a mangled kernel symbol (ptxas -v names
+    each kernel by its symbol): int and bool values, and the activation
+    types of the int4 kernel (XBf16, XS8)."""
     rest, parts = mangled[2:], []        # after "_Z"; "N" opens a nested name
     if rest.startswith("N"):
         rest = rest[1:]
@@ -111,15 +116,18 @@ def kernel_name(mangled: str) -> str:
         size = int(rest[:n])
         parts.append(rest[n:n + size])
         rest = rest[n + size:]
-    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) if rest.startswith("I") else []
+    found = (re.findall(r"\d(X[A-Za-z0-9]+?)E|L[ib](\d+)E", rest.split("EEv")[0])
+             if rest.startswith("I") else [])
+    args = [a or b for a, b in found]
     return parts[-1] + (f"<{','.join(args)}>" if args else "") if parts else mangled
 
 
-def device_ms(fns, replays: int = 25) -> float:
+def device_ms(fns, replays: int = 25, outs=None) -> float:
     """Device time of one call, in ms: the calls in `fns` are captured once
     into a CUDA graph (no host gaps between launches), the graph is
     replayed `replays` times under CUDA events, and the median replay is
-    divided by len(fns)."""
+    divided by len(fns). `outs`, a list, receives the captured calls'
+    results, which hold the last replay's values."""
     import torch
 
     for f in fns[:3]:
@@ -128,7 +136,9 @@ def device_ms(fns, replays: int = 25) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for f in fns:
-            f()
+            r = f()
+            if outs is not None:
+                outs.append(r)
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -405,10 +415,11 @@ QMM_SHAPES = [  # (K, N, out): the 7B projections and the f32-logit lm_head
     (4096, 4096, "bf16"), (4096, 11008, "bf16"), (11008, 4096, "bf16"), (4096, 32000, "f32")]
 QMM_REPORT = (64, 4096, 11008)   # the shape of the kernels line: verify, MLP up
 QMM_SOURCE = "sequoia_torch/csrc/quant_matmul.cu"
-QMM_A8_SOURCE = "sequoia_torch/csrc/quant_matmul_a8.cu"
+QMM_A8_SOURCE = "sequoia_torch/csrc/quant_matmul_a8.cu"   # the activation quantizer
 QMM_SM90_SOURCE = "sequoia_torch/csrc/quant_matmul_int8_sm90.cu"
 QMM_SM90_4_SOURCE = "sequoia_torch/csrc/quant_matmul_int4_sm90.cu"
 SM90_ROWS = (1, 16, 64, 128, 256)
+A8_PART_ROWS = (1, 64, 256)   # the int8-activation routes' parts are timed at these R
 QMM_KERNELS = {
     # name: weight bits, rows at the 7B shapes (bf16 x), TPU counterpart, source,
     # int8 activations. The f32-x kernels (no rows) run the f32 cases alone.
@@ -421,24 +432,22 @@ QMM_KERNELS = {
     "quant_matmul_tiled_wgmma": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:197",
                                  QMM_SM90_4_SOURCE, False),
     "quant_matmul_tiled": (4, (), "sequoia_tpu/kernels/quant_matmul.py:197", QMM_SOURCE, False),
-    "quant_matmul_w4a8": (4, (1, 64, 128, 256), "sequoia_tpu/kernels/quant_matmul.py:99",
-                          QMM_A8_SOURCE, True),
+    "quant_matmul_w4a8": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:99",
+                          QMM_SM90_4_SOURCE, True),
     "quant_matmul_w8a8_wgmma": (8, (1, 16, 64, 128, 256), "sequoia_tpu/quant/qtensor.py:176",
                                 QMM_SM90_SOURCE, True),
 }
 
 
 def qmm_cases(name, rows):
-    """(R, K, N, x, out) of one kernel: every 7B shape at `rows` with bf16 x
-    and a ragged small shape; the wgmma kernels also at 300 rows (two row
-    tiles). The f32-x kernels (`rows` empty) at one 7B shape and the ragged
-    one."""
+    """(R, K, N, x, out) of one kernel: every 7B shape at `rows` with bf16 x,
+    a ragged small shape and 300 rows (two row tiles). The f32-x kernels
+    (`rows` empty) at one 7B shape and the ragged one."""
     if not rows:
         return [(64, 4096, 4096, "f32", "f32"), (5, 96, 200, "f32", "f32")]
     cases = [(R, K, N, "bf16", out) for K, N, out in QMM_SHAPES for R in rows]
     cases.append((5, 96, 200, "bf16", "bf16"))        # ragged: masked loads and edges
-    if name.endswith("_wgmma"):
-        cases.append((300, 4096, 4096, "bf16", "bf16"))
+    cases.append((300, 4096, 4096, "bf16", "bf16"))
     return cases
 
 
@@ -482,16 +491,17 @@ def sm90_route(qm, name, R, K, N):
     for a shape (the stage bytes and shared-memory budgets of
     csrc/quant_matmul_int8_sm90.cu and csrc/quant_matmul_int4_sm90.cu)."""
     kind = ("int4" if "int4" in name or "tiled" in name else
-            "w8a8" if "w8a8" in name else "int8")
-    rt = qm.row_tile(R)
-    if kind == "int4":
-        tma = ("tiled" in name or N % 16 == 0) and K % 8 == 0
-        stage, budget = 2 * rt * 128 + 64 * 128, 216 * 1024
+            "w4a8" if "w4a8" in name else "w8a8" if "w8a8" in name else "int8")
+    rt, splits = qm._sm90_tiling(R, K, N, kind, 0)
+    if kind in ("int4", "w4a8"):
+        tma = ("tiled" in name or N % 16 == 0) and K % (16 if kind == "w4a8" else 8) == 0
+        x_row = 64 if kind == "w4a8" else 128      # bytes of 64 k of x8 or bf16 x
+        stage, budget = 2 * rt * x_row + 64 * 128, 216 * 1024
     else:
         tma = N % 16 == 0 and K % (16 if kind == "w8a8" else 8) == 0
         stage, budget = rt * 128 + (128 if kind == "w8a8" else 64) * 128, 200 * 1024
     return (f"{'TMA' if tma else 'producer-warp copies'}, cluster of "
-            f"{qm._sm90_split(R, K, N, kind, 0)}, row tile {rt}, "
+            f"{splits}, row tile {rt}, "
             f"{min(budget // stage, 16)} stages of {stage // 1024} KB")
 
 
@@ -500,10 +510,17 @@ def check_quant_matmul(torch, results):
     and a ragged small one (`qmm_cases`). Tolerances: the weight-only
     kernels (tiled included) 2e-2 relative for a bf16 output and 1e-4 for
     an f32 one (exact products, f32 sums in another order); the
-    activation-quantized kernels 1e-6 for an f32 output and 2^-8 for a bf16
-    one (exact int32 products and the plain version's order of the f32
-    rescale: only the output's rounding is left). Timing cycles through
-    enough weight matrices that a pass exceeds the 50 MB L2. The library
+    activation-quantized routes (w4a8, w8a8) 0: exact int32 products and
+    the plain version's order of the f32 rescale give equal bits. Timing
+    cycles through enough weight matrices that a pass exceeds the 50 MB L2;
+    the activation-quantized routes also through as many inputs x, and
+    every call captured in the timing graph is held to its plain version
+    after the replays (a consumer that read x8 before the quantizer wrote
+    it would show the previous call's x8). For them the line also gives,
+    at R in A8_PART_ROWS, the route without the programmatic dependent
+    launch, the matmul alone on x8 quantized beforehand and the quantizer
+    alone, so that what the launch hides reads off; and, for w4a8, the
+    bf16-x int4 kernel on the same weights. The library
     yardstick is torch.matmul on the dequantized weight (cuBLAS; bf16, twice
     the int8 bytes, or f32 for f32 x); beside it torch._weight_int8pack_mm
     for int8, and torch._int_mm (the int8 x int8 product alone, without
@@ -518,6 +535,7 @@ def check_quant_matmul(torch, results):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     int8pack, int_mm = hasattr(torch, "_weight_int8pack_mm"), hasattr(torch, "_int_mm")
     for name, (bits, rows, replaces, source, a8) in QMM_KERNELS.items():
+        t_name = time.perf_counter()
         kernel, plain_fn = qmm_calls(qm, name)
         tiled = name.startswith("quant_matmul_tiled")
         for R, K, N, xs, outs in qmm_cases(name, rows):
@@ -533,25 +551,36 @@ def check_quant_matmul(torch, results):
             qs = [tile_int4(QuantizedTensor(q, s)).q for q, s in zip(rowmajor, ss)] \
                 if tiled else rowmajor
             x = torch.randn(R, K, generator=gen, device="cuda").to(x_dt)
+            xc = [x] + [torch.randn(R, K, generator=gen, device="cuda").to(x_dt)
+                        for _ in range(n - 1 if a8 else 0)]
+            xi = lambda i: xc[i % len(xc)]  # noqa: E731  the input of cycled call i
             before = build.launches[name]
             got = kernel(x, qs[0], ss[0], out_dt)
             want = plain_fn(x, qs[0], ss[0], out_dt)
             torch.cuda.synchronize()
             if build.launches[name] != before + 1:
                 fail(f"{name} R={R} K={K} N={N} x {xs}: the wrapper took another kernel")
-            if a8:
-                tol = 2 ** -8 if out_dt == torch.bfloat16 else 1e-6
-            else:
-                tol = 2e-2 if out_dt == torch.bfloat16 else 1e-4
+            tol = 0.0 if a8 else 2e-2 if out_dt == torch.bfloat16 else 1e-4
             peak = want.float().abs().max().item()
             err = (got.float() - want.float()).abs().max().item()
             if not torch.isfinite(got).all() or not torch.allclose(
                     got.float(), want.float(), rtol=tol, atol=tol * peak):
                 fail(f"{name} R={R} K={K} N={N} x {xs} out {outs} disagrees with its "
                      f"plain version: max |err| {err} (tol {tol} x max|plain| {peak})")
-            kern = [lambda i=i: kernel(x, qs[i], ss[i], out_dt) for i in range(n)]
-            plain = [lambda i=i: plain_fn(x, qs[i], ss[i], out_dt) for i in range(n)]
-            ms, plain_ms = device_ms(kern, replays=10), device_ms(plain, replays=3)
+            kern = [lambda i=i: kernel(xi(i), qs[i], ss[i], out_dt) for i in range(n)]
+            plain = [lambda i=i: plain_fn(xi(i), qs[i], ss[i], out_dt) for i in range(n)]
+            replayed = []
+            ms, plain_ms = device_ms(kern, replays=10, outs=replayed), device_ms(plain, replays=3)
+            a8_line = ""
+            if a8:
+                for i, o in enumerate(replayed):
+                    e = (o.float() - plain_fn(xi(i), qs[i], ss[i], out_dt).float()).abs().max()
+                    err = max(err, e.item())
+                if err != 0:
+                    fail(f"{name} R={R} K={K} N={N}: a call replayed in the graph differs "
+                         f"from its plain version: max |err| {err}")
+                a8_line = a8_times(qm, name, R, K, N, qs, ss, xi, out_dt, ms)
+            del replayed
             deq = [dequantize(QuantizedTensor(rowmajor[i], ss[i]), K, x_dt) for i in range(n)]
             lib_ms = device_ms([lambda i=i: torch.matmul(x, deq[i]) for i in range(n)],
                                replays=10)
@@ -591,13 +620,14 @@ def check_quant_matmul(torch, results):
                     other, other_ms = "_int_mm", device_ms(
                         [lambda i=i: torch._int_mm(x8, qs[i]) for i in range(n)], replays=10)
             bound, by = qmm_bound(R, K, N, bits, x.element_size(), got.element_size(), a8)
-            route = f"; {sm90_route(qm, name, R, K, N)}" if name.endswith("_wgmma") else ""
+            route = (f"; {sm90_route(qm, name, R, K, N)}"
+                     if name.endswith("_wgmma") or name == "quant_matmul_w4a8" else "")
             log(f"  {name} R={R} K={K} N={N} x {xs} out {outs}: max|err| {err:.3g} "
                 f"(tol {tol:.3g} x {peak:.3g}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"cuBLAS {xs} dequantized {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
                 + (f"  {other} {other_ms:.4f} ms" if other_ms is not None else "")
                 + f"  bound {bound:.5f} ms ({by}, {ms / bound:.2f}x)"
-                f"  [{n} weights cycled]{route}"
+                f"  [{n} weights cycled]{a8_line}{route}"
                 + (f"; host µs per qtensor.matmul call: quantized {host[0]:.1f}, "
                    f"bf16 weight {host[1]:.1f}" if host is not None else ""))
             if (R, K, N, xs) == qmm_report(name):
@@ -608,30 +638,74 @@ def check_quant_matmul(torch, results):
                     library_ms=lib_ms))
             del qs, rowmajor, ss, kern, plain
         torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t_name:.1f} s")
     qtensor.set_w8a8("auto")
     check_quantize_activations(torch, qm, gen, results)
 
 
+def a8_times(qm, name, R, K, N, qs, ss, xi, out_dt, ms):
+    """The parts of an int8-activation route (w4a8 or w8a8) at one shape,
+    device ms: for w4a8 the bf16-x int4 kernel on the same weights and
+    inputs; at R in A8_PART_ROWS, the route without the programmatic
+    dependent launch, the matmul alone on x8 quantized beforehand, the
+    quantizer alone, and what the launch hides of the route."""
+    w4 = name == "quant_matmul_w4a8"
+    launch = qm._launch_int4_sm90 if w4 else qm._launch_int8_sm90
+    n, line = len(qs), ""
+    if R in A8_PART_ROWS:
+        def no_pdl(i):
+            x8, sx = qm.quantize_activations(xi(i))
+            return launch(x8, qs[i], ss[i], out_dt, sx=sx, pdl=False)
+
+        q8 = [qm.quantize_activations(xi(i)) for i in range(n)]
+        nopdl_ms = device_ms([lambda i=i: no_pdl(i) for i in range(n)], replays=10)
+        mm_ms = device_ms([lambda i=i: launch(q8[i][0], qs[i], ss[i], out_dt, sx=q8[i][1])
+                           for i in range(n)], replays=10)
+        quant_ms = device_ms([lambda i=i: qm.quantize_activations(xi(i)) for i in range(n)],
+                             replays=10)
+        line = (f"; route without PDL {nopdl_ms:.4f} ms, matmul alone {mm_ms:.4f} ms, "
+                f"quantizer {quant_ms:.4f} ms, PDL hides {(nopdl_ms - ms) * 1e3:.2f} us")
+    if w4:
+        int4_ms = device_ms([lambda i=i: qm.quant_matmul(xi(i), qs[i], ss[i], bits=4,
+                                                          out_dtype=out_dt)
+                             for i in range(n)], replays=10)
+        line += f"; bf16-x int4 kernel {int4_ms:.4f} ms ({ms / int4_ms:.2f}x)"
+    return line
+
+
 def check_quantize_activations(torch, qm, gen, results):
     """The activation quantizer against its plain version: the same int8
-    values and the same f32 scales, bit for bit (tolerance 0)."""
-    for R, K in ((1, 4096), (64, 4096), (64, 11008), (256, 4096), (5, 100)):
+    values and the same f32 scales, bit for bit (tolerance 0), on every
+    call of the timing graph. Beside its time, the floor: an empty kernel
+    of its grid (one block per row, the quantizer's block size) in the same
+    harness; and the least time for its bytes."""
+    from sequoia_torch.kernels import build
+
+    lib = build.load()
+    for R, K in ((1, 4096), (64, 4096), (64, 11008), (256, 4096), (256, 11008), (5, 100)):
         xs = [torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16) * 3
               for _ in range(8)]
-        (got8, gots), (want8, wants) = qm.quantize_activations(xs[0]), \
-            qm.quantize_activations_plain(xs[0])
-        torch.cuda.synchronize()
-        err = max((got8.int() - want8.int()).abs().max().item(),
-                  (gots - wants).abs().max().item())
+        replayed = []
+        ms = device_ms([lambda x=x: qm.quantize_activations(x) for x in xs], outs=replayed)
+        err = 0
+        for x, (got8, gots) in zip(xs, replayed):
+            want8, wants = qm.quantize_activations_plain(x)
+            err = max(err, (got8.int() - want8.int()).abs().max().item(),
+                      (gots - wants).abs().max().item())
         if err != 0:
             fail(f"quantize_activations R={R} K={K} differs from its plain version: {err}")
-        ms = device_ms([lambda x=x: qm.quantize_activations(x) for x in xs])
         plain_ms = device_ms([lambda x=x: qm.quantize_activations_plain(x) for x in xs])
+        threads = qm.quantizer_block(K, 2)[1]
+        stream = torch.cuda.current_stream().cuda_stream
+        floor_ms = device_ms([lambda: build.check(lib.sequoia_empty_kernel(R, threads, stream),
+                                                  "empty_kernel")] * 8)
         nbytes = R * K * 2 + R * K + R * 4
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 6 * R * K / PEAK_FLOPS["f32"] * 1e3
         bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-        log(f"  quantize_activations R={R} K={K} bf16: equal bits; kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  bound {bound:.3g} ms ({by})")
+        log(f"  quantize_activations R={R} K={K} bf16: equal bits on {len(xs)} calls; kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.3g} ms ({by})  empty kernel of "
+            f"its grid ({R} x {threads} threads) {floor_ms:.4f} ms: {ms / floor_ms:.2f}x the "
+            f"floor, {ms / max(bound, floor_ms):.2f}x max(bound, floor)")
         if (R, K) == QMM_REPORT[:2]:
             results.append(dict(
                 name="quantize_activations", route="cuda", source=QMM_A8_SOURCE,
@@ -1184,6 +1258,8 @@ def main() -> None:
             kernel = kernel_name(line.split("'")[1])
         elif "registers" in line or "spill" in line and "0 bytes spill" not in line:
             log(f"  ptxas: {kernel}: " + line.split(":", 1)[-1].strip())
+        elif "C75" in line:   # e.g. C7513, wgmma serialized
+            log(f"  ptxas: {line.strip()}")
 
     gm = load_growmap("planned")
     log(f"  planned growmap: {gm.size} nodes, depth {int(gm.depth.max())}, "

@@ -2,20 +2,31 @@
 comparing two checkouts of the port on one card.
 
     python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
-        [--kernels int8,w8a8,int4,tiled,cublas_bf16] [--label NAME] [--reps 3]
+        [--kernels int8,w8a8,int4,tiled,w4a8,quantize,w8a8_route,cublas_bf16]
+        [--label NAME] [--reps 3]
 
 Imports `sequoia_torch` from DIR (default: the checkout that holds this
 file) and builds its kernels there, so the same script times an older
 checkout: run it as parent, change, change, parent within one call to the
 card, and compare only within that call. For each kernel of `--kernels`
-(bf16 x throughout: int8 weight-only, `quant_matmul(bits=8)`; int8 weights
-with int8 activations, `quant_matmul_w8a8`; packed int4,
-`quant_matmul(bits=4)`; panel-tiled int4, `quant_matmul_tiled`; and the
-yardstick, torch.matmul on a dequantized bf16 weight, i.e. cuBLAS), each
-(K, N) of llama-2-7b's projections and lm_head and each row count R, prints
-one JSON line with the device ms of one call: the median of `--reps` runs,
-each a CUDA graph of calls cycling through enough weights to exceed the 50
-MB L2, replayed under CUDA events. Exits non-zero without a CUDA card.
+(bf16 x throughout), each (K, N) of llama-2-7b's projections and lm_head
+and each row count R, prints one JSON line with the device ms of one call:
+the median of `--reps` runs, each a CUDA graph of calls cycling through
+enough weights to exceed the 50 MB L2, replayed under CUDA events. The
+kernels:
+- int8: int8 weight-only, `quant_matmul(bits=8)`;
+- w8a8: the int8-weight matmul alone on x8 and sx quantized beforehand
+  (`_launch_int8_sm90(x8, q, scale, out, sx=sx)`; in older checkouts of
+  this script the name timed the whole route);
+- w8a8_route: the quantizer and that matmul as one unit,
+  `quant_matmul_w8a8`, as `quant/qtensor.py`'s w8a8 mode calls it;
+- quantize: the activation quantizer alone, `quantize_activations` (at
+  (R, K), once per K);
+- int4: packed int4, `quant_matmul(bits=4)`; tiled: `quant_matmul_tiled`;
+- w4a8: the quantizer and the int4 x int8 matmul, `quant_matmul(bits=4,
+  unpack="w4a8")`;
+- cublas_bf16: the yardstick, torch.matmul on a dequantized bf16 weight.
+Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,7 +38,7 @@ import statistics
 import sys
 
 SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
-KERNELS = ("int8", "w8a8", "int4", "tiled", "cublas_bf16")
+KERNELS = ("int8", "w8a8", "int4", "tiled", "w4a8", "quantize", "w8a8_route", "cublas_bf16")
 
 
 def device_ms(torch, fns, replays: int = 10) -> float:
@@ -87,8 +98,9 @@ def main() -> None:
     for K, N in SHAPES:
         # enough weights per kernel that one pass exceeds the L2
         n8, n4 = (max(2, -(-150_000_000 // nbytes)) for nbytes in (K * N, K * N // 2))
-        q8, s8 = weights(K, N, n8) if {"int8", "w8a8", "cublas_bf16"} & set(kernels) else ([], [])
-        q4, s4 = weights(K // 2, N, n4) if {"int4", "tiled"} & set(kernels) else ([], [])
+        want8 = {"int8", "w8a8", "w8a8_route", "cublas_bf16"}
+        q8, s8 = weights(K, N, n8) if want8 & set(kernels) else ([], [])
+        q4, s4 = weights(K // 2, N, n4) if {"int4", "tiled", "w4a8"} & set(kernels) else ([], [])
         t4 = [tile_int4(QuantizedTensor(q, s)).q for q, s in zip(q4, s4)] \
             if "tiled" in kernels else []
         deq = [(q.float() * s).to(torch.bfloat16) for q, s in zip(q8, s8)] \
@@ -96,14 +108,24 @@ def main() -> None:
         out = torch.float32 if N == 32000 else torch.bfloat16
         for R in map(int, args.rows.split(",")):
             x = torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
+            x8, sx = qm.quantize_activations(x)
+            xs = [torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(8)]
             calls = {
                 "int8": (n8, lambda i: qm.quant_matmul(x, q8[i], s8[i], bits=8, out_dtype=out)),
-                "w8a8": (n8, lambda i: qm.quant_matmul_w8a8(x, q8[i], s8[i], out_dtype=out)),
+                "w8a8": (n8, lambda i: qm._launch_int8_sm90(x8, q8[i], s8[i], out, sx=sx)),
+                "w8a8_route": (n8, lambda i: qm.quant_matmul_w8a8(x, q8[i], s8[i],
+                                                                  out_dtype=out)),
+                "quantize": (len(xs), lambda i: qm.quantize_activations(xs[i])),
                 "int4": (n4, lambda i: qm.quant_matmul(x, q4[i], s4[i], bits=4, out_dtype=out)),
                 "tiled": (n4, lambda i: qm.quant_matmul_tiled(x, t4[i], s4[i], out_dtype=out)),
+                "w4a8": (n4, lambda i: qm.quant_matmul(x, q4[i], s4[i], bits=4, unpack="w4a8",
+                                                        out_dtype=out)),
                 "cublas_bf16": (n8, lambda i: torch.matmul(x, deq[i])),
             }
             for name in kernels:
+                if name == "quantize" and N != 4096:
+                    continue   # once per K: at (4096, 4096) and (11008, 4096)
                 n, call = calls[name]
                 ms = statistics.median(
                     device_ms(torch, [lambda i=i: call(i) for i in range(n)])

@@ -1,9 +1,9 @@
 // Device helpers shared by the port's CUDA sources: the asynchronous copies,
 // the warp-level tensor-core product and the int8 -> bf16 expansion of the
-// sm_80-style kernels (tree_attention.cu, quant_matmul_a8.cu), the Hopper
-// pieces of the wgmma kernels (mbarrier, TMA, wgmma with its shared-memory
-// descriptor; qmm_sm90.cuh builds on them), and the quantized-matmul
-// geometry and output store.
+// sm_80-style kernel (tree_attention.cu), the Hopper pieces of the wgmma
+// kernels (mbarrier, TMA, wgmma with its shared-memory descriptors,
+// programmatic dependent launch; qmm_sm90.cuh builds on them), and the
+// quantized-matmul geometry and output store.
 
 #pragma once
 
@@ -183,6 +183,25 @@ __device__ __forceinline__ uint64_t desc_k128(const void* tile) {
   const uint64_t start = (smem_u32(tile) & 0x3FFFFu) >> 4;
   return start | (uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
+// The same in the 64-byte swizzle (CU_TENSOR_MAP_SWIZZLE_64B): rows of 64
+// bytes, 8-row core groups 512 bytes apart, the tile 512-byte aligned.
+__device__ __forceinline__ uint64_t desc_k64(const void* tile) {
+  const uint64_t start = (smem_u32(tile) & 0x3FFFFu) >> 4;
+  return start | (uint64_t{1} << 16) | (uint64_t{512 >> 4} << 32) | (uint64_t{2} << 62);
+}
+
+// Programmatic dependent launch. A kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it in the stream still runs, once every block of that
+// kernel has executed grid_dep_launch (or exited); grid_dep_wait then
+// blocks the calling thread until that kernel has completed and its writes
+// are visible. Without the attribute grid_dep_wait returns at once.
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
 
 // D[64 x N] += A[64 x k] * B[k x N]: A from registers (per warp the mma.sync
 // A-fragment layout of its 16 rows), B a K-major shared tile (`desc`). The
@@ -279,36 +298,20 @@ __device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-
 // ---------------------------------------------------------------------------
-// Quantized-matmul geometry (quant_matmul.cu, quant_matmul_a8.cu)
+// Quantized-matmul geometry (quant_matmul.cu)
 // ---------------------------------------------------------------------------
 
 namespace qmm {
 
 constexpr int kThreads = 128;            // 4 warps
-constexpr int kBN = 128;                 // output columns per block, 32 per warp
-constexpr int kWStride = kBN + 16;       // bytes per q row in shared memory
-constexpr int kStages = 4;               // shared-memory stages: 3 in flight
-constexpr int kOutStride = kBN + 1;      // words per output row staged in shared memory
+constexpr int kBN = 128;                 // output columns per block; the tiled panel width
 
 }  // namespace qmm
 
 __device__ __forceinline__ void store_out(void* out, int64_t i, float v, int out_bf16) {
   if (out_bf16) static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
   else static_cast<float*>(out)[i] = v;
-}
-
-// 16 bytes of q row `src` (valid columns [0, ncols)) into shared memory, byte
-// by byte: the path for rows that break 16-byte alignment.
-__device__ __forceinline__ void copy16_bytes(uint8_t* dst, const int8_t* src, bool row_ok,
-                                             int col, int ncols) {
-  uint32_t v[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int b = 0; b < 16; ++b)
-    if (row_ok && col + b < ncols)
-      v[b / 4] |= uint32_t(static_cast<uint8_t>(src[b])) << (8 * (b % 4));
-  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 }  // namespace sq

@@ -1,7 +1,8 @@
 // What the two wgmma + TMA quantized matmuls (quant_matmul_int8_sm90.cu,
-// quant_matmul_int4_sm90.cu) share: the block geometry, the 128-byte
-// swizzle, the tensor-map encoding and launch set-up on the host, and the
-// consumers' epilogue, which reduces the K split of a cluster through
+// quant_matmul_int4_sm90.cu) share: the block geometry, the 128- and
+// 64-byte swizzles, the tensor-map encoding and launch set-up on the host
+// (with programmatic dependent launch for the int8-activation routes), and
+// the consumers' epilogue, which reduces the K split of a cluster through
 // distributed shared memory. The file notes of the two kernels describe
 // the design.
 
@@ -29,6 +30,11 @@ constexpr int kTileStride = kBM + 4;                 // words per row of the sta
 constexpr int kMaxStages = 16;                       // bytes in flight for the small row tiles
 constexpr int kMaxRT = 256;
 constexpr int kMaxSplit = 4;                         // blocks per cluster, each a slice of K
+// Ring stages whose weight boxes an int8-activation route issues before it
+// waits for the quantizer's grid. More delay the first x8 box behind them
+// once the quantizer is done: in throwaway builds on an H100 80GB HBM3,
+// two beat the whole ring (most at R = 1) and none at R = 1..256.
+constexpr int kPdlStages = 2;
 
 constexpr int min_int(int a, int b) { return a < b ? a : b; }
 
@@ -37,6 +43,13 @@ constexpr int min_int(int a, int b) { return a < b ? a : b; }
 // 1024-byte aligned), as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them.
 __device__ __forceinline__ int swz(int row, int byte) {
   return row * kRowBytes + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// The same for a tile of 64-byte rows in the 64-byte swizzle
+// (CU_TENSOR_MAP_SWIZZLE_64B; the tile 512-byte aligned): the row's four
+// 16-byte chunks are permuted by (row / 2) % 4.
+__device__ __forceinline__ int swz64(int row, int byte) {
+  return row * 64 + ((((byte >> 4) ^ (row >> 1)) & 3) << 4) + (byte & 15);
 }
 
 // The scales of the 4 output columns that this consumer thread stores in
@@ -152,14 +165,15 @@ inline EncodeFn encoder() {
 
 // A tensor of `rank` (2 or 3) dimensions, innermost first (`dims`; `strides`:
 // the byte strides of dimensions 1 .. rank-1), read in boxes `box` in the
-// 128-byte swizzle, zero-filled outside the tensor.
+// swizzle `swizzle`, zero-filled outside the tensor.
 inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
-                   const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                   const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeFn fn = encoder();
   if (fn == nullptr) return false;
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
@@ -168,17 +182,21 @@ inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base,
 // [box_outer, box_inner].
 inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                       uint64_t inner, uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
-                      uint32_t box_outer) {
+                      uint32_t box_outer,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
-  return encode(map, type, base, 2, dims, strides, box);
+  return encode(map, type, base, 2, dims, strides, box, swizzle);
 }
 
 // A launch over `splits`-block clusters (grid x), kBM-column tiles (y) and
-// RT-row tiles (z), with `smem` bytes of dynamic shared memory.
+// RT-row tiles (z), with `smem` bytes of dynamic shared memory; `pdl`: a
+// programmatic dependent launch (common.cuh, grid_dep_wait) after the
+// kernel before it in the stream. `attr` holds two attributes.
 inline cudaLaunchConfig_t launch_config(int splits, int N, int R, int RT, int smem,
-                                        cudaStream_t st, cudaLaunchAttribute* attr) {
+                                        cudaStream_t st, cudaLaunchAttribute* attr,
+                                        bool pdl = false) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, (N + kBM - 1) / kBM, (R + RT - 1) / RT);
   cfg.blockDim = dim3(kThreadsW);
@@ -188,15 +206,17 @@ inline cudaLaunchConfig_t launch_config(int splits, int N, int R, int RT, int sm
   attr[0].val.clusterDim.x = splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 2 : 1;
   return cfg;
 }
 
 // Clusters of `splits` blocks of `kernel` (dynamic shared memory `smem`)
 // that the card holds at once (cudaOccupancyMaxActiveClusters); -1 on error.
 inline int max_clusters(const void* kernel, int splits, int RT, int smem) {
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = launch_config(splits, kBM, RT, RT, smem, nullptr, attr);
   int n = 0;
   return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : -1;

@@ -1,74 +1,99 @@
-// Packed-int4 weight matmuls with bf16 activations on Hopper's wgmma + TMA,
-// one kernel for both weight layouts:
-//   out[R, N] = (x[R, K] @ w[K, N]) * scale[N], f32 accumulation, cast once,
+// Packed-int4 weight matmuls on Hopper's wgmma + TMA, one kernel for both
+// weight layouts and both activation types:
+//   bf16 x: out[R, N] = (x[R, K] @ w[K, N]) * scale[N], f32 accumulation,
+//     cast once;
+//   int8 x8 (w4a8): out = float(x8[R, K] @ w) * sx[r] * scale[n], in that
+//     order, the product exact in int32 (x8 and sx come from the activation
+//     quantizer of quant_matmul_a8.cu, the kernel launched right before);
 // with q[K/2, N] int8 half-split packed: byte [k, n] holds w[k, n] in its
 // low nibble and w[K/2 + k, n] in its high nibble, both signed (0x8 is -8).
 // Replaces the Pallas kernels sequoia_tpu/kernels/quant_matmul.py::
 // quant_matmul bits=4 (_kernel_int4, its "shift" and "float" unpacks compute
-// the same numbers) and ::quant_matmul_tiled (_kernel_int4_tiled: the same
-// product over q[ceil(N / 128), K/2, 128], panel n holding columns
-// [128 n, 128 n + 128), zero past N). The nibble -> bf16 conversion is
-// exact, so the products are the plain version's; only the order of the f32
-// sums differs.
+// the same numbers; _kernel_int4_w4a8 for unpack="w4a8") and
+// ::quant_matmul_tiled (_kernel_int4_tiled: the same product over
+// q[ceil(N / 128), K/2, 128], panel n holding columns [128 n, 128 n + 128),
+// zero past N; bf16 x only, as in JAX). The nibble -> bf16 conversion is
+// exact, so the bf16-x products are the plain version's and only the order
+// of the f32 sums differs; w4a8 equals its plain version bit for bit.
 //
 // Bound on the H100: the weight stream at the rows of a tree verify. At
 // (K, N) = (4096, 11008) the packed weight is 22.5 MB, 0.0067 ms at 3.35
-// TB/s; 2*R*K*N operations at the bf16 peak of 989 TFLOP/s pass it near
-// R = 74.
+// TB/s; 2*R*K*N operations pass it near R = 74 at the bf16 peak of 989
+// TFLOP/s and near R = 148 at the int8 peak of 1979 TOP/s (w4a8).
 //
 // Design: the block, ring and cluster structure of quant_matmul_int8_sm90.cu
 // (its file note; the shared pieces are in qmm_sm90.cuh). What differs:
 // - A and B are swapped as there (out^T = W^T x^T): the int4 weight tile is
 //   wgmma's register A operand, x the K-major B operand in shared memory, R
 //   wgmma's N; one block holds all R <= 256 rows of its 128 columns, so the
-//   weight crosses device memory once.
+//   weight crosses device memory once. R > 256 runs ceil(R / 256) row tiles.
 // - One stage is 64 packed q rows (64 x 128 bytes). They carry the logical
 //   k [kp, kp + 64) in their low nibbles and [K/2 + kp, ..) in their high
 //   nibbles, so the stage holds two x boxes of one 2-D tensor map of x, at
-//   columns kp and K/2 + kp, each RT rows of 128 bytes in the 128-byte
-//   swizzle. Where K/2 is not a multiple of 64, the low box of the last
-//   stage reaches into the high half of x; those columns meet the zero q
-//   rows past K/2, which TMA fills.
+//   columns kp and K/2 + kp, each RT rows of 64 k: 128 bytes in the 128-byte
+//   swizzle (bf16), 64 bytes in the 64-byte swizzle (x8). Where K/2 is not a
+//   multiple of 64, the low box of the last stage reaches into the high half
+//   of x; those columns meet the zero q rows past K/2, which TMA fills.
 // - M-row g of a warp is weight column c = 2g of its 16 and row g + 8 is
-//   column c + 1, as in the int8 kernel, so a lane needs, per pair of k
-//   rows, the 16-bit column pair (c, c + 1) of both rows. Read as a matrix
-//   of 16-bit elements, that is what ldmatrix .trans delivers: one
-//   ldmatrix.x4.trans per two k steps (lanes 8m .. 8m + 7 address the
-//   16-byte row chunks of the warp's columns in 8-row matrix m) leaves in
-//   each register P = [q[k][c], q[k][c + 1], q[k + 1][c], q[k + 1][c + 1]]
-//   (k = 2t of the matrix), conflict-free in the swizzle. P, P >> 4, P >> 8
-//   and P >> 12 then hold, at bits 0-3 and 16-19, the k pair of column c's
-//   low nibbles, c's high, c + 1's low and c + 1's high: four fragment
-//   registers of the two wgmmas of a k step (low box, high box). Each
-//   becomes a bf16x2 in two instructions (nibbles_bf16): the nibble u goes
-//   into the mantissa of bf16 128.0, (u ^ 8) | 0x4300 = 128 + (v + 8) for
-//   the signed value v, and one fma.rn.bf16x2 subtracts 136, exactly. About
-//   22 instructions a lane for a k step's two fragments, where the int8
-//   kernel's 16-bit loads and f32 conversion spend about 28 on one.
-// - Stage depth: all row tiles take 64-row stages in the 128-byte swizzle
-//   (one descriptor layout, one copy path); the ring fills a 216 KB budget,
-//   up to 16 stages: RT <= 16 16, RT 32 13, RT 64 9, RT 128 5, RT 256 3
-//   (72 KB a stage; 32-row stages in the 64-byte swizzle would give 5 of 36
-//   KB at the same bytes in flight).
+//   column c + 1, as in the int8 kernel, so a lane needs the 16-bit column
+//   pair (c, c + 1) of each q row it reads. Read as a matrix of 16-bit
+//   elements, that is what ldmatrix .trans delivers: one ldmatrix.x4.trans
+//   reads 32 q rows of the warp's 16 columns (lanes 8m .. 8m + 7 address
+//   the 16-byte row chunks of 8-row matrix m) and leaves in register m of
+//   lane (g, t) the word [q[a][c], q[a][c + 1], q[b][c], q[b][c + 1]] of the
+//   rows a, b that lanes 8m + 2t, 8m + 2t + 1 addressed. Each activation
+//   type picks the rows and builds the fragments (ldm_row, fragments):
+//   - bf16 (k16 steps, 16 q rows): lane 8m + i addresses row 8m + i, so
+//     register m holds the k pair (2t, 2t + 1) + 8m; P, P >> 4, P >> 8 and
+//     P >> 12 then hold, at bits 0-3 and 16-19, that pair's low nibbles of
+//     column c, its high nibbles, c + 1's low and c + 1's high: four
+//     fragment registers of the two wgmmas of a k step (low box, high box).
+//     Each becomes a bf16x2 in two instructions (nibbles_bf16): the nibble u
+//     goes into the mantissa of bf16 128.0, (u ^ 8) | 0x4300 = 128 + (v + 8)
+//     for the signed value v, and one fma.rn.bf16x2 subtracts 136, exactly.
+//   - int8 (k32 steps, 32 q rows): an s8 fragment register holds 4
+//     consecutive k of one column, k 4t .. 4t + 3 (+ 16 for a2, a3). Lane
+//     8m + 2t' + s addresses row 16 (m / 2) + 4t' + 2 ((t' / 2) ^ (m % 2))
+//     + s: registers 0 and 1 hold rows 4t .. 4t + 3 (in the order 0, 1 for
+//     t < 2, swapped for t >= 2), registers 2 and 3 those rows + 16, and
+//     each 8-lane phase still reads 8 distinct 16-byte bank groups. Two prmt
+//     per register pair gather column c's and column c + 1's 4 bytes; the
+//     masks (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0 make each nibble a
+//     signed byte of 16 v, exactly, for the low and the high wgmma. The
+//     int32 sum is then 16 acc, |16 acc| <= 16 * 127 * 8 * K < 2^31 for K
+//     <= 132104, and one arithmetic shift by 4 before the epilogue gives acc
+//     exactly (each cluster rank's partial is a multiple of 16 too). About
+//     16 instructions a lane for a k step's two fragments, against 44 for
+//     the two bf16 k steps that cover the same 32 rows.
+// - Stage depth: 64-row stages (one descriptor layout, one copy path per
+//   type); the ring fills a 216 KB budget, up to 16 stages. bf16: RT <= 16
+//   16, RT 32 13, RT 64 9, RT 128 5, RT 256 3 (72 KB a stage). x8 boxes
+//   are half the bytes: RT <= 32 16, RT 64 13, RT 128 9, RT 256 5 (40 KB).
 // - The fragments of a batch of k steps (a whole stage; half of one at RT =
-//   256, where 128 accumulators leave fewer registers) are built first, the
-//   ldmatrix loads ahead of the conversions, each step's two fragments in
-//   registers of their own; each step's wgmmas form one commit group, and
-//   the previous batch's groups are waited for once per batch and its
-//   fragments read once more (`live`), so that ptxas never rewrites a
-//   register that a wgmma in flight reads (C7513).
+//   256 for bf16, where 128 accumulators leave fewer registers) are built
+//   first, the ldmatrix loads ahead of the conversions, each step's two
+//   fragments in registers of their own; each step's wgmmas form one commit
+//   group, and the previous batch's groups are waited for once per batch
+//   and its fragments read once more (`live`), so that ptxas never rewrites
+//   a register that a wgmma in flight reads (C7513).
 // - The tiled layout is a 3-D tensor map over q [nt, K/2, 128] with the box
 //   [1, 64, 128]: a box never crosses into the next panel, rows past K/2
 //   arrive as zeros, and block column tile y reads panel y. The logical N
 //   comes from the scale; the last panel's columns past N are computed on
 //   the stored zeros and not written.
 // - K split over a 1-4-block cluster with the DSMEM reduction, the producer
-//   warp's masked copies where TMA cannot address the tensors (K % 8 != 0,
-//   or N % 16 != 0 row-major), the CUDA-graph capture: as in the int8
-//   kernel, chosen before the launch.
-// - The activation type is a template parameter (XBf16): w4a8 follows as a
-//   second instantiation with x8 boxes of 128 k, s32 accumulation and a
-//   fragment builder that sign-extends the nibbles into bytes.
+//   warp's masked copies where TMA cannot address the tensors (K % 8 (bf16)
+//   or K % 16 (x8) != 0, or N % 16 != 0 row-major), the CUDA-graph capture:
+//   as in the int8 kernel, chosen before the launch. w4a8 above 128 rows
+//   may take 128-row tiles instead of 256 (kernels/quant_matmul.py::
+//   sm90_tiling): where N = 4096, 64 tiles in clusters of 2 fill 128 SMs
+//   in one wave, against 32 tiles in clusters of 3 on 96 SMs, and halve
+//   each block's x8 stream and epilogue tile.
+// - w4a8 is a programmatic dependent launch after the quantizer, as the
+//   int8 kernel's w8a8 instantiation: barrier set-up, tensor-map prefetch
+//   and the weight boxes of the first kPdlStages stages overlap the quantizer;
+//   the producer waits for its grid before the first x8 box, each consumer
+//   before it reads sx.
 
 #include "qmm_sm90.cuh"
 
@@ -79,6 +104,7 @@ using namespace sq::sm90;
 
 constexpr int kSmemBudget = 216 * 1024;
 constexpr int kKp = 64;          // packed q rows per stage
+constexpr int kLdsmRows = 32;    // q rows of one ldmatrix.x4.trans
 
 // The two nibbles at bits 0-3 and 16-19 of w (unsigned u, standing for the
 // signed v = (u ^ 8) - 8) as a bf16x2, exactly: 0x4300 | (u ^ 8) is the bf16
@@ -90,33 +116,85 @@ __device__ __forceinline__ uint32_t nibbles_bf16(uint32_t w) {
   return r;
 }
 
-// bf16 activations: wgmma k16, f32 accumulation.
+// bf16 activations: wgmma k16, f32 accumulation, x boxes of 64 k in the
+// 128-byte swizzle.
 struct XBf16 {
   using Acc = float;
+  static constexpr bool kA8 = false;
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
   static constexpr int kItem = 2;                    // bytes per x element
-  static constexpr int kStepK = 16;                  // packed rows per wgmma k step
-  // The A fragments of one k step from its two words P (P[e]: q rows 2t
-  // and 2t + 1 of the step, + 8 e, at columns col and col + 1: [q[k][col],
-  // q[k][col + 1], q[k + 1][col], q[k + 1][col + 1]]): lo against the low x
-  // box, hi against the high one. a0 = M-row g (column col), k 2t and
+  static constexpr int kXRow = 128;                  // bytes per x box row
+  static constexpr int kStepRows = 16;               // packed rows per wgmma k step
+  __device__ __forceinline__ static uint64_t desc(const void* tile) { return desc_k128(tile); }
+  __device__ __forceinline__ static int swz_x(int row, int byte) { return swz(row, byte); }
+  // The q row (of an ldmatrix's 32) whose 16-byte chunk lane `lane` addresses.
+  __device__ __forceinline__ static int ldm_row(int lane) { return lane; }
+  // The A fragments of B k steps from B / 2 ldmatrix results: register
+  // 2 (j % 2) + e of result j / 2 is P[e] of step j (q rows 2t and 2t + 1
+  // of the step, + 8e, at columns col and col + 1: [q[k][col],
+  // q[k][col + 1], q[k + 1][col], q[k + 1][col + 1]]). a[j][0] feeds the
+  // low x box, a[j][1] the high one: a0 = M-row g (column col), k 2t and
   // 2t + 1; a1 = M-row g + 8 (col + 1); a2, a3 the same at k + 8.
-  __device__ __forceinline__ static void fragments(const uint32_t (&P)[2], uint32_t (&lo)[4],
-                                                   uint32_t (&hi)[4]) {
+  template <int B>
+  __device__ __forceinline__ static void fragments(const uint32_t (&r)[B / 2][4], int,
+                                                   uint32_t (&a)[B][2][4]) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const uint32_t w = P[e];
-      lo[2 * e] = nibbles_bf16(w);
-      hi[2 * e] = nibbles_bf16(w >> 4);
-      lo[2 * e + 1] = nibbles_bf16(w >> 8);
-      hi[2 * e + 1] = nibbles_bf16(w >> 12);
+    for (int j = 0; j < B; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t w = r[j / 2][2 * (j % 2) + e];
+        a[j][0][2 * e] = nibbles_bf16(w);
+        a[j][1][2 * e] = nibbles_bf16(w >> 4);
+        a[j][0][2 * e + 1] = nibbles_bf16(w >> 8);
+        a[j][1][2 * e + 1] = nibbles_bf16(w >> 12);
+      }
+  }
+};
+
+// int8 activations (w4a8): wgmma k32 s8 x s8, s32 accumulation of 16 acc,
+// x8 boxes of 64 k in the 64-byte swizzle.
+struct XS8 {
+  using Acc = int;
+  static constexpr bool kA8 = true;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+  static constexpr int kItem = 1;
+  static constexpr int kXRow = 64;
+  static constexpr int kStepRows = 32;
+  __device__ __forceinline__ static uint64_t desc(const void* tile) { return desc_k64(tile); }
+  __device__ __forceinline__ static int swz_x(int row, int byte) { return swz64(row, byte); }
+  // Matrix m = lane / 8, its row i = lane % 8 = 2t' + s (see the file note).
+  __device__ __forceinline__ static int ldm_row(int lane) {
+    const int m = lane / 8, tt = (lane % 8) / 2, s = lane % 2;
+    return 16 * (m / 2) + 4 * tt + 2 * ((tt >> 1) ^ (m & 1)) + s;
+  }
+  // The A fragments of B k steps, one ldmatrix result each: registers 0, 1
+  // hold q rows 4t .. 4t + 3 of the step (0 = rows 4t, 4t + 1 for t < 2, 4t
+  // + 2, 4t + 3 for t >= 2), registers 2, 3 the same 16 rows further. a0 =
+  // M-row g (column col), k 4t .. 4t + 3; a1 = M-row g + 8 (col + 1); a2, a3
+  // at k + 16. a[j][0]: 16 x the low nibbles, a[j][1]: 16 x the high ones.
+  template <int B>
+  __device__ __forceinline__ static void fragments(const uint32_t (&r)[B][4], int t,
+                                                   uint32_t (&a)[B][2][4]) {
+    const uint32_t s0 = t < 2 ? 0x6420u : 0x2064u;   // column col: bytes 0 and 2 of each
+    const uint32_t s1 = t < 2 ? 0x7531u : 0x3175u;   // column col + 1: bytes 1 and 3
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const uint32_t w[4] = {__byte_perm(r[j][0], r[j][1], s0), __byte_perm(r[j][0], r[j][1], s1),
+                             __byte_perm(r[j][2], r[j][3], s0), __byte_perm(r[j][2], r[j][3], s1)};
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        a[j][0][l] = (w[l] << 4) & 0xF0F0F0F0u;
+        a[j][1][l] = w[l] & 0xF0F0F0F0u;
+      }
     }
   }
 };
 
 template <class X, int RT>
 struct Cfg {
-  static constexpr int kBoxBytes = RT * kRowBytes;   // one x box: RT rows of 128 bytes
+  static constexpr int kBoxBytes = RT * X::kXRow;    // one x box: RT rows of 64 k
   static constexpr int kXBytes = 2 * kBoxBytes;      // the low-half and the high-half box
   static constexpr int kQBytes = kKp * kRowBytes;    // q tile: kKp rows of kBM bytes
   static constexpr int kStageBytes = kXBytes + kQBytes;
@@ -124,18 +202,21 @@ struct Cfg {
   static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
   static constexpr int kChunkN = RT < 64 ? RT : 64;  // wgmma N of one instruction
   static constexpr int kChunks = RT / kChunkN;
-  static constexpr int kSteps = kKp / X::kStepK;     // k steps per stage
-  static constexpr int kBatch = RT >= 256 ? 2 : kSteps;   // k steps whose fragments are built together
+  static constexpr int kSteps = kKp / X::kStepRows;  // k steps per stage
+  // k steps whose fragments are built together
+  static constexpr int kBatch = !X::kA8 && RT >= 256 ? 2 : kSteps;
   static constexpr int kBatches = kSteps / kBatch;   // batches per stage
-  static_assert(kRowBytes / X::kItem == kKp, "an x box row holds the stage's k");
+  static constexpr int kLdsm = kBatch * X::kStepRows / kLdsmRows;   // ldmatrix.x4 per batch
+  static_assert(X::kXRow / X::kItem == kKp, "an x box row holds the stage's k");
   static_assert(kStages >= 3, "two stages in flight while one is read");
   static_assert(RT * kTileStride * 4 <= kStages * kStageBytes,
                 "the output tile reuses the stages");
 };
 
 struct Params {
-  const void* x;         // [R, K]
+  const void* x;         // [R, K] bf16 or x8 int8
   const int8_t* q;       // [K/2, N], or the panels [ceil(N / 128), K/2, 128]
+  const float* sx;       // [R] (x8)
   const float* scale;    // [N]
   void* out;             // [R, N] f32 or bf16
   int R, K, N;
@@ -146,13 +227,13 @@ struct Params {
 };
 
 // The producer warp's copy of one stage where TMA cannot address the
-// tensors: the same bytes in the same swizzled layout, zero outside them
+// tensors: the same bytes in the same swizzled layouts, zero outside them
 // (here the low box stops at K/2 too).
 template <class X, int RT>
 __device__ void copy_stage(uint8_t* xs, uint8_t* qs, const Params& p, int kp, int r0, int n0,
                            int lane) {
   using C = Cfg<X, RT>;
-  constexpr int kWords = kRowBytes / 4, kPer = 4 / X::kItem;
+  constexpr int kWords = X::kXRow / 4, kPer = 4 / X::kItem;
   const int Kq = p.K / 2;
   for (int i = lane; i < 2 * RT * kWords; i += 32) {
     const int half = i / (RT * kWords), j = i % (RT * kWords);
@@ -169,11 +250,12 @@ __device__ void copy_stage(uint8_t* xs, uint8_t* qs, const Params& p, int kp, in
           v |= w << (8 * X::kItem * e);
         }
     }
-    *reinterpret_cast<uint32_t*>(xs + half * C::kBoxBytes + swz(r, b)) = v;
+    *reinterpret_cast<uint32_t*>(xs + half * C::kBoxBytes + X::swz_x(r, b)) = v;
   }
   const int ncols = p.tiled ? kBM : p.N - n0;
-  for (int i = lane; i < kKp * kWords; i += 32) {
-    const int kr = i / kWords, b = (i % kWords) * 4, k = kp + kr;
+  constexpr int kQWords = kRowBytes / 4;
+  for (int i = lane; i < kKp * kQWords; i += 32) {
+    const int kr = i / kQWords, b = (i % kQWords) * 4, k = kp + kr;
     uint32_t v = 0;
     if (k < Kq) {
       const int8_t* src = p.tiled ? p.q + (static_cast<int64_t>(blockIdx.y) * Kq + k) * kBM
@@ -219,18 +301,35 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     // Producer warpgroup: warp 0 keeps the ring full (TMA: lane 0 alone;
     // copies: the whole warp), then joins the epilogue's cluster barriers.
     setmaxnreg_dec<kProducerRegs>();
-    for (int s = 0; warp == 0 && s < nst && (lane == 0 || !p.tma); ++s) {
+    const bool loader = warp == 0 && (lane == 0 || !p.tma);
+    auto load_q = [&](uint8_t* qs, uint64_t* bar, int kp) {
+      if (p.tiled) tma_load_3d(qs, &qmap, bar, 0, kp, blockIdx.y);
+      else tma_load_2d(qs, &qmap, bar, n0, kp);
+    };
+    int pre = 0;   // stages whose weight box went out before the wait (x8)
+    if constexpr (X::kA8) {
+      if (loader) {
+        if (p.tma) {
+          pre = min(nst, kPdlStages);
+          for (int s = 0; s < pre; ++s) {
+            mbar_arrive_expect_tx(&full[s], C::kStageBytes);
+            load_q(smem + s * C::kStageBytes + C::kXBytes, &full[s], (s_begin + s) * kKp);
+          }
+        }
+        grid_dep_wait();   // x8 and sx are the quantizer's output
+      }
+    }
+    for (int s = 0; loader && s < nst; ++s) {
       const int slot = s % C::kStages;
       if (s >= C::kStages) mbar_wait(&empty[slot], ((s / C::kStages) & 1) ^ 1);
       uint8_t* xs = smem + slot * C::kStageBytes;
       uint8_t* qs = xs + C::kXBytes;
       const int kp = (s_begin + s) * kKp;
       if (p.tma) {
-        mbar_arrive_expect_tx(&full[slot], C::kStageBytes);
+        if (s >= pre) mbar_arrive_expect_tx(&full[slot], C::kStageBytes);
         tma_load_2d(xs, &xmap, &full[slot], kp, r0);
         tma_load_2d(xs + C::kBoxBytes, &xmap, &full[slot], p.K / 2 + kp, r0);
-        if (p.tiled) tma_load_3d(qs, &qmap, &full[slot], 0, kp, blockIdx.y);
-        else tma_load_2d(qs, &qmap, &full[slot], n0, kp);
+        if (s >= pre) load_q(qs, &full[slot], kp);
       } else {
         copy_stage<X, RT>(xs, qs, p, kp, r0, n0, lane);
         fence_proxy_async();   // x is read by wgmma, through the async proxy
@@ -246,14 +345,14 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 
   setmaxnreg_inc<kConsumerRegs>();
   const float4 sc = epilogue_scale(p.scale, n0, p.N);
+  if constexpr (X::kA8) grid_dep_wait();   // sx is read in the epilogue
   const int wg = warp / 4 - 1, g = lane / 4, t = lane % 4;
   const int col = 64 * wg + 16 * (warp % 4) + 2 * g;   // the lane's columns col, col + 1
-  // ldmatrix.x4.trans: lanes 8m .. 8m + 7 give the row addresses of matrix
-  // m, rows k0 + 8m + lane % 8 of the 16 bytes of the warp's 16 columns
-  // (8 column pairs); lane (g, t) then holds, of matrix m, rows 2t and 2t + 1
-  // of column pair g: the word P of q rows k0 + 8m + 2t, + 1 at col, col + 1.
-  // k0 is a multiple of 8 and the swizzle depends only on row % 8.
-  const int ldm_off = swz(lane % 8, col - 2 * g) + (lane / 8) * 8 * kRowBytes;
+  // ldmatrix.x4.trans: lane l gives the address of q row X::ldm_row(l) of
+  // the 32, at the 16 bytes of the warp's 16 columns (8 column pairs). The
+  // 32 rows start at a multiple of 8 and the swizzle depends only on
+  // row % 8.
+  const int ldm_off = swz(X::ldm_row(lane), col - 2 * g);
   typename X::Acc acc[C::kChunks][C::kChunkN / 2];
 #pragma unroll
   for (int j = 0; j < C::kChunks; ++j)
@@ -270,20 +369,14 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     const int slot = s % C::kStages;
     if (ks0 == 0) mbar_wait(&full[slot], (s / C::kStages) & 1);
     const uint8_t* xs = smem + slot * C::kStageBytes;
-    const uint8_t* qs = xs + C::kXBytes + ks0 * X::kStepK * kRowBytes;
-    uint32_t P[C::kBatch][2];   // step j: matrices 2j, 2j + 1 (rows 16 j, 16 j + 8)
+    const uint8_t* qs = xs + C::kXBytes + ks0 * X::kStepRows * kRowBytes;
+    uint32_t r[C::kLdsm][4];
 #pragma unroll
-    for (int j = 0; j < C::kBatch; j += 2) {
-      uint32_t r[4];
-      ldsm_x4_trans(r, qs + ldm_off + j * X::kStepK * kRowBytes);
-      P[j][0] = r[0];
-      P[j][1] = r[1];
-      P[j + 1][0] = r[2];
-      P[j + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int j = 0; j < C::kBatch; ++j) X::fragments(P[j], a[j][0], a[j][1]);
-    uint64_t d[2] = {desc_k128(xs) + 2 * ks0, desc_k128(xs + C::kBoxBytes) + 2 * ks0};
+    for (int l = 0; l < C::kLdsm; ++l)
+      ldsm_x4_trans(r[l], qs + ldm_off + l * kLdsmRows * kRowBytes);
+    X::template fragments<C::kBatch>(r, t, a);
+    // k step j of the batch: 32 bytes of each x row further (16 bf16, 32 x8)
+    uint64_t d[2] = {X::desc(xs) + 2 * ks0, X::desc(xs + C::kBoxBytes) + 2 * ks0};
     fence_reg(d[0]);
     fence_reg(d[1]);
 #pragma unroll
@@ -296,8 +389,8 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int c = 0; c < C::kChunks; ++c)   // x rows [64c, 64c + 64): 8 KB further
-          wgmma_rs(acc[c], a[j][hh], d[hh] + 2 * j + ((c * 64 * kRowBytes) >> 4));
+        for (int c = 0; c < C::kChunks; ++c)   // x rows [64c, 64c + 64)
+          wgmma_rs(acc[c], a[j][hh], d[hh] + 2 * j + ((c * 64 * X::kXRow) >> 4));
       wgmma_commit();
     }
     wgmma_wait<C::kBatch>();
@@ -320,10 +413,14 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 #pragma unroll
   for (int j = 0; j < C::kChunks; ++j)
 #pragma unroll
-    for (int i = 0; i < C::kChunkN / 2; ++i) fence_reg(acc[j][i]);
+    for (int i = 0; i < C::kChunkN / 2; ++i) {
+      fence_reg(acc[j][i]);
+      if constexpr (X::kA8) acc[j][i] >>= 4;   // the products were 16 x the nibbles
+    }
 
   cluster_epilogue<RT, C::kChunks, C::kChunkN>(cluster, acc, live, smem, col, t, r0, n0, p.R,
-                                                p.N, sc, nullptr, p.out, p.out_bf16);
+                                                p.N, sc, X::kA8 ? p.sx : nullptr, p.out,
+                                                p.out_bf16);
 }
 
 // ---------------------------------------------------------------------------
@@ -343,7 +440,7 @@ cudaError_t set_smem() {
 }
 
 template <class X, int RT>
-cudaError_t launch(const Params& p, int splits, cudaStream_t st) {
+cudaError_t launch(const Params& p, int splits, bool pdl, cudaStream_t st) {
   using C = Cfg<X, RT>;
   cudaError_t err = set_smem<X, RT>();
   if (err != cudaSuccess) return err;
@@ -353,7 +450,8 @@ cudaError_t launch(const Params& p, int splits, cudaStream_t st) {
   if (p.tma) {
     const uint64_t Kq = p.K / 2;
     bool ok = encode_2d(&xmap, X::kMapType, p.x, p.K, p.R,
-                        static_cast<uint64_t>(p.K) * X::kItem, kRowBytes / X::kItem, RT);
+                        static_cast<uint64_t>(p.K) * X::kItem, X::kXRow / X::kItem, RT,
+                        X::kSwizzle);
     if (p.tiled) {
       const cuuint64_t dims[3] = {kBM, Kq, static_cast<cuuint64_t>((p.N + kBM - 1) / kBM)};
       const cuuint64_t strides[2] = {kBM, Kq * kBM};
@@ -364,8 +462,9 @@ cudaError_t launch(const Params& p, int splits, cudaStream_t st) {
     }
     if (!ok) return cudaErrorInvalidValue;
   }
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr);
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg =
+      launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr, X::kA8 && pdl);
   return cudaLaunchKernelEx(&cfg, qmm4_sm90<X, RT>, xmap, qmap, p);
 }
 
@@ -377,14 +476,14 @@ int clusters(int splits) {
 }
 
 template <class X>
-int dispatch(const Params& p, int splits, cudaStream_t st) {
-  switch (row_tile(p.R)) {
-    case 8: return launch<X, 8>(p, splits, st);
-    case 16: return launch<X, 16>(p, splits, st);
-    case 32: return launch<X, 32>(p, splits, st);
-    case 64: return launch<X, 64>(p, splits, st);
-    case 128: return launch<X, 128>(p, splits, st);
-    default: return launch<X, 256>(p, splits, st);
+int dispatch(const Params& p, int rt, int splits, bool pdl, cudaStream_t st) {
+  switch (rt) {
+    case 8: return launch<X, 8>(p, splits, pdl, st);
+    case 16: return launch<X, 16>(p, splits, pdl, st);
+    case 32: return launch<X, 32>(p, splits, pdl, st);
+    case 64: return launch<X, 64>(p, splits, pdl, st);
+    case 128: return launch<X, 128>(p, splits, pdl, st);
+    default: return launch<X, 256>(p, splits, pdl, st);
   }
 }
 
@@ -404,19 +503,25 @@ int dispatch_clusters(int rt, int splits) {
 
 extern "C" {
 
-// x bfloat16 [R, K] (K even), q int8 packed [K/2, N] (tiled = 0) or panels
-// [ceil(N / 128), K/2, 128] (tiled = 1), scale float32 [N], out [R, N]
-// (out_dtype 0 = float32, 1 = bfloat16); K split over a cluster of `splits`
-// (1..4) blocks. x and q 16-byte aligned; the wrapper checks shapes, types
-// and alignment. TMA when the strides allow it (see the file note).
-int sequoia_qmm4_sm90(const void* x, const void* q, const void* scale, void* out, int R, int K,
-                      int N, int tiled, int splits, int out_dtype, void* stream) {
+// x [R, K] (a8 = 0: bfloat16; a8 = 1: int8 x8 with sx [R] float32; K even),
+// q int8 packed [K/2, N] (tiled = 0) or panels [ceil(N / 128), K/2, 128]
+// (tiled = 1, bfloat16 x only), scale float32 [N], out [R, N] (out_dtype 0 =
+// float32, 1 = bfloat16); row tiles of `rt` rows (8, 16, .., 256); K split
+// over a cluster of `splits` (1..4) blocks. x and q 16-byte aligned; the
+// wrapper checks shapes, types and alignment and picks rt and splits. TMA
+// when the strides allow it (see the file note). pdl = 1 (a8 only): a
+// programmatic dependent launch after the kernel that wrote x8 and sx.
+int sequoia_qmm4_sm90(const void* x, const void* q, const void* sx, const void* scale, void* out,
+                      int R, int K, int N, int tiled, int a8, int rt, int splits, int out_dtype,
+                      int pdl, void* stream) {
   if (R <= 0 || K <= 0 || K % 2 || N <= 0 || splits < 1 || splits > kMaxSplit ||
-      out_dtype < 0 || out_dtype > 1)
+      out_dtype < 0 || out_dtype > 1 || (a8 && (sx == nullptr || tiled)) || rt < 8 ||
+      rt > kMaxRT || (rt & (rt - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
   p.q = static_cast<const int8_t*>(q);
+  p.sx = static_cast<const float*>(sx);
   p.scale = static_cast<const float*>(scale);
   p.out = out;
   p.R = R;
@@ -426,16 +531,19 @@ int sequoia_qmm4_sm90(const void* x, const void* q, const void* scale, void* out
   p.stages_per_split = (nk + splits - 1) / splits;
   p.out_bf16 = out_dtype;
   p.tiled = tiled != 0;
-  p.tma = (tiled || N % 16 == 0) && K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  return dispatch<XBf16>(p, splits, static_cast<cudaStream_t>(stream));
+  p.tma = (tiled || N % 16 == 0) && K % (a8 ? 16 : 8) == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return a8 ? dispatch<XS8>(p, rt, splits, pdl != 0, st)
+            : dispatch<XBf16>(p, rt, splits, false, st);
 }
 
-// Clusters of `splits` blocks of the kernel for row tile `rt` that the card
-// holds at once (cudaOccupancyMaxActiveClusters); negative on error.
-int sequoia_qmm4_sm90_max_clusters(int rt, int splits) {
+// Clusters of `splits` blocks of the kernel for row tile `rt` (a8 = 1: the
+// x8 instantiation) that the card holds at once
+// (cudaOccupancyMaxActiveClusters); negative on error.
+int sequoia_qmm4_sm90_max_clusters(int a8, int rt, int splits) {
   if (splits < 1 || splits > kMaxSplit) return -1;
-  return dispatch_clusters<XBf16>(rt, splits);
+  return a8 ? dispatch_clusters<XS8>(rt, splits) : dispatch_clusters<XBf16>(rt, splits);
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@
 //   w8a8: out = float(x8[R, K] @ q[K, N]) * sx[r] * scale[n], in that order,
 //     the int8 product exact in int32 (the w8a8 route of
 //     sequoia_tpu/quant/qtensor.py::_matmul_w8a8, an XLA int8 dot there; x8
-//     and sx come from the activation quantizer of quant_matmul_a8.cu).
+//     and sx come from the activation quantizer of quant_matmul_a8.cu,
+//     the kernel launched right before this one).
 // q keeps JAX's [K, N] layout; nothing is re-laid out at load time.
 //
 // Bound on the H100: the weight stream. At (K, N) = (4096, 11008) the int8
@@ -60,6 +61,13 @@
 // - Capturable in a CUDA graph: the tensor maps are encoded on the host per
 //   call and passed by value (__grid_constant__), the shared-memory
 //   attribute is set once per instantiation, nothing synchronizes.
+// - w8a8 only: a programmatic dependent launch after the quantizer (which
+//   triggers its dependents as it starts). The producer sets up the
+//   barriers, prefetches the tensor maps and issues the weight boxes of the
+//   first kPdlStages ring stages while the quantizer still runs; then it,
+//   and each consumer before it reads sx, waits for the quantizer's grid
+//   (grid_dep_wait) before the first x8 box. The weight-only instantiation
+//   launches and loads as before.
 
 #include "qmm_sm90.cuh"
 
@@ -217,16 +225,31 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     // copies: the whole warp). It gives most of its registers to the
     // consumers and joins only the epilogue's two cluster barriers.
     setmaxnreg_dec<kProducerRegs>();
-    for (int s = 0; warp == 0 && s < nst && (lane == 0 || !p.tma); ++s) {
+    const bool loader = warp == 0 && (lane == 0 || !p.tma);
+    int pre = 0;   // stages whose weight box went out before the wait (w8a8)
+    if constexpr (A8) {
+      if (loader) {
+        if (p.tma) {
+          pre = min(nst, kPdlStages);
+          for (int s = 0; s < pre; ++s) {
+            uint8_t* qs = smem + s * C::kStageBytes + C::kXBytes;
+            mbar_arrive_expect_tx(&full[s], C::kStageBytes);
+            tma_load_2d(qs, &qmap, &full[s], n0, (s_begin + s) * C::kKB);
+          }
+        }
+        grid_dep_wait();   // x8 and sx are the quantizer's output
+      }
+    }
+    for (int s = 0; loader && s < nst; ++s) {
       const int slot = s % C::kStages;
       if (s >= C::kStages) mbar_wait(&empty[slot], ((s / C::kStages) & 1) ^ 1);
       uint8_t* xs = smem + slot * C::kStageBytes;
       uint8_t* qs = xs + C::kXBytes;
       const int k0 = (s_begin + s) * C::kKB;
       if (p.tma) {
-        mbar_arrive_expect_tx(&full[slot], C::kStageBytes);
+        if (s >= pre) mbar_arrive_expect_tx(&full[slot], C::kStageBytes);
         tma_load_2d(xs, &xmap, &full[slot], k0, r0);
-        tma_load_2d(qs, &qmap, &full[slot], n0, k0);
+        if (s >= pre) tma_load_2d(qs, &qmap, &full[slot], n0, k0);
       } else {
         copy_stage<A8, RT>(xs, qs, p, k0, r0, n0, lane);
         fence_proxy_async();   // x is read by wgmma, through the async proxy
@@ -242,6 +265,7 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 
   setmaxnreg_inc<kConsumerRegs>();
   const float4 sc = epilogue_scale(p.scale, n0, p.N);
+  if constexpr (A8) grid_dep_wait();   // sx is read in the epilogue
   const int wg = warp / 4 - 1, g = lane / 4, t = lane % 4;
   const int col = 64 * wg + 16 * (warp % 4) + 2 * g;   // the lane's columns col, col + 1
   const AOffsets<A8> offs(col, t);
@@ -327,7 +351,7 @@ cudaError_t set_smem() {
 }
 
 template <bool A8, int RT>
-cudaError_t launch(const Params& p, int splits, cudaStream_t st) {
+cudaError_t launch(const Params& p, int splits, bool pdl, cudaStream_t st) {
   using C = Cfg<A8, RT>;
   cudaError_t err = set_smem<A8, RT>();
   if (err != cudaSuccess) return err;
@@ -341,8 +365,9 @@ cudaError_t launch(const Params& p, int splits, cudaStream_t st) {
         encode_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, kBM, C::kKB);
     if (!ok) return cudaErrorInvalidValue;
   }
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr);
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg =
+      launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr, A8 && pdl);
   return cudaLaunchKernelEx(&cfg, qmm8_sm90<A8, RT>, xmap, qmap, p);
 }
 
@@ -354,14 +379,14 @@ int clusters(int splits) {
 }
 
 template <bool A8>
-int dispatch(const Params& p, int splits, cudaStream_t st) {
+int dispatch(const Params& p, int splits, bool pdl, cudaStream_t st) {
   switch (row_tile(p.R)) {
-    case 8: return launch<A8, 8>(p, splits, st);
-    case 16: return launch<A8, 16>(p, splits, st);
-    case 32: return launch<A8, 32>(p, splits, st);
-    case 64: return launch<A8, 64>(p, splits, st);
-    case 128: return launch<A8, 128>(p, splits, st);
-    default: return launch<A8, 256>(p, splits, st);
+    case 8: return launch<A8, 8>(p, splits, pdl, st);
+    case 16: return launch<A8, 16>(p, splits, pdl, st);
+    case 32: return launch<A8, 32>(p, splits, pdl, st);
+    case 64: return launch<A8, 64>(p, splits, pdl, st);
+    case 128: return launch<A8, 128>(p, splits, pdl, st);
+    default: return launch<A8, 256>(p, splits, pdl, st);
   }
 }
 
@@ -385,9 +410,11 @@ extern "C" {
 // [K, N], scale float32 [N], out [R, N] (out_dtype 0 = float32,
 // 1 = bfloat16); K split over a cluster of `splits` (1..4) blocks. x and q
 // 16-byte aligned; the wrapper checks shapes, types and alignment. TMA when
-// the strides allow it (see the file note).
+// the strides allow it (see the file note). pdl = 1 (a8 only): a
+// programmatic dependent launch after the kernel that wrote x8 and sx.
 int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* scale, void* out,
-                      int R, int K, int N, int a8, int splits, int out_dtype, void* stream) {
+                      int R, int K, int N, int a8, int splits, int out_dtype, int pdl,
+                      void* stream) {
   if (R <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > kMaxSplit || out_dtype < 0 ||
       out_dtype > 1 || (a8 && sx == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -407,7 +434,7 @@ int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* 
   p.tma = N % 16 == 0 && K % (a8 ? 16 : 8) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(q) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a8 ? dispatch<true>(p, splits, st) : dispatch<false>(p, splits, st);
+  return a8 ? dispatch<true>(p, splits, pdl != 0, st) : dispatch<false>(p, splits, false, st);
 }
 
 // Clusters of `splits` blocks of the kernel for row tile `rt` that the card

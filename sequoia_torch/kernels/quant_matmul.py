@@ -15,7 +15,7 @@ Port of `sequoia_tpu/kernels/quant_matmul.py`:
   `quant/qtensor.py`'s w8a8 mode needs at every row count. The int32 sum
   runs over the whole K. (JAX casts each K block's int32 partial to f32 and
   adds in f32, which equals one int32 sum while the total stays under 2^24:
-  at int4 for K <= 18000, since 127 * 7 * K < 2^24.)
+  at int4 for K <= 16512, since 127 * 8 * K < 2^24.)
 - `quant_matmul_tiled` (`_kernel_int4_tiled`): the int4 product over the
   N-panel layout `q [nt, K/2, bn0]` of `quant/qtensor.py::tile_int4`; the
   logical N is `scale.shape[-1]`.
@@ -30,23 +30,26 @@ Layouts, as in JAX:
 
 On a CUDA tensor each function launches its kernel (or raises); on a CPU
 tensor it runs its plain version. The kernels:
-- bf16 x: wgmma + TMA, the weight streamed once for R <= 256, K split
-  inside a thread-block cluster (`split_cluster`): int8 weights
+- bf16 x and x8: wgmma + TMA, the weight streamed once for R <= 256, K
+  split inside a thread-block cluster (`split_cluster`): int8 weights
   (`quant_matmul_int8_wgmma`) and w8a8 (`quant_matmul_w8a8_wgmma`) on
-  `csrc/quant_matmul_int8_sm90.cu`, int4 (`quant_matmul_int4_wgmma`) and
-  tiled int4 (`quant_matmul_tiled_wgmma`) on `csrc/quant_matmul_int4_sm90.cu`;
-  `quant_matmul_int8_sm90_model` and `quant_matmul_int4_sm90_model` are CPU
-  models of their decompositions, on no path;
+  `csrc/quant_matmul_int8_sm90.cu`; int4 (`quant_matmul_int4_wgmma`), tiled
+  int4 (`quant_matmul_tiled_wgmma`) and w4a8 (`quant_matmul_w4a8`, the x8
+  instantiation) on `csrc/quant_matmul_int4_sm90.cu`.
+  `quant_matmul_int8_sm90_model`, `quant_matmul_int4_sm90_model` and
+  `quant_matmul_w4a8_sm90_model` are CPU models of their decompositions, on
+  no path;
+- the activation quantizer of w4a8 and w8a8 (`quantize_activations`):
+  `csrc/quant_matmul_a8.cu`; the matmul after it is a programmatic
+  dependent launch, whose set-up overlaps the quantizer;
 - f32 x (the f32 test models), every weight format: the CUDA cores in full
   f32, `csrc/quant_matmul.cu` (counters `quant_matmul_int8`,
-  `quant_matmul_int4`, `quant_matmul_tiled`);
-- w4a8 and the activation quantizer: `csrc/quant_matmul_a8.cu`.
+  `quant_matmul_int4`, `quant_matmul_tiled`).
 What differs from the TPU versions: no block-size arguments (Pallas's VMEM
 budget has no meaning here); no padding of q, x or scale (the kernels mask
-ragged edges); the K axis is split across the blocks of a cluster (or, for
-w4a8, across blocks with partials summed by a second small kernel) where
-the output tiles alone would leave the card's SMs idle; the tiled kernels
-take `bn0 == 128` only (the plain version any `bn0`).
+ragged edges); the K axis is split across the blocks of a cluster where the
+output tiles alone would leave the card's SMs idle; the tiled kernels take
+`bn0 == 128` only (the plain version any `bn0`).
 """
 
 from __future__ import annotations
@@ -61,15 +64,13 @@ from . import build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _F32_NAME = {8: "quant_matmul_int8", 4: "quant_matmul_int4"}
 UNPACK = ("auto", "shift", "float", "w4a8")
-# Kernel geometry, as in csrc/quant_matmul_a8.cu (w4a8) ...
-_BN = 128                   # output columns per block; the tiled kernels' bn0
-_STAGE_A8 = 64              # q rows per K stage
-_TARGET_BLOCKS = 264        # two blocks for each of the H100's 132 SMs
-# ... and in csrc/quant_matmul_int8_sm90.cu, csrc/quant_matmul_int4_sm90.cu.
+_BN = 128                   # the tiled kernels' bn0
+# Kernel geometry, as in csrc/quant_matmul_int8_sm90.cu and
+# csrc/quant_matmul_int4_sm90.cu.
 SM90_BM = 128               # output columns per block (two warpgroups of 64)
 # Logical k per stage: 128 bytes of a bf16 x row (int8), of an x8 row
-# (w8a8), or 64 packed q rows (int4: their low and high nibbles).
-SM90_KB = {"int8": 64, "w8a8": 128, "int4": 128}
+# (w8a8), or 64 packed q rows (int4 and w4a8: their low and high nibbles).
+SM90_KB = {"int8": 64, "w8a8": 128, "int4": 128, "w4a8": 128}
 SM90_MAX_RT = 256           # rows per block (wgmma's largest N)
 SM90_MAX_SPLIT = 4          # blocks per cluster, each a slice of K
 
@@ -99,6 +100,21 @@ def quantize_activations_plain(x: torch.Tensor):
     sx = amax.clamp_min(1e-8) / torch.full((), 127.0, device=x.device)
     x8 = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
     return x8, sx
+
+
+QUANT_MAX_VECS, QUANT_MAX_THREADS = 4, 512
+
+
+def quantizer_block(K: int, itemsize: int, aligned: bool = True) -> tuple:
+    """`(elements per load, threads per block)` of the activation quantizer
+    for rows of K elements of `itemsize` bytes, as `csrc/quant_matmul_a8.cu`
+    picks them: 16-byte vectors where K and the pointers allow
+    (`aligned`), else single elements; one thread per load, whole warps,
+    at most 512 threads. One block per row."""
+    e = 16 // itemsize
+    if K % e or not aligned:
+        e = 1
+    return e, min(QUANT_MAX_THREADS, -(-(K // e) // 32) * 32)
 
 
 def _int_dot(x8: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -139,23 +155,6 @@ def quant_matmul_tiled_plain(x, q, scale, *, out_dtype=None):
                               out_dtype=out_dtype)
 
 
-@functools.lru_cache(maxsize=1024)
-def split_k(R: int, K: int, N: int, bits: int, stage: int) -> tuple:
-    """`(splits, q rows per split)` for the block-split kernel of w4a8
-    (`csrc/quant_matmul_a8.cu`): enough blocks to fill the card, but the
-    4-byte partials stay within half the weight's bytes, and every split
-    holds whole K stages of `stage` q rows."""
-    mt = 1 if R <= 16 else 2 if R <= 32 else 4          # 16-row MMA tiles per block
-    tiles = math.ceil(R / (16 * mt)) * math.ceil(N / _BN)
-    Kq = K if bits == 8 else K // 2
-    stages = math.ceil(Kq / stage)
-    want = math.ceil(_TARGET_BLOCKS / tiles)
-    cap = max(1, Kq // (8 * R))
-    splits = max(1, min(want, cap, stages))
-    per = math.ceil(stages / splits)
-    return math.ceil(stages / per), per * stage
-
-
 def row_tile(R: int) -> int:
     """Rows per block of the wgmma kernel (its wgmma N): the least of 8,
     16, .., 256 that holds R; 256 (and R / 256 row tiles) above."""
@@ -165,15 +164,16 @@ def row_tile(R: int) -> int:
     return rt
 
 
-def split_cluster(R: int, K: int, N: int, kb: int, max_clusters) -> int:
+def split_cluster(R: int, K: int, N: int, kb: int, max_clusters, rt: int = SM90_MAX_RT) -> int:
     """Cluster size (1..4) of a wgmma kernel whose stages hold `kb` logical
-    k (`SM90_KB`): the blocks of a cluster share one 128-column tile and
-    split its K stages. `max_clusters(c)` is how many clusters of c blocks
-    the card holds at once (cudaOccupancyMaxActiveClusters). The largest c
-    whose clusters all fit in one wave, keeping >= 4 stages per block; 1
-    when even single blocks take more than one wave (on the H100 a second
-    wave of clusters ran slower than one wave of whole tiles; PERF.md §6)."""
-    tiles = math.ceil(N / SM90_BM) * math.ceil(R / SM90_MAX_RT)
+    k (`SM90_KB`): the blocks of a cluster share one 128-column tile of `rt`
+    rows and split its K stages. `max_clusters(c)` is how many clusters of c
+    blocks the card holds at once (cudaOccupancyMaxActiveClusters). The
+    largest c whose clusters all fit in one wave, keeping >= 4 stages per
+    block; 1 when even single blocks take more than one wave (on the H100 a
+    second wave of clusters ran slower than one wave of whole tiles;
+    PERF.md §6)."""
+    tiles = math.ceil(N / SM90_BM) * math.ceil(R / rt)
     stages = math.ceil(K / kb)
     best = 1
     for c in range(2, SM90_MAX_SPLIT + 1):
@@ -182,6 +182,25 @@ def split_cluster(R: int, K: int, N: int, kb: int, max_clusters) -> int:
         if tiles <= max_clusters(c):
             best = c
     return best
+
+
+def sm90_tiling(R: int, K: int, N: int, kind: str, max_clusters) -> tuple:
+    """`(row tile, cluster size)` of wgmma kernel `kind` (`SM90_KB`);
+    `max_clusters(rt, c)` as in `split_cluster`, for blocks of `rt` rows.
+    The row tile is `row_tile(R)`, except that w4a8 above 128 rows takes
+    128-row tiles where their clusters fit one wave and occupy more blocks
+    (at N = 4096 and R = 256: 64 tiles in clusters of 2 on 128 SMs, against
+    32 in clusters of 3); csrc/quant_matmul_int4_sm90.cu, file note."""
+    kb = SM90_KB[kind]
+    rt = row_tile(R)
+    c = split_cluster(R, K, N, kb, functools.partial(max_clusters, rt), rt)
+    if kind == "w4a8" and rt > 128:
+        c2 = split_cluster(R, K, N, kb, functools.partial(max_clusters, 128), 128)
+        cols = math.ceil(N / SM90_BM)
+        tiles2 = cols * math.ceil(R / 128)
+        if tiles2 <= max_clusters(128, c2) and tiles2 * c2 > cols * math.ceil(R / rt) * c:
+            return 128, c2
+    return rt, c
 
 
 def quant_matmul_int8_sm90_model(x, q, scale, *, sx=None, splits: int = 1, out_dtype=None):
@@ -242,6 +261,50 @@ def quant_matmul_int4_sm90_model(x, q, scale, *, splits: int = 1, out_dtype=None
     return (total * scale.float().reshape(1, -1)).to(out_dtype or x.dtype)
 
 
+def nibbles_s8(q: torch.Tensor):
+    """The w4a8 kernel's nibble -> s8 step on packed bytes: `(b << 4) & 0xF0`
+    and `b & 0xF0` as signed bytes, i.e. 16 x the low and 16 x the high
+    nibble, each sign-extended (0x8 is -8, so -128)."""
+    b = q.to(torch.int32)
+    lo = ((b << 4) & 0xF0).to(torch.uint8).view(torch.int8)
+    hi = (b & 0xF0).to(torch.uint8).view(torch.int8)
+    return lo, hi
+
+
+def quant_matmul_w4a8_sm90_model(x, q, scale, *, splits: int = 1, out_dtype=None):
+    """CPU model of the w4a8 kernel's decomposition (the x8 instantiation of
+    `csrc/quant_matmul_int4_sm90.cu`), on no path: x quantized per row
+    (`quantize_activations_plain`); the K/2 packed rows cut in stages of 64,
+    dealt to `splits` cluster ranks in contiguous runs of ceil(stages /
+    splits); each rank sums, in int32, its stages' 32-row k steps, each the
+    product of the x8 columns k.. with 16 x the low nibbles (`nibbles_s8`)
+    and of the columns K/2 + k.. with 16 x the high ones; each rank's sum is
+    shifted right by 4; the ranks' partials are added in rank order; then
+    `float(acc) * sx * scale` in that order. Raises where a rank's int32
+    sum would overflow."""
+    N = scale.shape[-1]
+    R, K = x.shape
+    Kq = K // 2
+    x8, sx = quantize_activations_plain(x)
+    lo, hi = (w.long() for w in nibbles_s8(q))
+    x8 = x8.long()
+    kp = SM90_KB["w4a8"] // 2
+    per = math.ceil(math.ceil(Kq / kp) / splits) * kp
+    total = torch.zeros((R, N), dtype=torch.int64)
+    for b in range(splits):
+        acc = torch.zeros((R, N), dtype=torch.int64)
+        for k0 in range(b * per, min(Kq, (b + 1) * per), 32):
+            k1 = min(Kq, k0 + 32)
+            acc += x8[:, k0:k1] @ lo[k0:k1]
+            acc += x8[:, Kq + k0:Kq + k1] @ hi[k0:k1]
+            if acc.abs().max() >= 2 ** 31:
+                raise OverflowError("w4a8: the int32 sum of 16 x the products overflows")
+        assert bool((acc % 16 == 0).all())
+        total += acc >> 4
+    y = total.float() * sx.reshape(-1, 1) * scale.float().reshape(1, -1)
+    return y.to(out_dtype or x.dtype)
+
+
 def _check(x, q, scale, bits, out_dtype, *, tiled=False):
     name = "quant_matmul_tiled" if tiled else "quant_matmul"
     if bits not in (8, 4):
@@ -282,15 +345,6 @@ def _check(x, q, scale, bits, out_dtype, *, tiled=False):
             raise ValueError(f"{name}: {nm} is not 16-byte aligned")
 
 
-def _workspace(splits, R, N, dtype, device):
-    """The partials of w4a8's K splits. Freed on return, which is safe: the
-    caching allocator hands the block only to work queued after this launch
-    on the same stream."""
-    if splits == 1:
-        return None
-    return torch.empty((splits, R, N), dtype=dtype, device=device)
-
-
 def _launch_f32(counter, x, q, scale, bits, out_dtype, *, tiled=False):
     """The CUDA-core kernel: f32 x, any weight format."""
     R, K = x.shape
@@ -308,29 +362,30 @@ def _launch_f32(counter, x, q, scale, bits, out_dtype, *, tiled=False):
 def _max_clusters(kind: str, rt: int, c: int, device: int) -> int:
     with torch.cuda.device(device):
         lib = build.load()
-        if kind == "int4":
-            return lib.sequoia_qmm4_sm90_max_clusters(rt, c)
+        if kind in ("int4", "w4a8"):
+            return lib.sequoia_qmm4_sm90_max_clusters(int(kind == "w4a8"), rt, c)
         return lib.sequoia_qmm8_sm90_max_clusters(int(kind == "w8a8"), rt, c)
 
 
 @functools.lru_cache(maxsize=1024)
-def _sm90_split(R: int, K: int, N: int, kind: str, device: int) -> int:
-    """The cluster size of wgmma kernel `kind` ("int8", "w8a8", "int4")."""
-    rt = row_tile(R)
-    return split_cluster(R, K, N, SM90_KB[kind],
-                         functools.partial(_max_clusters, kind, rt, device=device))
+def _sm90_tiling(R: int, K: int, N: int, kind: str, device: int) -> tuple:
+    """`sm90_tiling` of wgmma kernel `kind` ("int8", "w8a8", "int4", "w4a8")
+    on the card `device`."""
+    return sm90_tiling(R, K, N, kind, functools.partial(_max_clusters, kind, device=device))
 
 
-def _launch_int8_sm90(x, q, scale, out_dtype, sx=None):
-    """The int8 wgmma kernel: bf16 x, or int8 x8 with its row scales `sx`."""
+def _launch_int8_sm90(x, q, scale, out_dtype, sx=None, *, pdl=False):
+    """The int8 wgmma kernel: bf16 x, or int8 x8 with its row scales `sx`;
+    `pdl`: a programmatic dependent launch after the kernel that wrote them
+    (the quantizer, right before it in the stream)."""
     R, K = x.shape
     N = q.shape[1]
     a8 = sx is not None
-    splits = _sm90_split(R, K, N, "w8a8" if a8 else "int8", x.device.index)
+    _, splits = _sm90_tiling(R, K, N, "w8a8" if a8 else "int8", x.device.index)
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     rc = build.load().sequoia_qmm8_sm90(
         x.data_ptr(), q.data_ptr(), sx.data_ptr() if a8 else None, scale.data_ptr(),
-        out.data_ptr(), R, K, N, int(a8), splits, _DTYPE_CODE[out_dtype],
+        out.data_ptr(), R, K, N, int(a8), splits, _DTYPE_CODE[out_dtype], int(a8 and pdl),
         torch.cuda.current_stream(x.device).cuda_stream)
     counter = "quant_matmul_w8a8_wgmma" if a8 else "quant_matmul_int8_wgmma"
     build.check(rc, counter)
@@ -338,16 +393,21 @@ def _launch_int8_sm90(x, q, scale, out_dtype, sx=None):
     return out
 
 
-def _launch_int4_sm90(x, q, scale, out_dtype, *, tiled=False):
-    """The int4 wgmma kernel: bf16 x, packed `[K/2, N]` or panel-tiled q."""
+def _launch_int4_sm90(x, q, scale, out_dtype, *, tiled=False, sx=None, pdl=False):
+    """The int4 wgmma kernel: bf16 x, packed `[K/2, N]` or panel-tiled q;
+    or row-major q with int8 x8 and its row scales `sx` (w4a8); `pdl` as in
+    `_launch_int8_sm90`."""
     R, K = x.shape
     N = scale.shape[-1]
-    splits = _sm90_split(R, K, N, "int4", x.device.index)
+    a8 = sx is not None
+    rt, splits = _sm90_tiling(R, K, N, "w4a8" if a8 else "int4", x.device.index)
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     rc = build.load().sequoia_qmm4_sm90(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, K, N, int(tiled),
-        splits, _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    counter = "quant_matmul_tiled_wgmma" if tiled else "quant_matmul_int4_wgmma"
+        x.data_ptr(), q.data_ptr(), sx.data_ptr() if a8 else None, scale.data_ptr(),
+        out.data_ptr(), R, K, N, int(tiled), int(a8), rt, splits, _DTYPE_CODE[out_dtype],
+        int(a8 and pdl), torch.cuda.current_stream(x.device).cuda_stream)
+    counter = ("quant_matmul_w4a8" if a8 else
+               "quant_matmul_tiled_wgmma" if tiled else "quant_matmul_int4_wgmma")
     build.check(rc, counter)
     build.launches[counter] += 1
     return out
@@ -375,21 +435,10 @@ def quantize_activations(x: torch.Tensor):
 
 
 def _quant_matmul_w4a8(x, q, scale, out_dtype):
-    """Quantize x per row, then the int8 x int4 kernel."""
+    """Quantize x per row, then the x8 instantiation of the int4 kernel."""
     _check(x, q, scale, 4, out_dtype)
     x8, sx = quantize_activations(x)
-    R, K = x.shape
-    N = q.shape[1]
-    out = torch.empty((R, N), dtype=out_dtype, device=x.device)
-    splits, per = split_k(R, K, N, 4, _STAGE_A8)
-    ws = _workspace(splits, R, N, torch.int32, x.device)
-    rc = build.load().sequoia_quant_matmul_a8(
-        x8.data_ptr(), sx.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), R, K, N, 4, splits, per,
-        _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "quant_matmul_w4a8")
-    build.launches["quant_matmul_w4a8"] += 1
-    return out
+    return _launch_int4_sm90(x8, q, scale, out_dtype, sx=sx, pdl=True)
 
 
 def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"):
@@ -426,7 +475,7 @@ def quant_matmul_w8a8(x, q, scale, *, out_dtype=None):
     out_dtype = out_dtype or x.dtype
     _check(x, q, scale, 8, out_dtype)
     x8, sx = quantize_activations(x)
-    return _launch_int8_sm90(x8, q, scale, out_dtype, sx=sx)
+    return _launch_int8_sm90(x8, q, scale, out_dtype, sx=sx, pdl=True)
 
 
 def quant_matmul_tiled(x, q, scale, *, out_dtype=None):

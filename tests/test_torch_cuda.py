@@ -276,7 +276,8 @@ def test_quant_matmul_tiled_kernel_matches_plain(R, K, N, out_dtype, x_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("R,K", [(1, 4096), (64, 11008), (5, 96), (3, 100)])
+@pytest.mark.parametrize("R,K", [(1, 4096), (64, 11008), (256, 11008), (5, 96), (3, 100),
+                                 (2, 70000)])   # the last: the two-pass loop
 def test_quantize_activations_kernel_matches_plain(R, K, x_dtype):
     """The same int8 values and the same f32 scales, bit for bit."""
     _need_cuda()
@@ -317,6 +318,42 @@ def test_int8_activation_kernels_match_plain(bits, R, K, N, out_dtype):
     tol = 2 ** -8 if got.dtype == torch.bfloat16 else 1e-6
     peak = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("R,K,N", [(1, 4096, 4096), (64, 4096, 11008), (256, 11008, 4096),
+                                   (300, 4096, 4096), (5, 96, 200)])
+def test_int8_activation_routes_in_a_graph_equal_plain(bits, R, K, N):
+    """Quantizer + matmul (the matmul a programmatic dependent launch, and
+    without it), six calls on six inputs captured in one CUDA graph and
+    replayed: every call's output equals its plain version bit for bit, so
+    no matmul read x8 or sx before the quantizer had written them."""
+    _need_cuda()
+    xs = [_qmm_inputs(R, K, N, bits, torch.bfloat16, R + K + i)[0] for i in range(6)]
+    _, q, scale = _qmm_inputs(R, K, N, bits, torch.bfloat16, N)
+    launch = qmm._launch_int8_sm90 if bits == 8 else qmm._launch_int4_sm90
+
+    def route(x, pdl):
+        x8, sx = qmm.quantize_activations(x)
+        return launch(x8, q, scale, torch.bfloat16, sx=sx, pdl=pdl)
+
+    for pdl in (True, False):
+        route(xs[0], pdl)
+        torch.cuda.synchronize()
+        graph, outs = torch.cuda.CUDAGraph(), []
+        with torch.cuda.graph(graph):
+            for x in xs:
+                outs.append(route(x, pdl))
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        for x, got in zip(xs, outs):
+            if bits == 8:
+                want = qmm.quant_matmul_w8a8_plain(x, q, scale)
+            else:
+                want = qmm.quant_matmul_plain(x, q, scale, bits=4, unpack="w4a8")
+            assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -137,17 +137,6 @@ def test_plain_matches_jax_kernel_bf16(bits):
     np.testing.assert_allclose(_np(got), want, rtol=2e-2, atol=tol)
 
 
-def test_split_k_covers_k_in_whole_stages():
-    for R in (1, 5, 64, 128):
-        for K, N in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000), (96, 200)):
-            for bits, stage in ((8, 64), (4, 32)):
-                splits, per = tqmm.split_k(R, K, N, bits, stage)
-                Kq = K if bits == 8 else K // 2
-                assert per % stage == 0 and splits >= 1
-                assert (splits - 1) * per < Kq <= splits * per   # no empty split
-                assert splits * R * N * 4 <= max(Kq * N // 2, R * N * 4)
-
-
 def test_wrapper_guards():
     """What the CUDA wrapper refuses (it raises, never falls back)."""
     x, q, s = torch.zeros(4, 96), torch.zeros(96, 200, dtype=torch.int8), torch.ones(1, 200)
@@ -418,16 +407,6 @@ def test_unpack_argument():
     q8 = torch.zeros(96, 200, dtype=torch.int8)
     with pytest.raises(ValueError):
         tqmm.quant_matmul(x, q8, scale, bits=8, unpack="w4a8")
-
-
-def test_split_k_int8_activation_stage():
-    """The int8-activation kernels take 64 q rows per stage at both widths."""
-    for R in (1, 64, 256):
-        for K, N in ((4096, 4096), (11008, 4096), (4096, 32000), (96, 200)):
-            for bits in (8, 4):
-                splits, per = tqmm.split_k(R, K, N, bits, 64)
-                Kq = K if bits == 8 else K // 2
-                assert per % 64 == 0 and (splits - 1) * per < Kq <= splits * per
 
 
 # (i) the panel-tiled int4 kernel's plain version ---------------------------------
