@@ -122,23 +122,49 @@ def kernel_name(mangled: str) -> str:
     return parts[-1] + (f"<{','.join(args)}>" if args else "") if parts else mangled
 
 
+def graph_kernels(graph) -> int:
+    """Kernel nodes of a captured CUDA graph (made with keep_graph=True),
+    counted with libcuda's cuGraphGetNodes."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    kind, count = ctypes.c_int(), 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            fail("cuGraphNodeGetType failed")
+        count += kind.value == 0   # CU_GRAPH_NODE_TYPE_KERNEL
+    return count
+
+
 def device_ms(fns, replays: int = 25, outs=None) -> float:
     """Device time of one call, in ms: the calls in `fns` are captured once
     into a CUDA graph (no host gaps between launches), the graph is
     replayed `replays` times under CUDA events, and the median replay is
-    divided by len(fns). `outs`, a list, receives the captured calls'
-    results, which hold the last replay's values."""
+    divided by len(fns). Fails unless the graph holds at least one kernel
+    per call (a launch on another stream than the capturing one runs at
+    capture time and would leave the graph without it). `outs`, a list,
+    receives the captured calls' results, which hold the last replay's
+    values."""
     import torch
 
     for f in fns[:3]:
         f()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         for f in fns:
             r = f()
             if outs is not None:
                 outs.append(r)
+    kernels = graph_kernels(graph)
+    if kernels < len(fns):
+        fail(f"a timing graph of {len(fns)} calls holds {kernels} kernels")
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -420,6 +446,7 @@ QMM_SM90_SOURCE = "sequoia_torch/csrc/quant_matmul_int8_sm90.cu"
 QMM_SM90_4_SOURCE = "sequoia_torch/csrc/quant_matmul_int4_sm90.cu"
 SM90_ROWS = (1, 16, 64, 128, 256)
 A8_PART_ROWS = (1, 64, 256)   # the int8-activation routes' parts are timed at these R
+QUANT_CALLS = 64              # calls a quantizer (and empty-kernel) timing graph holds
 QMM_KERNELS = {
     # name: weight bits, rows at the 7B shapes (bf16 x), TPU counterpart, source,
     # int8 activations. The f32-x kernels (no rows) run the f32 cases alone.
@@ -678,13 +705,20 @@ def check_quantize_activations(torch, qm, gen, results):
     values and the same f32 scales, bit for bit (tolerance 0), on every
     call of the timing graph. Beside its time, the floor: an empty kernel
     of its grid (one block per row, the quantizer's block size) in the same
-    harness; and the least time for its bytes."""
+    harness, each graph QUANT_CALLS calls long so that device time, not
+    the events around a replay, dominates; and the least time for its
+    bytes."""
     from sequoia_torch.kernels import build
 
     lib = build.load()
+
+    def empty(R, threads):   # the stream is read at call time: the capturing one
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib.sequoia_empty_kernel(R, threads, stream), "empty_kernel")
+
     for R, K in ((1, 4096), (64, 4096), (64, 11008), (256, 4096), (256, 11008), (5, 100)):
         xs = [torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16) * 3
-              for _ in range(8)]
+              for _ in range(8)] * (QUANT_CALLS // 8)
         replayed = []
         ms = device_ms([lambda x=x: qm.quantize_activations(x) for x in xs], outs=replayed)
         err = 0
@@ -694,11 +728,9 @@ def check_quantize_activations(torch, qm, gen, results):
                       (gots - wants).abs().max().item())
         if err != 0:
             fail(f"quantize_activations R={R} K={K} differs from its plain version: {err}")
-        plain_ms = device_ms([lambda x=x: qm.quantize_activations_plain(x) for x in xs])
+        plain_ms = device_ms([lambda x=x: qm.quantize_activations_plain(x) for x in xs[:8]])
         threads = qm.quantizer_block(K, 2)[1]
-        stream = torch.cuda.current_stream().cuda_stream
-        floor_ms = device_ms([lambda: build.check(lib.sequoia_empty_kernel(R, threads, stream),
-                                                  "empty_kernel")] * 8)
+        floor_ms = device_ms([lambda: empty(R, threads)] * QUANT_CALLS)
         nbytes = R * K * 2 + R * K + R * 4
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 6 * R * K / PEAK_FLOPS["f32"] * 1e3
         bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")

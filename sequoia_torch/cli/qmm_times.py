@@ -2,7 +2,7 @@
 comparing two checkouts of the port on one card.
 
     python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
-        [--kernels int8,w8a8,int4,tiled,w4a8,quantize,w8a8_route,cublas_bf16]
+        [--kernels int8,w8a8,w8a8_mm,int4,tiled,w4a8,quantize,cublas_bf16]
         [--label NAME] [--reps 3]
 
 Imports `sequoia_torch` from DIR (default: the checkout that holds this
@@ -15,13 +15,14 @@ the median of `--reps` runs, each a CUDA graph of calls cycling through
 enough weights to exceed the 50 MB L2, replayed under CUDA events. The
 kernels:
 - int8: int8 weight-only, `quant_matmul(bits=8)`;
-- w8a8: the int8-weight matmul alone on x8 and sx quantized beforehand
-  (`_launch_int8_sm90(x8, q, scale, out, sx=sx)`; in older checkouts of
-  this script the name timed the whole route);
-- w8a8_route: the quantizer and that matmul as one unit,
-  `quant_matmul_w8a8`, as `quant/qtensor.py`'s w8a8 mode calls it;
+- w8a8 (or w8a8_route, the same): the quantizer and the int8-weight
+  matmul as one unit, `quant_matmul_w8a8`, as `quant/qtensor.py`'s w8a8
+  mode calls it;
+- w8a8_mm: that matmul alone on x8 and sx quantized beforehand
+  (`_launch_int8_sm90(x8, q, scale, out, sx=sx)`);
 - quantize: the activation quantizer alone, `quantize_activations` (at
-  (R, K), once per K);
+  (R, K), once per K; 64 calls a graph, so that its few µs, not the events
+  around a replay, dominate);
 - int4: packed int4, `quant_matmul(bits=4)`; tiled: `quant_matmul_tiled`;
 - w4a8: the quantizer and the int4 x int8 matmul, `quant_matmul(bits=4,
   unpack="w4a8")`;
@@ -38,7 +39,7 @@ import statistics
 import sys
 
 SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
-KERNELS = ("int8", "w8a8", "int4", "tiled", "w4a8", "quantize", "w8a8_route", "cublas_bf16")
+KERNELS = ("int8", "w8a8", "w8a8_mm", "int4", "tiled", "w4a8", "quantize", "cublas_bf16")
 
 
 def device_ms(torch, fns, replays: int = 10) -> float:
@@ -83,8 +84,8 @@ def main() -> None:
     from sequoia_torch.quant.qtensor import QuantizedTensor, tile_int4
 
     kernels = args.kernels.split(",")
-    if set(kernels) - set(KERNELS):
-        sys.exit(f"qmm_times: unknown kernels {set(kernels) - set(KERNELS)}")
+    if set(kernels) - set(KERNELS) - {"w8a8_route"}:
+        sys.exit(f"qmm_times: unknown kernels {set(kernels) - set(KERNELS) - {'w8a8_route'}}")
     build.load()
     label = args.label or os.path.abspath(args.root)
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -98,7 +99,7 @@ def main() -> None:
     for K, N in SHAPES:
         # enough weights per kernel that one pass exceeds the L2
         n8, n4 = (max(2, -(-150_000_000 // nbytes)) for nbytes in (K * N, K * N // 2))
-        want8 = {"int8", "w8a8", "w8a8_route", "cublas_bf16"}
+        want8 = {"int8", "w8a8", "w8a8_mm", "w8a8_route", "cublas_bf16"}
         q8, s8 = weights(K, N, n8) if want8 & set(kernels) else ([], [])
         q4, s4 = weights(K // 2, N, n4) if {"int4", "tiled", "w4a8"} & set(kernels) else ([], [])
         t4 = [tile_int4(QuantizedTensor(q, s)).q for q, s in zip(q4, s4)] \
@@ -113,16 +114,16 @@ def main() -> None:
                   for _ in range(8)]
             calls = {
                 "int8": (n8, lambda i: qm.quant_matmul(x, q8[i], s8[i], bits=8, out_dtype=out)),
-                "w8a8": (n8, lambda i: qm._launch_int8_sm90(x8, q8[i], s8[i], out, sx=sx)),
-                "w8a8_route": (n8, lambda i: qm.quant_matmul_w8a8(x, q8[i], s8[i],
-                                                                  out_dtype=out)),
-                "quantize": (len(xs), lambda i: qm.quantize_activations(xs[i])),
+                "w8a8": (n8, lambda i: qm.quant_matmul_w8a8(x, q8[i], s8[i], out_dtype=out)),
+                "w8a8_mm": (n8, lambda i: qm._launch_int8_sm90(x8, q8[i], s8[i], out, sx=sx)),
+                "quantize": (64, lambda i: qm.quantize_activations(xs[i % len(xs)])),
                 "int4": (n4, lambda i: qm.quant_matmul(x, q4[i], s4[i], bits=4, out_dtype=out)),
                 "tiled": (n4, lambda i: qm.quant_matmul_tiled(x, t4[i], s4[i], out_dtype=out)),
                 "w4a8": (n4, lambda i: qm.quant_matmul(x, q4[i], s4[i], bits=4, unpack="w4a8",
                                                         out_dtype=out)),
                 "cublas_bf16": (n8, lambda i: torch.matmul(x, deq[i])),
             }
+            calls["w8a8_route"] = calls["w8a8"]
             for name in kernels:
                 if name == "quantize" and N != 4096:
                     continue   # once per K: at (4096, 4096) and (11008, 4096)

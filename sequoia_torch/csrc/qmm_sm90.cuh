@@ -222,12 +222,5 @@ inline int max_clusters(const void* kernel, int splits, int RT, int smem) {
   return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : -1;
 }
 
-// The row tile: wgmma's N, the least of 8, 16, .., 256 that holds R rows.
-inline int row_tile(int R) {
-  int rt = 8;
-  while (rt < R && rt < kMaxRT) rt *= 2;
-  return rt;
-}
-
 }  // namespace sm90
 }  // namespace sq

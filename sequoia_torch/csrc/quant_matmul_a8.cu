@@ -21,9 +21,8 @@
 // vectors (8 bf16 or 4 f32) in one round and keeping them in registers (up
 // to 4); the row's amax is reduced by one redux.sync per warp and one
 // shared-memory step; each thread then quantizes its vectors from
-// registers and stores 8 (or 4) bytes per vector. The quotient x / s comes
-// from a multiplication by 1 / s where that cannot change its rounding
-// (round_quotient). Rows that do not fit (K > 16384 bf16, 8192 f32), and
+// registers and stores 8 (or 4) bytes per vector, each a true division
+// x / s rounded half to even. Rows that do not fit (K > 16384 bf16, 8192 f32), and
 // rows whose K or base breaks 16-byte vectors, loop over the row twice
 // (the second pass from L2), an element at a time where unaligned.
 //
@@ -67,31 +66,23 @@ __device__ __forceinline__ float pack_amax(const Pack<T, E>& p, float amax) {
   return amax;
 }
 
-// rint(x / s), the true quotient rounded half to even, as an int, from
-// y = x * r with r = 1 / s (both rounded): |y - x / s| <= 128 * 2^-23 and
-// the quotient's own rounding adds <= 2^-17, so where y lies more than
-// 2^-15 from every half-integer both round to the same integer; nearer one
-// (exact ties among them) the true division decides. The clip to +-127
-// never acts on a finite row (|x / s| <= 127 plus a rounding).
-__device__ __forceinline__ int round_quotient(float x, float s, float r) {
-  const float y = x * r;
-  float q = rintf(y);
-  if (fabsf(y - q) > 0.5f - 0x1p-15f) q = rintf(x / s);
-  return __float2int_rn(fminf(fmaxf(q, -127.f), 127.f));
+// clip(rint(x / s), +-127): the true quotient, rounded half to even.
+__device__ __forceinline__ int round_quotient(float x, float s) {
+  return __float2int_rn(fminf(fmaxf(rintf(x / s), -127.f), 127.f));
 }
 
 // x8 of E elements at o, stored as E bytes at once.
 template <typename T, int E>
-__device__ __forceinline__ void store_pack(const Pack<T, E>& p, float s, float r, int8_t* o) {
+__device__ __forceinline__ void store_pack(const Pack<T, E>& p, float s, int8_t* o) {
   if constexpr (E == 1) {
-    *o = static_cast<int8_t>(round_quotient(to_f(p.v[0]), s, r));
+    *o = static_cast<int8_t>(round_quotient(to_f(p.v[0]), s));
   } else {
     uint32_t w[E / 4];
 #pragma unroll
     for (int g = 0; g < E / 4; ++g) {
       int i[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) i[e] = round_quotient(to_f(p.v[4 * g + e]), s, r);
+      for (int e = 0; e < 4; ++e) i[e] = round_quotient(to_f(p.v[4 * g + e]), s);
       // the low bytes of i[0..3], in order
       w[g] = __byte_perm(__byte_perm(i[0], i[1], 0x0040), __byte_perm(i[2], i[3], 0x0040),
                          0x5410);
@@ -135,17 +126,16 @@ quantize_rows(const T* __restrict__ x, int8_t* __restrict__ x8, float* __restric
   amax = threadIdx.x % 32 < nt / 32 ? warp_max[threadIdx.x % 32] : 0.f;   // every warp
   amax = __uint_as_float(__reduce_max_sync(0xffffffffu, __float_as_uint(amax)));
   const float s = fmaxf(amax, 1e-8f) / 127.0f;   // a true division (no fast math)
-  const float r = 1.0f / s;
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
   if (fits) {
 #pragma unroll
     for (int i = 0; i < kMaxVecs; ++i) {
       const int j = threadIdx.x + i * nt;
-      if (j < nvec) store_pack(v[i], s, r, orow + j * E);
+      if (j < nvec) store_pack(v[i], s, orow + j * E);
     }
   } else {
     for (int j = threadIdx.x; j < nvec; j += nt)
-      store_pack(load_pack<T, E>(row + j * E), s, r, orow + j * E);
+      store_pack(load_pack<T, E>(row + j * E), s, orow + j * E);
   }
 }
 

@@ -379,8 +379,8 @@ int clusters(int splits) {
 }
 
 template <bool A8>
-int dispatch(const Params& p, int splits, bool pdl, cudaStream_t st) {
-  switch (row_tile(p.R)) {
+int dispatch(const Params& p, int rt, int splits, bool pdl, cudaStream_t st) {
+  switch (rt) {
     case 8: return launch<A8, 8>(p, splits, pdl, st);
     case 16: return launch<A8, 16>(p, splits, pdl, st);
     case 32: return launch<A8, 32>(p, splits, pdl, st);
@@ -408,15 +408,16 @@ extern "C" {
 
 // x [R, K] (a8 = 0: bfloat16; a8 = 1: int8 x8 with sx [R] float32), q int8
 // [K, N], scale float32 [N], out [R, N] (out_dtype 0 = float32,
-// 1 = bfloat16); K split over a cluster of `splits` (1..4) blocks. x and q
-// 16-byte aligned; the wrapper checks shapes, types and alignment. TMA when
-// the strides allow it (see the file note). pdl = 1 (a8 only): a
-// programmatic dependent launch after the kernel that wrote x8 and sx.
+// 1 = bfloat16); row tiles of `rt` rows (8, 16, .., 256); K split over a
+// cluster of `splits` (1..4) blocks. x and q 16-byte aligned; the wrapper
+// checks shapes, types and alignment and picks rt and splits. TMA when the
+// strides allow it (see the file note). pdl = 1 (a8 only): a programmatic
+// dependent launch after the kernel that wrote x8 and sx.
 int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* scale, void* out,
-                      int R, int K, int N, int a8, int splits, int out_dtype, int pdl,
+                      int R, int K, int N, int a8, int rt, int splits, int out_dtype, int pdl,
                       void* stream) {
   if (R <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > kMaxSplit || out_dtype < 0 ||
-      out_dtype > 1 || (a8 && sx == nullptr))
+      out_dtype > 1 || (a8 && sx == nullptr) || rt < 8 || rt > kMaxRT || (rt & (rt - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -434,7 +435,8 @@ int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* 
   p.tma = N % 16 == 0 && K % (a8 ? 16 : 8) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(q) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a8 ? dispatch<true>(p, splits, pdl != 0, st) : dispatch<false>(p, splits, false, st);
+  return a8 ? dispatch<true>(p, rt, splits, pdl != 0, st)
+            : dispatch<false>(p, rt, splits, false, st);
 }
 
 // Clusters of `splits` blocks of the kernel for row tile `rt` that the card

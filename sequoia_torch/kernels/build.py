@@ -45,7 +45,7 @@ SIGNATURES = {
     "sequoia_quant_matmul_f32": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],
     "sequoia_quantize_activations": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
     "sequoia_empty_kernel": [_c_int, _c_int, _c_void_p],
-    "sequoia_qmm8_sm90": [_c_void_p] * 5 + [_c_int] * 7 + [_c_void_p],
+    "sequoia_qmm8_sm90": [_c_void_p] * 5 + [_c_int] * 8 + [_c_void_p],
     "sequoia_qmm8_sm90_max_clusters": [_c_int] * 3,
     "sequoia_qmm4_sm90": [_c_void_p] * 5 + [_c_int] * 9 + [_c_void_p],
     "sequoia_qmm4_sm90_max_clusters": [_c_int] * 3,

@@ -185,12 +185,15 @@ def split_cluster(R: int, K: int, N: int, kb: int, max_clusters, rt: int = SM90_
 
 
 def sm90_tiling(R: int, K: int, N: int, kind: str, max_clusters) -> tuple:
-    """`(row tile, cluster size)` of wgmma kernel `kind` (`SM90_KB`);
+    """`(row tile, cluster size)` of wgmma kernel `kind` (`SM90_KB`), the
+    one place that picks both for the int8 and the int4 kernels;
     `max_clusters(rt, c)` as in `split_cluster`, for blocks of `rt` rows.
     The row tile is `row_tile(R)`, except that w4a8 above 128 rows takes
     128-row tiles where their clusters fit one wave and occupy more blocks
     (at N = 4096 and R = 256: 64 tiles in clusters of 2 on 128 SMs, against
-    32 in clusters of 3); csrc/quant_matmul_int4_sm90.cu, file note."""
+    32 in clusters of 3); csrc/quant_matmul_int4_sm90.cu, file note. Only
+    w4a8 takes that rule because only w4a8 was timed with it; the other
+    kinds keep the tiling their times were taken with (ROADMAP B′1)."""
     kb = SM90_KB[kind]
     rt = row_tile(R)
     c = split_cluster(R, K, N, kb, functools.partial(max_clusters, rt), rt)
@@ -381,11 +384,11 @@ def _launch_int8_sm90(x, q, scale, out_dtype, sx=None, *, pdl=False):
     R, K = x.shape
     N = q.shape[1]
     a8 = sx is not None
-    _, splits = _sm90_tiling(R, K, N, "w8a8" if a8 else "int8", x.device.index)
+    rt, splits = _sm90_tiling(R, K, N, "w8a8" if a8 else "int8", x.device.index)
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     rc = build.load().sequoia_qmm8_sm90(
         x.data_ptr(), q.data_ptr(), sx.data_ptr() if a8 else None, scale.data_ptr(),
-        out.data_ptr(), R, K, N, int(a8), splits, _DTYPE_CODE[out_dtype], int(a8 and pdl),
+        out.data_ptr(), R, K, N, int(a8), rt, splits, _DTYPE_CODE[out_dtype], int(a8 and pdl),
         torch.cuda.current_stream(x.device).cuda_stream)
     counter = "quant_matmul_w8a8_wgmma" if a8 else "quant_matmul_int8_wgmma"
     build.check(rc, counter)
