@@ -14,9 +14,10 @@ Phases, each fatal on failure:
      head-paired and an int4 dsplit main cache (bf16: the tensor-core
      kernel, with its split count and the key tiles its prefix skip reads;
      f32: the CUDA-core kernel); the top-p cutoffs at V = 32000 (one block
-     per row) and V = 128256 (a cluster per row); the quant matmuls (the
-     wgmma kernels: int8 weight-only, w8a8, int4, panel-tiled int4 and
-     w4a8 at R in {1, 16, 64, 128, 256} and 300, each with its load path,
+     per row) and V = 128256 (a cluster per row), each at R = 1 and the
+     tree size, twice on each input, beside an empty kernel of its grid;
+     the quant matmuls (the wgmma kernels: int8 weight-only, w8a8, int4,
+     panel-tiled int4 and w4a8 at R in {1, 16, 64, 128, 256} and 300, each with its load path,
      cluster split, row tile and stage depth; the f32-x kernels for int8,
      int4 and tiled int4) at every 7B projection shape and the lm_head,
      plus a ragged small shape; the two int8-activation routes (w4a8, w8a8)
@@ -351,10 +352,12 @@ def check_tree_attention(torch, gm, results):
 
 
 def top_p_bound(R, V, from_logits):
+    """Least time for the function, not for one design of it: the input
+    read once and the thresholds written; from logits, also the softmax's
+    f32 operations (divide by T, subtract the max, exp, normalize: 4 a
+    value)."""
     nbytes = R * V * 4 + R * 4
-    # per element: softmax ~4 ops (from logits), 32 bisection passes of
-    # compare+add, 4 resolution passes of ~2 ops
-    ops = R * V * ((4 if from_logits else 0) + 32 * 2 + 4 * 2)
+    ops = R * V * 4 if from_logits else 0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS["f32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -362,6 +365,7 @@ def top_p_bound(R, V, from_logits):
 
 TOP_P_SPECS = [  # counter (the route the wrapper picks from V), rows, from logits, V
     ("top_p_threshold_from_logits", "gm", True, 32000),
+    ("top_p_threshold_from_logits", 1, True, 32000),
     ("top_p_threshold_fused", 1, False, 32000),
     ("top_p_threshold_fused", "gm", False, 32000),
     ("top_p_threshold_from_logits_cluster", "gm", True, 128256),   # Llama-3
@@ -372,16 +376,27 @@ TOP_P_SPECS = [  # counter (the route the wrapper picks from V), rows, from logi
 
 
 def check_top_p(torch, gm, results):
-    """Both top-p kernels on both routes: V = 32000 (one block per row) and
-    V = 128256 (a cluster per row). The fused kernel must equal the plain
-    version bit for bit; the from-logits kernel may differ only at an
-    ill-conditioned boundary token, with |dt| <= 1e-6 on every other row."""
+    """Both top-p kernels on both routes, at R = 1 and R = the tree size:
+    V = 32000 (one block per row) and V = 128256 (a cluster per row). The
+    fused kernel must equal the plain version bit for bit; the from-logits
+    kernel may differ only at an ill-conditioned boundary token, with |dt|
+    <= 1e-6 on every other row; two launches on the same input must give
+    the same bits. Beside each time, the floor: an empty kernel of the
+    kernel's grid (and cluster shape) in the same harness."""
     from sequoia_torch.kernels import build
     from sequoia_torch.kernels import top_p as tp
+
+    lib = build.load()
+
+    def empty(R, V):   # the stream is read at call time: the capturing one
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib.sequoia_top_p_empty(R, V, int(V > tp.REGISTER_VOCAB), stream),
+                    "top_p_empty")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     T = FULL["T"]
     for name, R, from_logits, V in TOP_P_SPECS:
+        t0 = time.perf_counter()
         R = gm.size if R == "gm" else R
         replaces = "sequoia_tpu/kernels/top_p.py:" + ("99" if from_logits else "140")
         worst, flips = 0.0, 0
@@ -391,13 +406,17 @@ def check_top_p(torch, gm, results):
             before = build.launches[name]
             if from_logits:
                 got = tp.top_p_threshold_from_logits(logits, top_p, T)
+                again = tp.top_p_threshold_from_logits(logits, top_p, T)
                 want = tp.top_p_threshold_from_logits_plain(logits, top_p, T)
             else:
                 got = tp.top_p_threshold_fused(probs, top_p)
+                again = tp.top_p_threshold_fused(probs, top_p)
                 want = tp.top_p_threshold_plain(probs, top_p)
             torch.cuda.synchronize()
-            if build.launches[name] != before + 1:
+            if build.launches[name] != before + 2:
                 fail(f"{name} R={R} V={V}: the wrapper took another route")
+            if not torch.equal(got, again):
+                fail(f"{name} R={R} V={V} top_p={top_p}: two launches on one input differ")
             if not from_logits and not torch.equal(got, want):
                 fail(f"{name} R={R} V={V} top_p={top_p}: not bit-identical to the plain "
                      f"version: max |dt| {(got - want).abs().max().item()}")
@@ -421,14 +440,16 @@ def check_top_p(torch, gm, results):
             kern = [lambda x=x: tp.top_p_threshold_fused(x, top_p) for x in xs]
             plain = [lambda x=x: tp.top_p_threshold_plain(x, top_p) for x in xs]
         ms, plain_ms = device_ms(kern), device_ms(plain, replays=5)
+        floor_ms = device_ms([lambda: empty(R, V)] * len(xs))
         bound, by = top_p_bound(R, V, from_logits)
         route = (f"cluster of {tp.cluster_size(V)} blocks per row" if V > tp.REGISTER_VOCAB
                  else "one block per row")
         log(f"  {name} R={R} V={V} ({route}): max|dt| {worst:.3g} on rows with the same "
             f"nucleus, {flips} of {3 * R} rows differ only at an ill-conditioned boundary "
-            f"token{'' if from_logits else ' (thresholds bit-identical)'}; kernel {ms:.4f} ms"
-            f"  plain {plain_ms:.4f} ms  bound {bound:.5f} ms ({by}, {ms / bound:.1f}x); "
-            "library: none")
+            f"token{'' if from_logits else ' (thresholds bit-identical)'}, two launches "
+            f"equal; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.5f} ms "
+            f"({by}, {ms / bound:.1f}x)  empty kernel of its grid {floor_ms:.4f} ms "
+            f"({ms / floor_ms:.2f}x); library: none; {time.perf_counter() - t0:.1f} s")
         if not any(e["name"] == name for e in results):
             results.append(dict(name=name, route="cuda", source="sequoia_torch/csrc/top_p.cu",
                                 replaces=replaces, shape=f"R={R} V={V} f32",

@@ -26,7 +26,12 @@ kernels:
 - int4: packed int4, `quant_matmul(bits=4)`; tiled: `quant_matmul_tiled`;
 - w4a8: the quantizer and the int4 x int8 matmul, `quant_matmul(bits=4,
   unpack="w4a8")`;
-- cublas_bf16: the yardstick, torch.matmul on a dequantized bf16 weight.
+- cublas_bf16: the yardstick, torch.matmul on a dequantized bf16 weight;
+- top_p_logits, top_p_fused: the nucleus cutoffs,
+  `top_p_threshold_from_logits` (T = 0.6) and `top_p_threshold_fused` at
+  top_p = 0.9, at each R of `--rows` among 1 and 64 and V in {32000,
+  128256} (16 rows of randn * 4 logits, or their softmax, cycled; JSON
+  lines with "V" in place of K and N).
 Exits non-zero without a CUDA card.
 """
 
@@ -39,7 +44,10 @@ import statistics
 import sys
 
 SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
-KERNELS = ("int8", "w8a8", "w8a8_mm", "int4", "tiled", "w4a8", "quantize", "cublas_bf16")
+KERNELS = ("int8", "w8a8", "w8a8_mm", "int4", "tiled", "w4a8", "quantize", "cublas_bf16",
+           "top_p_logits", "top_p_fused")
+TOP_P = ("top_p_logits", "top_p_fused")
+TOP_P_VOCABS = (32000, 128256)
 
 
 def device_ms(torch, fns, replays: int = 10) -> float:
@@ -96,7 +104,7 @@ def main() -> None:
                 [torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001
                  for _ in range(n)])
 
-    for K, N in SHAPES:
+    for K, N in SHAPES if set(kernels) - set(TOP_P) else ():
         # enough weights per kernel that one pass exceeds the L2
         n8, n4 = (max(2, -(-150_000_000 // nbytes)) for nbytes in (K * N, K * N // 2))
         want8 = {"int8", "w8a8", "w8a8_mm", "w8a8_route", "cublas_bf16"}
@@ -136,6 +144,21 @@ def main() -> None:
                                   "card": torch.cuda.get_device_name(0)}), flush=True)
         del q8, s8, q4, s4, t4, deq
         torch.cuda.empty_cache()
+    from sequoia_torch.kernels import top_p as tp
+
+    for V in TOP_P_VOCABS:
+        for R in (r for r in map(int, args.rows.split(",")) if r in (1, 64)):
+            logits = [torch.randn(R, V, generator=gen, device="cuda") * 4 for _ in range(16)]
+            probs = [torch.softmax(x / 0.6, dim=-1) for x in logits]
+            calls = {"top_p_logits": lambda i: tp.top_p_threshold_from_logits(logits[i], 0.9, 0.6),
+                     "top_p_fused": lambda i: tp.top_p_threshold_fused(probs[i], 0.9)}
+            for name in (k for k in kernels if k in TOP_P):
+                ms = statistics.median(
+                    device_ms(torch, [lambda i=i: calls[name](i) for i in range(16)])
+                    for _ in range(args.reps))
+                print(json.dumps({"label": label, "kernel": name, "R": R, "V": V, "ms": ms,
+                                  "card": torch.cuda.get_device_name(0)}), flush=True)
+            del logits, probs
 
 if __name__ == "__main__":
     main()

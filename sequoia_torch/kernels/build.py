@@ -42,6 +42,7 @@ SIGNATURES = {
                                   _c_double, _c_float, _c_int, _c_void_p],
     "sequoia_top_p_fused": [_c_void_p, _c_void_p, _c_int, _c_int, _c_double,
                             _c_int, _c_void_p],
+    "sequoia_top_p_empty": [_c_int, _c_int, _c_int, _c_void_p],
     "sequoia_quant_matmul_f32": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],
     "sequoia_quantize_activations": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
     "sequoia_empty_kernel": [_c_int, _c_int, _c_void_p],

@@ -24,6 +24,10 @@ ITERS = 32
 # most 8 blocks (the portable cluster size) per row.
 REGISTER_VOCAB = 512 * 64
 MAX_CLUSTER = 8
+# The kernel's radix select, as (lowest bit, width) of each level over the
+# bit pattern of a positive f32: 11 bits (the exponent and 3 mantissa
+# bits), then 10 and 10.
+RADIX_LEVELS = ((20, 11), (10, 10), (0, 10))
 
 
 def cluster_size(V: int) -> int:
