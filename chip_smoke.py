@@ -15,7 +15,8 @@ Phases, each fatal on failure:
      kernel, with its split count and the key tiles its prefix skip reads;
      f32: the CUDA-core kernel); the top-p cutoffs at V = 32000 (one block
      per row) and V = 128256 (a cluster per row), each at R = 1 and the
-     tree size, twice on each input, beside an empty kernel of its grid;
+     tree size, twice on each input, timed on peaked, flat, uniform and
+     tied rows, beside an empty kernel of its grid;
      the quant matmuls (the wgmma kernels: int8 weight-only, w8a8, int4,
      panel-tiled int4 and w4a8 at R in {1, 16, 64, 128, 256} and 300, each with its load path,
      cluster split, row tile and stage depth; the f32-x kernels for int8,
@@ -381,8 +382,12 @@ def check_top_p(torch, gm, results):
     fused kernel must equal the plain version bit for bit; the from-logits
     kernel may differ only at an ill-conditioned boundary token, with |dt|
     <= 1e-6 on every other row; two launches on the same input must give
-    the same bits. Beside each time, the floor: an empty kernel of the
-    kernel's grid (and cluster shape) in the same harness."""
+    the same bits. Timed on every kind of row of `qmm_times.TOP_P_KINDS`
+    (peaked, flat at T = 0.6 and 1, uniform, tied), each held as strictly;
+    the kernels line gets the flat rows' time, the main path's (random
+    weights give logits of std ~1). Beside each time, the floor: an empty
+    kernel of the kernel's grid (and cluster shape) in the same harness."""
+    from sequoia_torch.cli.qmm_times import TOP_P_KINDS, top_p_logits
     from sequoia_torch.kernels import build
     from sequoia_torch.kernels import top_p as tp
 
@@ -430,32 +435,59 @@ def check_top_p(torch, gm, results):
                 fail(f"{name} R={R} V={V} top_p={top_p}: |dt| {dt} on a row with the same "
                      "nucleus")
             worst = max(worst, dt)
-        top_p = FULL["P"]
-        xs = [torch.randn(R, V, generator=gen, device="cuda") * 4 for _ in range(16)]
-        if from_logits:
-            kern = [lambda x=x: tp.top_p_threshold_from_logits(x, top_p, T) for x in xs]
-            plain = [lambda x=x: tp.top_p_threshold_from_logits_plain(x, top_p, T) for x in xs]
-        else:
-            xs = [torch.softmax(x / T, dim=-1) for x in xs]
-            kern = [lambda x=x: tp.top_p_threshold_fused(x, top_p) for x in xs]
-            plain = [lambda x=x: tp.top_p_threshold_plain(x, top_p) for x in xs]
-        ms, plain_ms = device_ms(kern), device_ms(plain, replays=5)
-        floor_ms = device_ms([lambda: empty(R, V)] * len(xs))
+        # Times on each kind of row (qmm_times.TOP_P_KINDS); the first input of
+        # each is held as strictly as the rows above.
+        top_p, kind_ms = FULL["P"], {}
+        for kind in TOP_P_KINDS:
+            xs, Tk = zip(*(top_p_logits(torch, kind, R, V, gen) for _ in range(16)))
+            Tk = Tk[0]
+            if from_logits:
+                kern = [lambda x=x: tp.top_p_threshold_from_logits(x, top_p, Tk) for x in xs]
+                plain = [lambda x=x: tp.top_p_threshold_from_logits_plain(x, top_p, Tk)
+                         for x in xs]
+                probs = torch.softmax(xs[0] / Tk, dim=-1)
+            else:
+                xs = [torch.softmax(x / Tk, dim=-1) for x in xs]
+                kern = [lambda x=x: tp.top_p_threshold_fused(x, top_p) for x in xs]
+                plain = [lambda x=x: tp.top_p_threshold_plain(x, top_p) for x in xs]
+                probs = xs[0]
+            got, again, want = kern[0](), kern[0](), plain[0]()
+            if not torch.equal(got, again):
+                fail(f"{name} R={R} V={V} {kind} rows: two launches on one input differ")
+            if not from_logits and not torch.equal(got, want):
+                fail(f"{name} R={R} V={V} {kind} rows: not bit-identical to the plain version")
+            try:
+                flips += tp.boundary_disagreements(probs, got, want, top_p)
+            except ValueError as e:
+                fail(f"{name} R={R} V={V} {kind} rows: nuclei differ: {e}")
+            same = ((probs >= got[:, None]) == (probs >= want[:, None])).all(dim=1)
+            worst = max(worst, torch.where(same, (got - want).abs(), 0.0).max().item())
+            if worst > 1e-6:
+                fail(f"{name} R={R} V={V} {kind} rows: |dt| {worst} on a row with the same "
+                     "nucleus")
+            kind_ms[kind] = device_ms(kern)
+            if kind == "flat":   # the main path's rows: random weights give logits of std ~1
+                plain_ms = device_ms(plain, replays=5)
+            del xs, kern, plain, probs
+        ms = kind_ms["flat"]
+        floor_ms = device_ms([lambda: empty(R, V)] * 16)
         bound, by = top_p_bound(R, V, from_logits)
         route = (f"cluster of {tp.cluster_size(V)} blocks per row" if V > tp.REGISTER_VOCAB
                  else "one block per row")
         log(f"  {name} R={R} V={V} ({route}): max|dt| {worst:.3g} on rows with the same "
-            f"nucleus, {flips} of {3 * R} rows differ only at an ill-conditioned boundary "
-            f"token{'' if from_logits else ' (thresholds bit-identical)'}, two launches "
-            f"equal; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.5f} ms "
-            f"({by}, {ms / bound:.1f}x)  empty kernel of its grid {floor_ms:.4f} ms "
-            f"({ms / floor_ms:.2f}x); library: none; {time.perf_counter() - t0:.1f} s")
+            f"nucleus, {flips} of {(3 + len(TOP_P_KINDS)) * R} rows differ only at an "
+            f"ill-conditioned boundary token{'' if from_logits else ' (thresholds bit-identical)'}"
+            f", two launches equal; kernel ms by rows: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in kind_ms.items())
+            + f"; flat: plain {plain_ms:.4f} ms  bound {bound:.5f} ms ({by}, {ms / bound:.1f}x)"
+            f"  empty kernel of its grid {floor_ms:.4f} ms ({ms / floor_ms:.2f}x); library: "
+            f"none; {time.perf_counter() - t0:.1f} s")
         if not any(e["name"] == name for e in results):
             results.append(dict(name=name, route="cuda", source="sequoia_torch/csrc/top_p.cu",
-                                replaces=replaces, shape=f"R={R} V={V} f32",
+                                replaces=replaces,
+                                shape=f"R={R} V={V} f32, logits N(0, 1) at T={FULL['T']}",
                                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound, bound_by=by, library_ms=None))
-        del xs, kern, plain
 
 
 QMM_SHAPES = [  # (K, N, out): the 7B projections and the f32-logit lm_head
@@ -966,8 +998,9 @@ def greedy_parity(torch, cfg, draft, target, kind):
 
 def profile_kernels(torch, fn, label, top=8):
     """Device kernel time (ms) of `fn` from a torch.profiler trace, with
-    the largest kernels printed; None when the trace holds no device time
-    (then the share is not measured)."""
+    the largest kernels and the top-p kernels (µs a launch on this path's
+    own rows) printed; None when the trace holds no device time (then the
+    share is not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -984,6 +1017,10 @@ def profile_kernels(torch, fn, label, top=8):
         return None
     log(f"  {label} trace: {total_ms:.3f} kernel ms in {sum(r[2] for r in rows)} kernels; top: "
         + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{n}" for k, t, n in rows[:top]))
+    top_p = [(k, t, n) for k, t, n in rows if "top_p_kernel" in k]
+    log(f"  {label} trace, top-p: " + ("; ".join(
+        f"{k[k.index('top_p_kernel'):][:28]} {t / 1e3:.4f} ms x{n} ({t / n:.2f} µs a launch)"
+        for k, t, n in top_p) or "no launch"))
     return total_ms
 
 

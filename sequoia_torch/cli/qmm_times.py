@@ -2,7 +2,8 @@
 comparing two checkouts of the port on one card.
 
     python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
-        [--kernels int8,w8a8,w8a8_mm,int4,tiled,w4a8,quantize,cublas_bf16]
+        [--kernels int8,w8a8,w8a8_mm,int4,tiled,w4a8,quantize,cublas_bf16,
+                   top_p_logits,top_p_fused]
         [--label NAME] [--reps 3]
 
 Imports `sequoia_torch` from DIR (default: the checkout that holds this
@@ -28,10 +29,11 @@ kernels:
   unpack="w4a8")`;
 - cublas_bf16: the yardstick, torch.matmul on a dequantized bf16 weight;
 - top_p_logits, top_p_fused: the nucleus cutoffs,
-  `top_p_threshold_from_logits` (T = 0.6) and `top_p_threshold_fused` at
-  top_p = 0.9, at each R of `--rows` among 1 and 64 and V in {32000,
-  128256} (16 rows of randn * 4 logits, or their softmax, cycled; JSON
-  lines with "V" in place of K and N).
+  `top_p_threshold_from_logits` and `top_p_threshold_fused` (on the
+  softmax) at top_p = 0.9, at each R of `--rows` among 1 and 64 (the
+  others are reported and skipped) and V in {32000, 128256}, on each kind
+  of row of `TOP_P_KINDS` (16 inputs cycled; JSON lines with "V" and
+  "rows" in place of K and N).
 Exits non-zero without a CUDA card.
 """
 
@@ -48,6 +50,23 @@ KERNELS = ("int8", "w8a8", "w8a8_mm", "int4", "tiled", "w4a8", "quantize", "cubl
            "top_p_logits", "top_p_fused")
 TOP_P = ("top_p_logits", "top_p_fused")
 TOP_P_VOCABS = (32000, 128256)
+# Kinds of top-p rows: logits from x ~ N(0, 1), and the temperature they are
+# taken at. A random-weight model's logits have a std of about 1 ("flat":
+# most of a row lies above the kernel's floor); "peaked" rows hold few
+# values above it; "uniform" and "tied" rows put many values in one bin.
+TOP_P_KINDS = {
+    "peaked": (lambda x: x * 4, 0.6),
+    "flat": (lambda x: x, 0.6),
+    "flat_t1": (lambda x: x, 1.0),
+    "uniform": (lambda x: x * 0, 0.6),
+    "tied": (lambda x: (x * 2).round(), 0.6),
+}
+
+
+def top_p_logits(torch, kind, R, V, gen):
+    """(logits [R, V] f32 on the card, temperature) of one kind of row."""
+    make, T = TOP_P_KINDS[kind]
+    return make(torch.randn(R, V, generator=gen, device="cuda")), T
 
 
 def device_ms(torch, fns, replays: int = 10) -> float:
@@ -94,6 +113,11 @@ def main() -> None:
     kernels = args.kernels.split(",")
     if set(kernels) - set(KERNELS) - {"w8a8_route"}:
         sys.exit(f"qmm_times: unknown kernels {set(kernels) - set(KERNELS) - {'w8a8_route'}}")
+    rows = list(map(int, args.rows.split(",")))
+    top_p_rows = [R for R in rows if R in (1, 64)] if set(kernels) & set(TOP_P) else []
+    if set(kernels) & set(TOP_P) and len(top_p_rows) < len(rows):
+        print(f"qmm_times: the top-p kernels are timed at R in {top_p_rows} only",
+              file=sys.stderr)
     build.load()
     label = args.label or os.path.abspath(args.root)
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -115,7 +139,7 @@ def main() -> None:
         deq = [(q.float() * s).to(torch.bfloat16) for q, s in zip(q8, s8)] \
             if "cublas_bf16" in kernels else []
         out = torch.float32 if N == 32000 else torch.bfloat16
-        for R in map(int, args.rows.split(",")):
+        for R in rows:
             x = torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
             x8, sx = qm.quantize_activations(x)
             xs = [torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
@@ -146,19 +170,21 @@ def main() -> None:
         torch.cuda.empty_cache()
     from sequoia_torch.kernels import top_p as tp
 
-    for V in TOP_P_VOCABS:
-        for R in (r for r in map(int, args.rows.split(",")) if r in (1, 64)):
-            logits = [torch.randn(R, V, generator=gen, device="cuda") * 4 for _ in range(16)]
-            probs = [torch.softmax(x / 0.6, dim=-1) for x in logits]
-            calls = {"top_p_logits": lambda i: tp.top_p_threshold_from_logits(logits[i], 0.9, 0.6),
+    for V in TOP_P_VOCABS if top_p_rows else ():
+        for R, kind in ((r, k) for r in top_p_rows for k in TOP_P_KINDS):
+            logits, T = zip(*(top_p_logits(torch, kind, R, V, gen) for _ in range(16)))
+            probs = [torch.softmax(x / T[0], dim=-1) for x in logits]
+            calls = {"top_p_logits": lambda i: tp.top_p_threshold_from_logits(logits[i], 0.9,
+                                                                                 T[0]),
                      "top_p_fused": lambda i: tp.top_p_threshold_fused(probs[i], 0.9)}
             for name in (k for k in kernels if k in TOP_P):
                 ms = statistics.median(
                     device_ms(torch, [lambda i=i: calls[name](i) for i in range(16)])
                     for _ in range(args.reps))
-                print(json.dumps({"label": label, "kernel": name, "R": R, "V": V, "ms": ms,
-                                  "card": torch.cuda.get_device_name(0)}), flush=True)
+                print(json.dumps({"label": label, "kernel": name, "R": R, "V": V, "rows": kind,
+                                  "ms": ms, "card": torch.cuda.get_device_name(0)}), flush=True)
             del logits, probs
+
 
 if __name__ == "__main__":
     main()

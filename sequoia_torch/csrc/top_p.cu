@@ -21,33 +21,38 @@
 //   1. loads into registers (and takes its softmax), with max(p) (from
 //      logits, 1 / s) and a lower bound on the row's sum. The floor L =
 //      (sum - top_p) / 2V has f(L) >= sum - V L > top_p, so c* > L; each
-//      thread lists its values above L in shared memory (a few in a
-//      hundred for a real softmax row) and keeps the largest one below;
+//      thread lists its values above L in shared memory as runs of equal
+//      values, (value, count), in 16 slots (a few values in a hundred lie
+//      above L in a peaked row, and a uniform row lists one run; a flat
+//      row, e.g. logits of std 1 at T = 0.6, overflows and is read from
+//      the registers);
 //   2. finds c* exactly by a radix select over the bit patterns of the
-//      listed values (a positive float orders as its bits): three levels of
+//      values above L (a positive float orders as its bits): three levels of
 //      11, 10 and 10 bits (kernels/top_p.py RADIX_LEVELS). A level adds each
 //      value's 24-bit mantissa into the shared-memory bin of its bits (two
 //      32-bit atomics, the low and high 12 bits: a 64-bit shared atomic is a
 //      CAS loop on sm_90), over the values whose higher bits match the bins
-//      chosen so far. Level 0 holds the whole exponent, so a bin's mass is
-//      its mantissa sum times one power of two: integers, the same in any
-//      order, in 128-bit fixed point (unit 2^-S, S from V and max(p) so that
-//      a row's total stays under 2^126) and exact within an exponent; levels
-//      1 and 2 share one exponent and count in mantissa units. One warp walks
-//      a level's occupied bins from the top down with a running suffix sum
-//      and takes the lowest non-empty bin whose mass above fits in top_p;
-//      after three levels the bin is c*. Values at or below L never change
-//      a mass above a bin that can hold c*, so they take no part;
+//      chosen so far; a listed run adds count times its mantissa, so a
+//      uniform row does not pile an atomic a value onto one address (32
+//      lanes on one address serialize). Level 0 holds the whole exponent,
+//      so a bin's mass is its mantissa sum times one power of two:
+//      integers, the same in any order, in 128-bit fixed point (unit 2^-S,
+//      S from V and max(p) so that a row's total stays under 2^126) and
+//      exact within an exponent; levels 1 and 2 share one exponent and
+//      count in mantissa units. One warp walks a level's occupied bins from
+//      the top down with a running suffix sum and takes the lowest
+//      non-empty bin whose mass above fits in top_p; after three levels the
+//      bin is c*. Values at or below L never change a mass above a bin that
+//      can hold c*, so they take no part;
 //   3. replays the 32 bisection steps from (0, max(p)) with mid < c* as the
 //      test: scalar code, no barrier;
-//   4. resolves the boundary: below = max{p < c*} in one reduction; when no
-//      value lies in (lo, c*) the boundary token is c* and it is kept. Else
-//      (or c* = 0) cand = min{p > lo} and (max{p < cand}, min{p > cand})
-//      in two more, cand kept iff cand >= c*.
-// About 9 barrier-separated phases a row in place of the 37 block
+//   4. resolves the boundary in one reduction: cand = min{p > lo}, the next
+//      distinct value above it and max{p <= lo} (the value below it); cand
+//      is kept iff cand >= c*.
+// About 8 barrier-separated phases a row in place of the 37 block
 // reductions of a bisection run pass by pass, each of which turned all 64
 // register values of every thread to f64 (16 conversions a clock on an SM:
-// ~1.1 of a pass's ~1.4 us, cli/top_p_probe.py).
+// ~1.1 of a pass's ~1.4 us, measured on an H100).
 //
 // The threshold equals top_p_threshold_plain's bit for bit unless a mass
 // lies within the plain version's f64 summation rounding (~1e-13) of top_p:
@@ -101,7 +106,8 @@ __host__ __device__ constexpr int level_offset(int lv) {
   return lv == 0 ? 0 : lv == 1 ? 2048 : 3072;
 }
 constexpr int kBins = 4096;
-constexpr int kSlots = 16;    // values above the floor a thread lists in shared memory
+constexpr int kSlots = 16;    // runs of values above the floor a thread lists in shared memory
+constexpr unsigned kFull = 0xffffffffu;   // every lane of a warp
 // Per block, a bin's sum of 12-bit halves stays under 2^32 up to 2^20
 // values: V <= 8 * 2^20 on the cluster route.
 constexpr int kMaxVocab = 1 << 23;
@@ -120,9 +126,14 @@ struct MaxSum {   // (max, sum)
     return make_float2(fmaxf(a.x, b.x), a.y + b.y);
   }
 };
-struct MaxMin {   // (max, min)
-  __device__ float2 operator()(float2 a, float2 b) const {
-    return make_float2(fmaxf(a.x, b.x), fminf(a.y, b.y));
+// (max{p <= lo}, the least and the second least distinct values above lo),
+// missing ones FLT_MAX: a value above the least of both sides is the second
+// least of its side unless it is that least.
+struct Resolve {
+  __device__ float4 operator()(float4 a, float4 b) const {
+    const float c = fminf(a.y, b.y);
+    return make_float4(fmaxf(a.x, b.x), c, fminf(a.y > c ? a.y : a.z, b.y > c ? b.y : b.z),
+                       0.f);
   }
 };
 
@@ -134,6 +145,9 @@ __device__ __forceinline__ double shfl_xor(double v, int o) {
 }
 __device__ __forceinline__ float2 shfl_xor(float2 v, int o) {
   return make_float2(shfl_xor(v.x, o), shfl_xor(v.y, o));
+}
+__device__ __forceinline__ float4 shfl_xor(float4 v, int o) {
+  return make_float4(shfl_xor(v.x, o), shfl_xor(v.y, o), shfl_xor(v.z, o), 0.f);
 }
 
 // One reduction's shared state. `slot` alternates between calls, so one
@@ -155,14 +169,16 @@ struct Pick {
 
 struct Scratch {
   uint2 hist[kBins];      // per bin: sums of the low and high 12 mantissa bits
-  float list[kSlots + 1][kThreads];   // list[k][t]: thread t's k-th value above the floor
-                                      // (row kSlots takes the overflow)
+  float list[kSlots + 1][kThreads];   // list[k][t]: thread t's k-th run of equal values
+                                      // above the floor (row kSlots takes the overflow)
+  uint16_t count[kSlots + 1][kThreads];   // ... and its length
   Pick<u128> pick0;      // warp 0's choice at level 0, for the block
   Pick<u64> pick[kLevels];   // ... and at levels 1 and 2
   int2 range[kLevels];    // the lowest and highest occupied bin of levels 1 and 2
   Exchange<float> xf;
   Exchange<double> xd;
   Exchange<float2> x2;
+  Exchange<float4> x4;
 };
 
 template <typename T, typename Op>
@@ -310,7 +326,7 @@ top_p_kernel(const float* __restrict__ in, float* __restrict__ out, int V, doubl
              float temperature) {
   extern __shared__ __align__(16) unsigned char smem[];
   Scratch& s = *reinterpret_cast<Scratch*>(smem);
-  int slot_f = 0, slot_d = 0, slot_2 = 0;
+  int slot_f = 0, slot_d = 0, slot_2 = 0, slot_4 = 0;
   int csize = 1, rank = 0;
   if constexpr (CLUSTER) {
     cg::cluster_group cluster = cg::this_cluster();
@@ -398,33 +414,30 @@ top_p_kernel(const float* __restrict__ in, float* __restrict__ out, int V, doubl
   }
 
   // The floor: f(L) >= sum - V * L > top_p, so c* > L. Each thread lists
-  // its values above it in shared memory; `bf` keeps its largest value at
-  // or below it.
+  // its values above it in shared memory as runs of equal values (value,
+  // count): a uniform or tied row lists a run, not a value, at a time.
   const float floor_v = total_lb > top_p
       ? static_cast<float>(0.5 * (static_cast<double>(total_lb) - top_p) / V) : 0.f;
-  float bf = -FLT_MAX;
   int n_list = 0;
-  // Bin b of a level gets the value's 24-bit mantissa, as two 12-bit halves
-  // (a 64-bit shared atomic is a CAS loop on sm_90).
-  auto add = [&](uint2* h, unsigned b, unsigned bits) {
-    const unsigned m = (bits & 0x7FFFFFu) | (bits >= 0x800000u ? 0x800000u : 0u);
-    atomicAdd(&h[b].x, m & 0xFFFu);
-    atomicAdd(&h[b].y, m >> 12);
-  };
-  for_each([&](float v) {   // no branch: a value not taken is overwritten
-    const bool take = v > floor_v;
-    s.list[n_list < kSlots ? n_list : kSlots][threadIdx.x] = v;
-    n_list += take;
-    bf = fmaxf(bf, take ? -FLT_MAX : v);
+  unsigned count = 0;
+  float last = -1.f;   // no probability
+  for_each([&](float v) {   // no branch: a slot not yet complete is rewritten
+    const bool take = v > floor_v, fresh = take && v != last;
+    n_list += fresh;
+    count = fresh ? 1u : count + take;
+    last = take ? v : last;
+    const int k = n_list == 0 ? kSlots : min(n_list - 1, kSlots);
+    s.list[k][threadIdx.x] = last;
+    s.count[k][threadIdx.x] = static_cast<uint16_t>(count);
   });
+  // Every value of this thread above the floor, as (value, times): its
+  // list, or (it overflowed) its registers.
   const bool listed = n_list <= kSlots;
-  // Every value of this thread above the floor: its list, or (it
-  // overflowed) its registers.
   auto for_above = [&](auto&& f) {
     if (listed) {
-      for (int k = 0; k < n_list; ++k) f(s.list[k][threadIdx.x]);
+      for (int k = 0; k < n_list; ++k) f(s.list[k][threadIdx.x], s.count[k][threadIdx.x]);
     } else {
-      for_each([&](float v) { if (v > floor_v) f(v); });
+      for_each([&](float v) { if (v > floor_v) f(v, 1u); });
     }
   };
 
@@ -457,17 +470,29 @@ top_p_kernel(const float* __restrict__ in, float* __restrict__ out, int V, doubl
   for (int lv = 0; lv < kLevels; ++lv) {
     const int shift = level_shift(lv), nbits = level_bits(lv);
     uint2* h = s.hist + level_offset(lv);
-    for_above([&](float v) {
+    // The level's occupied range: each thread's lowest and highest bin,
+    // then one atomic a warp.
+    unsigned b_lo = ~0u, b_hi = 0;
+    for_above([&](float v, unsigned times) {
       const unsigned bits = __float_as_uint(v);
-      if ((bits >> (shift + nbits)) == prefix) {
-        const unsigned b = (bits >> shift) & ((1u << nbits) - 1);
-        add(h, b, bits);
-        if (lv > 0) {
-          atomicMin(&s.range[lv].x, static_cast<int>(b));
-          atomicMax(&s.range[lv].y, static_cast<int>(b));
-        }
-      }
+      if ((bits >> (shift + nbits)) != prefix) return;
+      const unsigned b = (bits >> shift) & ((1u << nbits) - 1);
+      b_lo = min(b_lo, b);
+      b_hi = max(b_hi, b);
+      // the 24-bit mantissa, as two 12-bit halves (a 64-bit shared atomic
+      // is a CAS loop on sm_90)
+      const unsigned m = (bits & 0x7FFFFFu) | (bits >= 0x800000u ? 0x800000u : 0u);
+      atomicAdd(&h[b].x, (m & 0xFFFu) * times);
+      atomicAdd(&h[b].y, (m >> 12) * times);
     });
+    if (lv > 0) {
+      b_lo = __reduce_min_sync(kFull, b_lo);
+      b_hi = __reduce_max_sync(kFull, b_hi);
+      if ((threadIdx.x & 31) == 0 && b_lo <= b_hi) {
+        atomicMin(&s.range[lv].x, static_cast<int>(b_lo));
+        atomicMax(&s.range[lv].y, static_cast<int>(b_hi));
+      }
+    }
     if constexpr (CLUSTER) cg::this_cluster().sync(); else __syncthreads();
     if (lv == 0) {
       // Level 0 in 128-bit fixed point, by warp 0 from the top exponent
@@ -572,40 +597,28 @@ top_p_kernel(const float* __restrict__ in, float* __restrict__ out, int V, doubl
     if (mid < cstar) lo = mid; else up = mid;
   }
 
-  // 4. Boundary resolution (sequoia_tpu/kernels/top_p.py::_resolve_boundary).
-  // Every value below the floor is below every listed one, so a maximum
-  // below a listed value x > floor_v starts from bf; values above lo are
-  // all listed when lo >= floor_v.
+  // 4. Boundary resolution (sequoia_tpu/kernels/top_p.py::_resolve_boundary),
+  // in one reduction: cand = min{p > lo} (c*, unless a value lies in (lo,
+  // c*) or c* = 0), the value above it (the next distinct value above lo)
+  // and the value below it (max{p <= lo}: none lies in (lo, cand)).
   const float big = FLT_MAX;
-  float cand = cstar, below = -big, above_v = big;
-  bool rare = !(cstar > 0.f);
-  if (!rare) {
-    float b = bf;
-    for_above([&](float v) { if (v < cstar) b = fmaxf(b, v); });
-    below = row_reduce<CLUSTER>(b, s.xf, slot_f, Max());
-    rare = below > lo;   // a value in (lo, c*): the boundary token is below c*
-  }
-  if (rare) {
-    const bool lists = lo >= floor_v;   // uniform over the row
-    float c = big;
-    auto visit = [&](auto&& f) {
-      if (lists) for_above(f); else for_each(f);
-    };
-    visit([&](float v) { if (v > lo) c = fminf(c, v); });
-    cand = row_reduce<CLUSTER>(c, s.xf, slot_f, Min());
-    float2 ba = make_float2(lists && bf < cand ? bf : -big, big);
-    visit([&](float v) {
-      if (v < cand) ba.x = fmaxf(ba.x, v);
-      if (v > cand) ba.y = fminf(ba.y, v);
-    });
-    ba = row_reduce<CLUSTER>(ba, s.x2, slot_2, MaxMin());
-    below = ba.x;
-    above_v = ba.y;
-  }
+  float4 res = make_float4(-big, big, big, 0.f);   // (below, cand, above, -)
+  for_each([&](float v) {
+    if (v <= lo) {
+      res.x = fmaxf(res.x, v);
+    } else if (v < res.y) {
+      res.z = res.y;
+      res.y = v;
+    } else if (v > res.y && v < res.z) {
+      res.z = v;
+    }
+  });
+  res = row_reduce<CLUSTER>(res, s.x4, slot_4, Resolve());
   if (rank == 0 && threadIdx.x == 0) {
+    const float cand = res.y;
     const bool include_cand = cand >= cstar;   // f(cand) <= top_p
-    below = below > -big ? below : 0.f;
-    above_v = above_v < big ? above_v : cand * 2.f;
+    const float below = res.x > -big ? res.x : 0.f;
+    const float above_v = res.z < big ? res.z : cand * 2.f;
     float t_inc = 0.5f * (cand + below);
     t_inc = t_inc > below ? t_inc : cand;
     float t_exc = 0.5f * (cand + above_v);

@@ -19,8 +19,10 @@ numpy and Python integers. It is held
   token whose mass above is within 1e-6 of top_p, where JAX's f32 masses
   decide otherwise (`boundary_disagreements`).
 
-The `cuda`-marked test runs the same rows through both kernels on both
-routes of the card and holds them to the plain versions (it skips here).
+The `cuda`-marked tests run the same rows, and rows whose boundary token
+lies below c* or whose whole mass fits in top_p, through both kernels on
+both routes of the card and hold them to the plain versions (they skip
+here).
 """
 
 import math
@@ -117,11 +119,10 @@ def radix_select(p: np.ndarray, top_p: float, hi: np.float32,
 
 def select_model(p: np.ndarray, top_p: float, hi=None):
     """The kernel's threshold for one row of probabilities `p` (f32),
-    and which resolution it took ("common": c* itself is the boundary
-    token; "rare": a value lies in (lo, c*), or c* = 0). `hi` is the
-    row's max, which the from-logits kernel knows as 1 / s; its sum is
-    then at least 1 - 2**-20, the fused kernel's sum within 2**-12 of its
-    f32 sum."""
+    and the case it met ("common": c* itself is the boundary token; "rare":
+    a value lies in (lo, c*), or c* = 0). `hi` is the row's max, which the
+    from-logits kernel knows as 1 / s; its sum is then at least 1 - 2**-20,
+    the fused kernel's sum within 2**-12 of its f32 sum."""
     p = np.asarray(p, np.float32)
     if hi is None:
         hi = p.max()
@@ -137,29 +138,19 @@ def select_model(p: np.ndarray, top_p: float, hi=None):
             lo = mid
         else:
             hi = mid
-
-    def mx(mask):
-        return p[mask].max() if mask.any() else -BIG
-
-    def mn(mask):
-        return p[mask].min() if mask.any() else BIG
-
-    def t_inc(cand, below):
+    # one reduction: cand = min{p > lo}, the next distinct value above it,
+    # and max{p <= lo} (the value below cand: none lies in (lo, cand))
+    above_lo = np.unique(p[p > lo])
+    cand, above = (list(above_lo[:2]) + [BIG, BIG])[:2]
+    below = p[p <= lo].max() if (p <= lo).any() else -BIG
+    case = "common" if cand == cstar else "rare"
+    if cand >= cstar:                            # f(cand) <= top_p: kept
         below = below if below > -BIG else np.float32(0)
         t = half * (cand + below)
-        return t if t > below else cand
-
-    if cstar > 0:
-        below = mx(p < cstar)
-        if below <= lo:
-            return t_inc(cstar, below), "common"
-    cand = mn(p > lo)
-    below, above = mx(p < cand), mn(p > cand)
-    if cand >= cstar:
-        return t_inc(cand, below), "rare"
+        return (t if t > below else cand), case
     above = above if above < BIG else cand * np.float32(2)
     t = half * (cand + above)
-    return (t if t > cand else above), "rare"
+    return (t if t > cand else above), case
 
 
 def softmax_model(logits: np.ndarray, temperature: float):
@@ -256,24 +247,34 @@ def test_model_matches_jax(V, top_p):
     same_nucleus(jprobs, got, want, top_p)
 
 
-def test_model_takes_the_rare_resolution():
-    """Rows where a value lies in (lo, c*) (c* within max * 2**-32 of the
-    value below it), and rows whose whole mass fits in top_p (c* = 0): the
-    model takes the second resolution and still equals the plain version."""
+def rare_rows():
+    """(row, top_p) pairs: a value b lies within max * 2**-32 below c* = a,
+    so that often b is in (lo, c*) and the boundary token is b, below c*;
+    every fourth row's whole mass fits in top_p (c* = 0)."""
     rng = np.random.default_rng(3)
-    paths = []
+    out = []
     for i in range(40):
         a = np.float32(rng.uniform(1e-10, 4e-10))
         b = np.float32(a * (1 - rng.uniform(1e-4, 0.3)))
         p = np.array([0.6, 0.4, a, b, 0, b * 0.5], np.float32)
         f_a = float(p[p > a].astype(np.float64).sum())
         f_b = float(p[p > b].astype(np.float64).sum())
-        top_p = (f_a + f_b) / 2 if i % 4 else f_a + 1.0   # c* = a, or c* = 0
-        t, path = select_model(p, top_p)
+        out.append((p, (f_a + f_b) / 2 if i % 4 else f_a + 1.0))
+    return out
+
+
+def test_model_takes_the_rare_resolution():
+    """Rows where a value lies in (lo, c*) (c* within max * 2**-32 of the
+    value below it), and rows whose whole mass fits in top_p (c* = 0): the
+    model's boundary token is not c*, and it still equals the plain
+    version."""
+    cases = []
+    for p, top_p in rare_rows():
+        t, case = select_model(p, top_p)
         want = tp.top_p_threshold_plain(torch.from_numpy(p[None]), top_p).numpy()[0]
         assert np.float32(t).view(np.uint32) == want.view(np.uint32)
-        paths.append(path)
-    assert paths.count("rare") >= 10 and "common" in paths
+        cases.append(case)
+    assert cases.count("rare") >= 10 and "common" in cases
 
 
 def rn32(x: Fraction) -> np.float32:
@@ -352,3 +353,39 @@ def test_kernels_on_adversarial_rows(V, top_p):
     assert torch.where(same, (got - want).abs(), 0.0).max().item() <= 1e-6
     for name in ("top_p_threshold_fused", "top_p_threshold_from_logits"):
         assert build.launches[name + suffix] == before[name + suffix] + 2
+
+
+def check_kernels(probs, logits, top_p, temperature):
+    """Both kernels on rows `probs` and `logits` (on the card): fused bit for
+    bit against the plain version and equal on two launches; from logits
+    equal on two launches, the nuclei of the plain version's but for an
+    ill-conditioned boundary token, and |dt| <= 1e-6 where they agree."""
+    got = tp.top_p_threshold_fused(probs, top_p)
+    torch.testing.assert_close(got, tp.top_p_threshold_plain(probs, top_p), rtol=0, atol=0)
+    assert torch.equal(got, tp.top_p_threshold_fused(probs, top_p))
+    got = tp.top_p_threshold_from_logits(logits, top_p, temperature)
+    want = tp.top_p_threshold_from_logits_plain(logits, top_p, temperature)
+    assert torch.equal(got, tp.top_p_threshold_from_logits(logits, top_p, temperature))
+    p = torch.softmax(logits / temperature, dim=-1)
+    tp.boundary_disagreements(p, got, want, top_p)
+    same = ((p >= got[:, None]) == (p >= want[:, None])).all(dim=1)
+    assert torch.where(same, (got - want).abs(), 0.0).max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", (1000, 128256))
+def test_kernels_on_rare_rows(V):
+    """The rows of `rare_rows` spread over a row of V zeros (V = 128256 on
+    the cluster route), and random rows at a top_p their whole mass fits
+    in (c* = 0), through both kernels as `check_kernels` holds them; the
+    from-logits kernel gets the rows' logs (zeros at -1e30) at T = 1."""
+    _need_cuda()
+    rng = np.random.default_rng(V)
+    for p6, top_p in rare_rows():
+        p = np.zeros((1, V), np.float32)
+        p[0, rng.permutation(V)[:6]] = p6
+        logits = np.where(p > 0, np.log(np.maximum(p, 1e-38)), -1e30).astype(np.float32)
+        check_kernels(torch.from_numpy(p).cuda(), torch.from_numpy(logits).cuda(), top_p, 1.0)
+    logits, probs = rows(V, seed=V + 2)
+    for top_p in (float(probs.astype(np.float64).sum(axis=1).max()), 1.5):
+        check_kernels(torch.from_numpy(probs).cuda(), torch.from_numpy(logits).cuda(), top_p, T)
