@@ -19,9 +19,12 @@ Phases, each fatal on failure:
      tied rows, beside an empty kernel of its grid;
      the quant matmuls (the wgmma kernels: int8 weight-only, w8a8, int4,
      panel-tiled int4 and w4a8 at R in {1, 16, 64, 128, 256} and 300, each with its load path,
-     cluster split, row tile and stage depth; the f32-x kernels for int8,
-     int4 and tiled int4) at every 7B projection shape and the lm_head,
-     plus a ragged small shape; the two int8-activation routes (w4a8, w8a8)
+     cluster split, row tile and stage depth; the f32-x route for int8,
+     int4 and tiled int4, the split into bf16 planes and the planes
+     instantiations, at R in {1, 16, 64, 128, 256}, with its error against
+     an f64 product beside cuBLAS f32's and two launches held to equal
+     bits) at every 7B projection shape and the lm_head, plus a ragged
+     small shape; the split alone against its plain version, bit for bit; the two int8-activation routes (w4a8, w8a8)
      with every cycled call of the timing graph held to its plain version,
      the quantizer and the matmul timed apart and together, with and
      without the programmatic dependent launch, and w4a8 beside the bf16-x
@@ -39,7 +42,8 @@ Phases, each fatal on failure:
      cache: forward against the CPU forward, and greedy speculative decoding
      runs; then bf16 int8, int4 and tiled-int4 targets, whose card forward
      (the tensor-core kernels at 24 and 21 rows) equals the CPU forward. Its
-     launches count (the f32-x quant-matmul kernels run only here);
+     launches count (the f32-x quant matmuls run here and in phase 7's f32
+     curve);
   5. full width: llama-68m -> llama-2-7b, bf16, random weights (seeded),
      the planned 64-node growmap, max_length 256, 2 synthetic 128-token
      prompts, T=0.6, P=0.9: the stochastic AR baseline and Sequoia through
@@ -55,7 +59,9 @@ Phases, each fatal on failure:
   7. the width curves (planner/profile.py, device time of one split-mode
      forward at widths 1..256): bf16 with each cache format, int8
      weight-only, int8 w8a8, int4, tiled int4, and the int4 target with every
-     projection sent through unpack="w4a8"; the 68m draft's at width 8; the
+     projection sent through unpack="w4a8"; an int8 target with f32
+     activations at widths 1, 16 and 64 (the f32-x route at 7B width, with
+     the f32 tree attention); the 68m draft's at width 8; the
      tree the planner DP picks from each curve (widths 1..128); beside them,
      the host time to issue one eager forward at widths 1 and 64. Each curve
      is measured right after its path's launches are read, before that
@@ -493,7 +499,7 @@ def check_top_p(torch, gm, results):
 QMM_SHAPES = [  # (K, N, out): the 7B projections and the f32-logit lm_head
     (4096, 4096, "bf16"), (4096, 11008, "bf16"), (11008, 4096, "bf16"), (4096, 32000, "f32")]
 QMM_REPORT = (64, 4096, 11008)   # the shape of the kernels line: verify, MLP up
-QMM_SOURCE = "sequoia_torch/csrc/quant_matmul.cu"
+QMM_SPLIT_SOURCE = "sequoia_torch/csrc/split_bf16x3.cu"   # f32 x -> three bf16 planes
 QMM_A8_SOURCE = "sequoia_torch/csrc/quant_matmul_a8.cu"   # the activation quantizer
 QMM_SM90_SOURCE = "sequoia_torch/csrc/quant_matmul_int8_sm90.cu"
 QMM_SM90_4_SOURCE = "sequoia_torch/csrc/quant_matmul_int4_sm90.cu"
@@ -501,17 +507,21 @@ SM90_ROWS = (1, 16, 64, 128, 256)
 A8_PART_ROWS = (1, 64, 256)   # the int8-activation routes' parts are timed at these R
 QUANT_CALLS = 64              # calls a quantizer (and empty-kernel) timing graph holds
 QMM_KERNELS = {
-    # name: weight bits, rows at the 7B shapes (bf16 x), TPU counterpart, source,
-    # int8 activations. The f32-x kernels (no rows) run the f32 cases alone.
+    # name: weight bits, rows at the 7B shapes, TPU counterpart, source, int8
+    # activations. The names of F32_KERNELS take f32 x (split into bf16
+    # planes); the others bf16 x.
     "quant_matmul_int8_wgmma": (8, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:85",
                                 QMM_SM90_SOURCE, False),
-    "quant_matmul_int8": (8, (), "sequoia_tpu/kernels/quant_matmul.py:85", QMM_SOURCE, False),
+    "quant_matmul_int8": (8, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:85",
+                          QMM_SM90_SOURCE, False),
     "quant_matmul_int4_wgmma": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:125",
                                 QMM_SM90_4_SOURCE, False),
-    "quant_matmul_int4": (4, (), "sequoia_tpu/kernels/quant_matmul.py:125", QMM_SOURCE, False),
+    "quant_matmul_int4": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:125",
+                          QMM_SM90_4_SOURCE, False),
     "quant_matmul_tiled_wgmma": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:197",
                                  QMM_SM90_4_SOURCE, False),
-    "quant_matmul_tiled": (4, (), "sequoia_tpu/kernels/quant_matmul.py:197", QMM_SOURCE, False),
+    "quant_matmul_tiled": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:197",
+                           QMM_SM90_4_SOURCE, False),
     "quant_matmul_w4a8": (4, SM90_ROWS, "sequoia_tpu/kernels/quant_matmul.py:99",
                           QMM_SM90_4_SOURCE, True),
     "quant_matmul_w8a8_wgmma": (8, (1, 16, 64, 128, 256), "sequoia_tpu/quant/qtensor.py:176",
@@ -519,12 +529,17 @@ QMM_KERNELS = {
 }
 
 
+F32_KERNELS = ("quant_matmul_int8", "quant_matmul_int4", "quant_matmul_tiled")
+
+
 def qmm_cases(name, rows):
     """(R, K, N, x, out) of one kernel: every 7B shape at `rows` with bf16 x,
     a ragged small shape and 300 rows (two row tiles). The f32-x kernels
-    (`rows` empty) at one 7B shape and the ragged one."""
-    if not rows:
-        return [(64, 4096, 4096, "f32", "f32"), (5, 96, 200, "f32", "f32")]
+    with f32 x and out, at every 7B shape and the ragged one (their row
+    tiles stop at 128 or 64, so R = 256 already runs several)."""
+    if name in F32_KERNELS:
+        return [(R, K, N, "f32", "f32") for K, N, _ in QMM_SHAPES for R in rows] + [
+            (5, 96, 200, "f32", "f32")]
     cases = [(R, K, N, "bf16", out) for K, N, out in QMM_SHAPES for R in rows]
     cases.append((5, 96, 200, "bf16", "bf16"))        # ragged: masked loads and edges
     cases.append((300, 4096, 4096, "bf16", "bf16"))
@@ -533,7 +548,7 @@ def qmm_cases(name, rows):
 
 def qmm_report(name):
     """The case of a kernel's entry in the kernels line."""
-    if not QMM_KERNELS[name][1]:
+    if name in F32_KERNELS:
         return (64, 4096, 4096, "f32")
     return QMM_REPORT + ("bf16",)
 
@@ -541,12 +556,16 @@ def qmm_report(name):
 def qmm_bound(R, K, N, bits, x_item, out_item, a8=False):
     """Least time: the packed weight, x, the output and the scale move
     once; 2*R*K*N operations at the peak of the product's type and unit
-    (bf16 tensor cores; int8 for the activation-quantized kernels; f32 x on
-    the CUDA cores, where the f32-x kernels keep their products)."""
+    (bf16 tensor cores; int8 for the activation-quantized kernels). f32 x
+    takes three bf16 passes: the tensor cores' products are exact in f32
+    only for bf16 operands, and an f32 x is exactly the sum of three bf16
+    planes (one pass would round x to 8 bits, TF32 to 11), so 3 * 2*R*K*N
+    bf16 operations are the least tensor-core work that gives the f32
+    product (the CUDA cores' f32 rate, 67 TFLOP/s, would take 4.9x as long)."""
     nbytes = K * N * bits // 8 + R * K * x_item + R * N * out_item + N * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    peak = PEAK_FLOPS["int8" if a8 else "f32" if x_item == 4 else "bf16"]
-    t_ops = 2 * R * K * N / peak * 1e3
+    peak = PEAK_FLOPS["int8" if a8 else "bf16"]
+    t_ops = (3 if x_item == 4 else 1) * 2 * R * K * N / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -572,14 +591,19 @@ def sm90_route(qm, name, R, K, N):
     csrc/quant_matmul_int8_sm90.cu and csrc/quant_matmul_int4_sm90.cu)."""
     kind = ("int4" if "int4" in name or "tiled" in name else
             "w4a8" if "w4a8" in name else "w8a8" if "w8a8" in name else "int8")
+    planes = 3 if name in F32_KERNELS else 1    # x tiles a stage: bf16 planes of f32 x
+    if planes > 1:
+        kind += "_f32"
     rt, splits = qm._sm90_tiling(R, K, N, kind, 0)
-    if kind in ("int4", "w4a8"):
+    if kind.startswith(("int4", "w4a8")):
         tma = ("tiled" in name or N % 16 == 0) and K % (16 if kind == "w4a8" else 8) == 0
         x_row = 64 if kind == "w4a8" else 128      # bytes of 64 k of x8 or bf16 x
-        stage, budget = 2 * rt * x_row + 64 * 128, 216 * 1024
+        stage, budget = 2 * planes * rt * x_row + 64 * 128, 216 * 1024
     else:
         tma = N % 16 == 0 and K % (16 if kind == "w8a8" else 8) == 0
-        stage, budget = rt * 128 + (128 if kind == "w8a8" else 64) * 128, 200 * 1024
+        stage, budget = planes * rt * 128 + (128 if kind == "w8a8" else 64) * 128, 200 * 1024
+    if planes > 1:
+        budget = 224 * 1024
     return (f"{'TMA' if tma else 'producer-warp copies'}, cluster of "
             f"{splits}, row tile {rt}, "
             f"{min(budget // stage, 16)} stages of {stage // 1024} KB")
@@ -606,7 +630,11 @@ def check_quant_matmul(torch, results):
     for int8, and torch._int_mm (the int8 x int8 product alone, without
     quantizer and rescale) for w8a8, where the installed PyTorch takes the
     shape. The wgmma kernels' times against the kernels they replaced come
-    from sequoia_torch/cli/qmm_times.py, run on both checkouts in one call."""
+    from sequoia_torch/cli/qmm_times.py, run on both checkouts in one call.
+    The f32-x kernels (split into bf16 planes, then the planes
+    instantiations) are also held to an f64 product (1e-4 of its largest
+    |value|), beside cuBLAS f32's error (TF32 off: main() sets
+    allow_tf32 = False), and two launches on one input to equal bits."""
     from sequoia_torch.kernels import build
     from sequoia_torch.kernels import quant_matmul as qm
     from sequoia_torch.quant import qtensor
@@ -647,6 +675,8 @@ def check_quant_matmul(torch, results):
                     got.float(), want.float(), rtol=tol, atol=tol * peak):
                 fail(f"{name} R={R} K={K} N={N} x {xs} out {outs} disagrees with its "
                      f"plain version: max |err| {err} (tol {tol} x max|plain| {peak})")
+            if name in F32_KERNELS and not torch.equal(got, kernel(x, qs[0], ss[0], out_dt)):
+                fail(f"{name} R={R} K={K} N={N}: two launches on one input differ")
             kern = [lambda i=i: kernel(xi(i), qs[i], ss[i], out_dt) for i in range(n)]
             plain = [lambda i=i: plain_fn(xi(i), qs[i], ss[i], out_dt) for i in range(n)]
             replayed = []
@@ -664,6 +694,19 @@ def check_quant_matmul(torch, results):
             deq = [dequantize(QuantizedTensor(rowmajor[i], ss[i]), K, x_dt) for i in range(n)]
             lib_ms = device_ms([lambda i=i: torch.matmul(x, deq[i]) for i in range(n)],
                                replays=10)
+            f64 = ""
+            if name in F32_KERNELS:   # both against the exact product, in f64
+                w = rowmajor[0] if bits == 8 else qm.unpack_int4(rowmajor[0])
+                ref = (x.double() @ w.double()) * ss[0].double()
+                top = ref.abs().max().item()
+                e_k = (got.double() - ref).abs().max().item() / top
+                e_lib = (torch.matmul(x, deq[0]).double() - ref).abs().max().item() / top
+                if e_k > 1e-4:
+                    fail(f"{name} R={R} K={K} N={N}: max |err| against the f64 product "
+                         f"{e_k:.3g} x its largest |value| (tol 1e-4)")
+                f64 = (f"; against f64, x max|f64|: kernel {e_k:.3g}, cuBLAS f32 {e_lib:.3g}; "
+                       "two launches equal")
+                del w, ref
             other_ms = host = None
             other = ""
             if R == 1 and not a8 and not tiled and xs == "bf16":
@@ -700,14 +743,14 @@ def check_quant_matmul(torch, results):
                     other, other_ms = "_int_mm", device_ms(
                         [lambda i=i: torch._int_mm(x8, qs[i]) for i in range(n)], replays=10)
             bound, by = qmm_bound(R, K, N, bits, x.element_size(), got.element_size(), a8)
-            route = (f"; {sm90_route(qm, name, R, K, N)}"
-                     if name.endswith("_wgmma") or name == "quant_matmul_w4a8" else "")
+            route = (f"; {sm90_route(qm, name, R, K, N)}" if name.endswith("_wgmma")
+                     or name in ("quant_matmul_w4a8",) + F32_KERNELS else "")
             log(f"  {name} R={R} K={K} N={N} x {xs} out {outs}: max|err| {err:.3g} "
                 f"(tol {tol:.3g} x {peak:.3g}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"cuBLAS {xs} dequantized {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
                 + (f"  {other} {other_ms:.4f} ms" if other_ms is not None else "")
                 + f"  bound {bound:.5f} ms ({by}, {ms / bound:.2f}x)"
-                f"  [{n} weights cycled]{a8_line}{route}"
+                f"  [{n} weights cycled]{f64}{a8_line}{route}"
                 + (f"; host µs per qtensor.matmul call: quantized {host[0]:.1f}, "
                    f"bf16 weight {host[1]:.1f}" if host is not None else ""))
             if (R, K, N, xs) == qmm_report(name):
@@ -721,6 +764,7 @@ def check_quant_matmul(torch, results):
         log(f"  {name}: {time.perf_counter() - t_name:.1f} s")
     qtensor.set_w8a8("auto")
     check_quantize_activations(torch, qm, gen, results)
+    check_split(torch, qm, gen, results)
 
 
 def a8_times(qm, name, R, K, N, qs, ss, xi, out_dt, ms):
@@ -797,6 +841,33 @@ def check_quantize_activations(torch, qm, gen, results):
                 replaces="sequoia_tpu/kernels/quant_matmul.py:361",
                 shape=f"R={R} K={K} bf16 (verify, MLP up)", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None))
+
+
+def check_split(torch, qm, gen, results):
+    """The split of f32 x into three bf16 planes, the f32-x route's first
+    kernel, against its plain version: equal bits on every call of the
+    timing graph (QUANT_CALLS calls cycling 8 inputs), at the route's row
+    counts and K. Beside its time, the least time for its bytes (R*K*4 read,
+    R*K*6 written)."""
+    for R, K in ((1, 4096), (64, 4096), (64, 11008), (256, 11008), (5, 97)):
+        xs = [torch.randn(R, K, generator=gen, device="cuda") * 3
+              for _ in range(8)] * (QUANT_CALLS // 8)
+        replayed = []
+        ms = device_ms([lambda x=x: qm.split_bf16x3(x) for x in xs], outs=replayed)
+        for x, got in zip(xs, replayed):
+            want = qm.split_bf16x3_plain(x)
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                fail(f"split_bf16x3 R={R} K={K} differs from its plain version")
+        plain_ms = device_ms([lambda x=x: qm.split_bf16x3_plain(x) for x in xs[:8]])
+        bound = R * K * 10 / HBM_BYTES_PER_S * 1e3
+        log(f"  split_bf16x3 R={R} K={K} f32: equal bits on {len(xs)} calls; kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  bound {bound:.3g} ms (bytes, {ms / bound:.1f}x)")
+        if (R, K) == (64, 4096):
+            results.append(dict(
+                name="split_bf16x3", route="cuda", source=QMM_SPLIT_SOURCE,
+                replaces="sequoia_tpu/kernels/quant_matmul.py:294",
+                shape=f"R={R} K={K} f32 (the f32-x route's planes)", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None))
 
 
 # ---------------------------------------------------------------------------
@@ -1029,19 +1100,20 @@ CURVE_WIDTHS = [1, 2, 4, 8, 16, 32, 64, 128, 256]
 PLAN_WIDTHS = CURVE_WIDTHS[:8]   # the planner's budgets, as in the earlier slices
 
 
-def load_models(torch, quant_bits=None):
+def load_models(torch, quant_bits=None, dtype="bf16"):
     """(target, target cfg, draft, draft cfg): llama-2-7b in bf16 or with
-    int8 / packed-int4 weights, and the bf16 68m draft, random from SEED."""
+    int8 / packed-int4 weights (activations `dtype`, "bf16" or "f32"), and
+    the bf16 68m draft, random from SEED."""
     from sequoia_torch.cli.testbed import build_params
     from sequoia_torch.utils import hard_sync
 
     t0 = time.perf_counter()
-    target, tcfg = build_params(FULL["target"], "random", "bf16", SEED, "cuda",
+    target, tcfg = build_params(FULL["target"], "random", dtype, SEED, "cuda",
                                 quant_bits=quant_bits)
     draft, dcfg = build_params(FULL["draft"], "random", "bf16", SEED + 1, "cuda")
     hard_sync("cuda")
-    log(f"  random weights on the card ({'bf16' if quant_bits is None else f'int{quant_bits}'} "
-        f"target): {time.perf_counter() - t0:.1f} s, "
+    log(f"  random weights on the card ({dtype if quant_bits is None else f'int{quant_bits}'} "
+        f"target, {dtype} activations): {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     return target, tcfg, draft, dcfg
 
@@ -1191,24 +1263,26 @@ def full_width(torch, gm, models, label, need, *, kv_quant=None, run_ar=True, ex
     return {k: launches[k] for k in need}
 
 
-def width_curve(torch, models, label, *, kv_quant=None, need=(), host=False):
+def width_curve(torch, models, label, *, kv_quant=None, need=(), host=False,
+                widths=CURVE_WIDTHS):
     """Phase 7, one curve: device time of the target's split-mode forward
-    at CURVE_WIDTHS through `planner/profile.py` (CUDA-graph replays), with
-    the kernels in `need` required to launch. Returns (curve in seconds,
-    launches of `need`)."""
+    at `widths` through `planner/profile.py` (CUDA-graph replays; caches in
+    the target's activation type), with the kernels in `need` required to
+    launch. Returns (curve in seconds, launches of `need`)."""
     from sequoia_torch.kernels import build
     from sequoia_torch.planner.profile import time_forward_widths
 
     target, tcfg = models[:2]
     t0 = time.perf_counter()
     build.reset_launches()
-    curve = time_forward_widths(target, tcfg, CURVE_WIDTHS, max_length=FULL["max_length"],
-                                kv_len=128, reps=10, kv_quant=kv_quant)
+    curve = time_forward_widths(target, tcfg, widths, max_length=FULL["max_length"],
+                                kv_len=128, reps=10, kv_quant=kv_quant,
+                                dtype=target.embed.dtype)
     launches = {k: build.launches[k] for k in need}
     if any(v == 0 for v in launches.values()):
         fail(f"a kernel of the {label} curve never launched: {launches}")
     log(f"  [7] {label} target forward, CUDA graph replays: " + ", ".join(
-        f"w{w} {t * 1e3:.3f} ms" for w, t in zip(CURVE_WIDTHS, curve))
+        f"w{w} {t * 1e3:.3f} ms" for w, t in zip(widths, curve))
         + f" ({time.perf_counter() - t0:.1f} s)")
     if host:
         log(f"  [7] {label} target forward, eager, host ms to issue it: " + ", ".join(
@@ -1379,7 +1453,7 @@ def main() -> None:
     log("[4] small parity on the card")
     build.reset_launches()
     small_parity(torch)
-    add(build.launches)   # f32 x: the CUDA-core quant-matmul kernels run here only
+    add(build.launches)   # f32 x: the f32-x quant matmuls run here and in the f32 curve
 
     from sequoia_torch.core import model as model_mod
     from sequoia_torch.kernels.quant_matmul import quant_matmul
@@ -1424,6 +1498,15 @@ def main() -> None:
     add(full_width(torch, gm, models, "int8 w8a8", need, run_ar=False))
     curves["int8 w8a8"], _ = width_curve(torch, models, "int8 w8a8", need=need[-2:], host=True)
     qtensor.set_w8a8("auto")
+    del models
+    torch.cuda.empty_cache()
+
+    log("[7] int8 weights with f32 activations (the f32-x route at 7B width)")
+    models = load_models(torch, quant_bits=8, dtype="f32")
+    need = ("quant_matmul_int8", "split_bf16x3", "tree_attention")
+    _, counts = width_curve(torch, models, "int8, f32 x", need=need, widths=(1, 16, 64))
+    log(f"  [7] int8, f32 x curve launches: {counts}")
+    add(counts)
     del models
     torch.cuda.empty_cache()
 

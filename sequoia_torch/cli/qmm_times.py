@@ -3,14 +3,14 @@ comparing two checkouts of the port on one card.
 
     python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
         [--kernels int8,w8a8,w8a8_mm,int4,tiled,w4a8,quantize,cublas_bf16,
-                   top_p_logits,top_p_fused]
-        [--label NAME] [--reps 3]
+                   int8_f32,int4_f32,tiled_f32,cublas_f32,top_p_logits,top_p_fused]
+        [--label NAME] [--reps 3] [--f32-max-rt 64|128]
 
 Imports `sequoia_torch` from DIR (default: the checkout that holds this
 file) and builds its kernels there, so the same script times an older
 checkout: run it as parent, change, change, parent within one call to the
 card, and compare only within that call. For each kernel of `--kernels`
-(bf16 x throughout), each (K, N) of llama-2-7b's projections and lm_head
+(bf16 x but for the f32 kernels), each (K, N) of llama-2-7b's projections and lm_head
 and each row count R, prints one JSON line with the device ms of one call:
 the median of `--reps` runs, each a CUDA graph of calls cycling through
 enough weights to exceed the 50 MB L2, replayed under CUDA events. The
@@ -28,6 +28,10 @@ kernels:
 - w4a8: the quantizer and the int4 x int8 matmul, `quant_matmul(bits=4,
   unpack="w4a8")`;
 - cublas_bf16: the yardstick, torch.matmul on a dequantized bf16 weight;
+- int8_f32, int4_f32, tiled_f32: the same three weight formats with f32 x
+  (whatever route the checkout takes for f32 x; f32 out); cublas_f32:
+  torch.matmul on a dequantized f32 weight, TF32 off (`--f32-max-rt` caps
+  the int8 planes instantiation's row tile, to compare tilings);
 - top_p_logits, top_p_fused: the nucleus cutoffs,
   `top_p_threshold_from_logits` and `top_p_threshold_fused` (on the
   softmax) at top_p = 0.9, at each R of `--rows` among 1 and 64 (the
@@ -47,7 +51,7 @@ import sys
 
 SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 KERNELS = ("int8", "w8a8", "w8a8_mm", "int4", "tiled", "w4a8", "quantize", "cublas_bf16",
-           "top_p_logits", "top_p_fused")
+           "int8_f32", "int4_f32", "tiled_f32", "cublas_f32", "top_p_logits", "top_p_fused")
 TOP_P = ("top_p_logits", "top_p_fused")
 TOP_P_VOCABS = (32000, 128256)
 # Kinds of top-p rows: logits from x ~ N(0, 1), and the temperature they are
@@ -100,11 +104,13 @@ def main() -> None:
     ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--f32-max-rt", type=int, default=None)
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("qmm_times: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False   # cublas_f32 in full f32
     sys.path.insert(0, os.path.abspath(args.root))
     from sequoia_torch.kernels import build
     from sequoia_torch.kernels import quant_matmul as qm
@@ -119,6 +125,8 @@ def main() -> None:
         print(f"qmm_times: the top-p kernels are timed at R in {top_p_rows} only",
               file=sys.stderr)
     build.load()
+    if args.f32_max_rt is not None:
+        qm.SM90_F32_MAX_RT["int8_f32"] = args.f32_max_rt
     label = args.label or os.path.abspath(args.root)
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
@@ -131,16 +139,22 @@ def main() -> None:
     for K, N in SHAPES if set(kernels) - set(TOP_P) else ():
         # enough weights per kernel that one pass exceeds the L2
         n8, n4 = (max(2, -(-150_000_000 // nbytes)) for nbytes in (K * N, K * N // 2))
-        want8 = {"int8", "w8a8", "w8a8_mm", "w8a8_route", "cublas_bf16"}
+        want8 = {"int8", "w8a8", "w8a8_mm", "w8a8_route", "cublas_bf16", "int8_f32",
+                 "cublas_f32"}
+        want4 = {"int4", "tiled", "w4a8", "int4_f32", "tiled_f32"}
         q8, s8 = weights(K, N, n8) if want8 & set(kernels) else ([], [])
-        q4, s4 = weights(K // 2, N, n4) if {"int4", "tiled", "w4a8"} & set(kernels) else ([], [])
+        q4, s4 = weights(K // 2, N, n4) if want4 & set(kernels) else ([], [])
         t4 = [tile_int4(QuantizedTensor(q, s)).q for q, s in zip(q4, s4)] \
-            if "tiled" in kernels else []
+            if {"tiled", "tiled_f32"} & set(kernels) else []
         deq = [(q.float() * s).to(torch.bfloat16) for q, s in zip(q8, s8)] \
             if "cublas_bf16" in kernels else []
+        # f32 weights (4 B an element): fewer, still past the L2
+        nf = max(2, -(-150_000_000 // (4 * K * N)))
+        deq32 = [q.float() * s for q, s in zip(q8[:nf], s8)] if "cublas_f32" in kernels else []
         out = torch.float32 if N == 32000 else torch.bfloat16
         for R in rows:
-            x = torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
+            xf = torch.randn(R, K, generator=gen, device="cuda")
+            x = xf.to(torch.bfloat16)
             x8, sx = qm.quantize_activations(x)
             xs = [torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
                   for _ in range(8)]
@@ -154,6 +168,10 @@ def main() -> None:
                 "w4a8": (n4, lambda i: qm.quant_matmul(x, q4[i], s4[i], bits=4, unpack="w4a8",
                                                         out_dtype=out)),
                 "cublas_bf16": (n8, lambda i: torch.matmul(x, deq[i])),
+                "int8_f32": (n8, lambda i: qm.quant_matmul(xf, q8[i], s8[i], bits=8)),
+                "int4_f32": (n4, lambda i: qm.quant_matmul(xf, q4[i], s4[i], bits=4)),
+                "tiled_f32": (n4, lambda i: qm.quant_matmul_tiled(xf, t4[i], s4[i])),
+                "cublas_f32": (len(deq32), lambda i: torch.matmul(xf, deq32[i])),
             }
             calls["w8a8_route"] = calls["w8a8"]
             for name in kernels:
@@ -166,7 +184,7 @@ def main() -> None:
                 print(json.dumps({"label": label, "kernel": name, "R": R, "K": K, "N": N,
                                   "ms": round(ms, 5),
                                   "card": torch.cuda.get_device_name(0)}), flush=True)
-        del q8, s8, q4, s4, t4, deq
+        del q8, s8, q4, s4, t4, deq, deq32
         torch.cuda.empty_cache()
     from sequoia_torch.kernels import top_p as tp
 

@@ -3,7 +3,7 @@
 // sm_80-style kernel (tree_attention.cu), the Hopper pieces of the wgmma
 // kernels (mbarrier, TMA, wgmma with its shared-memory descriptors,
 // programmatic dependent launch; qmm_sm90.cuh builds on them), and the
-// quantized-matmul geometry and output store.
+// quantized matmuls' output store.
 
 #pragma once
 
@@ -298,17 +298,7 @@ __device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// ---------------------------------------------------------------------------
-// Quantized-matmul geometry (quant_matmul.cu)
-// ---------------------------------------------------------------------------
-
-namespace qmm {
-
-constexpr int kThreads = 128;            // 4 warps
-constexpr int kBN = 128;                 // output columns per block; the tiled panel width
-
-}  // namespace qmm
-
+// One output element of the quantized matmuls, f32 or bf16.
 __device__ __forceinline__ void store_out(void* out, int64_t i, float v, int out_bf16) {
   if (out_bf16) static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
   else static_cast<float*>(out)[i] = v;

@@ -35,6 +35,14 @@ constexpr int kMaxSplit = 4;                         // blocks per cluster, each
 // once the quantizer is done: in throwaway builds on an H100 80GB HBM3,
 // two beat the whole ring (most at R = 1) and none at R = 1..256.
 constexpr int kPdlStages = 2;
+// The activation types of x, numbered as the C entries' `xtype`: bf16, int8
+// x8 (w8a8, w4a8), or f32 x as three bf16 planes [3, R, K] (split_bf16x3.cu).
+enum XType : int { kXBf16 = 0, kXS8 = 1, kXPlanes = 2 };
+constexpr int kPlanes = 3;
+// The planes instantiations' shared-memory budget: three x tiles a stage
+// leave the 200-216 KB of the other instantiations one or two stages fewer
+// (the row tiles they take still fit their stages: 4 at the largest).
+constexpr int kPlanesSmemBudget = 224 * 1024;
 
 constexpr int min_int(int a, int b) { return a < b ? a : b; }
 

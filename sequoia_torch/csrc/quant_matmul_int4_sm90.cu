@@ -1,7 +1,10 @@
 // Packed-int4 weight matmuls on Hopper's wgmma + TMA, one kernel for both
-// weight layouts and both activation types:
+// weight layouts and three activation types:
 //   bf16 x: out[R, N] = (x[R, K] @ w[K, N]) * scale[N], f32 accumulation,
 //     cast once;
+//   f32 x, as its three bf16 planes [3, R, K] (x = b0 + b1 + b2 exactly;
+//     split_bf16x3.cu, the kernel launched right before): the same product,
+//     each plane's products exact on the bf16 tensor cores;
 //   int8 x8 (w4a8): out = float(x8[R, K] @ w) * sx[r] * scale[n], in that
 //     order, the product exact in int32 (x8 and sx come from the activation
 //     quantizer of quant_matmul_a8.cu, the kernel launched right before);
@@ -12,9 +15,10 @@
 // the same numbers; _kernel_int4_w4a8 for unpack="w4a8") and
 // ::quant_matmul_tiled (_kernel_int4_tiled: the same product over
 // q[ceil(N / 128), K/2, 128], panel n holding columns [128 n, 128 n + 128),
-// zero past N; bf16 x only, as in JAX). The nibble -> bf16 conversion is
-// exact, so the bf16-x products are the plain version's and only the order
-// of the f32 sums differs; w4a8 equals its plain version bit for bit.
+// zero past N; bf16 or f32 x, as in JAX). The nibble -> bf16 conversion is
+// exact, so the bf16-x (and plane) products are the plain version's and only
+// the order of the f32 sums differs; w4a8 equals its plain version bit for
+// bit. f32 x replaces the port's first, CUDA-core kernel for it.
 //
 // Bound on the H100: the weight stream at the rows of a tree verify. At
 // (K, N) = (4096, 11008) the packed weight is 22.5 MB, 0.0067 ms at 3.35
@@ -93,7 +97,15 @@
 //   int8 kernel's w8a8 instantiation: barrier set-up, tensor-map prefetch
 //   and the weight boxes of the first kPdlStages stages overlap the quantizer;
 //   the producer waits for its grid before the first x8 box, each consumer
-//   before it reads sx.
+//   before it reads sx. The planes instantiation is one after the split.
+// - f32 x, the planes instantiation (XPlanes): the bf16 one with kP = 3
+//   boxes of each half a stage (two 3-D TMA boxes over [3, R, K], each
+//   half's planes back to back); each k step's two fragments are built once
+//   and each feeds one wgmma per plane, into the same accumulator. Six x
+//   boxes a stage cap the row tile at kMaxRTPlanes = 64 (4 stages of 56 KB
+//   in a 224 KB budget; 128 rows would leave 2); R > 64 runs several row
+//   tiles, the later ones reading the weight from L2. Bound: 3 bf16 passes,
+//   or the bytes (the int8 kernel's file note; PERF.md §6).
 
 #include "qmm_sm90.cuh"
 
@@ -121,6 +133,8 @@ __device__ __forceinline__ uint32_t nibbles_bf16(uint32_t w) {
 struct XBf16 {
   using Acc = float;
   static constexpr bool kA8 = false;
+  static constexpr int kP = 1;                       // x planes
+  static constexpr bool kDep = false;                // x is the output of the kernel before
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
   static constexpr int kItem = 2;                    // bytes per x element
@@ -157,6 +171,8 @@ struct XBf16 {
 struct XS8 {
   using Acc = int;
   static constexpr bool kA8 = true;
+  static constexpr int kP = 1;
+  static constexpr bool kDep = true;                 // the quantizer's x8 and sx
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
   static constexpr int kItem = 1;
@@ -192,13 +208,23 @@ struct XS8 {
   }
 };
 
+// f32 activations as three bf16 planes [3, R, K] (split_bf16x3.cu): the
+// bf16 instantiation with kP boxes of each half a stage, every plane's
+// wgmma reading the same fragment.
+struct XPlanes : XBf16 {
+  static constexpr int kP = kPlanes;
+  static constexpr bool kDep = true;                 // the split's planes
+};
+
 template <class X, int RT>
 struct Cfg {
   static constexpr int kBoxBytes = RT * X::kXRow;    // one x box: RT rows of 64 k
-  static constexpr int kXBytes = 2 * kBoxBytes;      // the low-half and the high-half box
+  // the low-half boxes (one a plane), then the high-half ones
+  static constexpr int kXBytes = 2 * X::kP * kBoxBytes;
   static constexpr int kQBytes = kKp * kRowBytes;    // q tile: kKp rows of kBM bytes
   static constexpr int kStageBytes = kXBytes + kQBytes;
-  static constexpr int kStages = min_int(kSmemBudget / kStageBytes, kMaxStages);
+  static constexpr int kStages =
+      min_int((X::kP > 1 ? kPlanesSmemBudget : kSmemBudget) / kStageBytes, kMaxStages);
   static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
   static constexpr int kChunkN = RT < 64 ? RT : 64;  // wgmma N of one instruction
   static constexpr int kChunks = RT / kChunkN;
@@ -214,7 +240,7 @@ struct Cfg {
 };
 
 struct Params {
-  const void* x;         // [R, K] bf16 or x8 int8
+  const void* x;         // [R, K] bf16 or x8 int8; planes: [3, R, K] bf16
   const int8_t* q;       // [K/2, N], or the panels [ceil(N / 128), K/2, 128]
   const float* sx;       // [R] (x8)
   const float* scale;    // [N]
@@ -235,13 +261,15 @@ __device__ void copy_stage(uint8_t* xs, uint8_t* qs, const Params& p, int kp, in
   using C = Cfg<X, RT>;
   constexpr int kWords = X::kXRow / 4, kPer = 4 / X::kItem;
   const int Kq = p.K / 2;
-  for (int i = lane; i < 2 * RT * kWords; i += 32) {
-    const int half = i / (RT * kWords), j = i % (RT * kWords);
+  for (int i = lane; i < 2 * X::kP * RT * kWords; i += 32) {
+    const int box = i / (RT * kWords), j = i % (RT * kWords);
+    const int half = box / X::kP, pl = box % X::kP;
     const int r = j / kWords, b = (j % kWords) * 4, row = r0 + r, k = kp + b / X::kItem;
     uint32_t v = 0;
     if (row < p.R) {
-      const uint8_t* src = static_cast<const uint8_t*>(p.x) +
-                           (static_cast<int64_t>(row) * p.K + half * Kq) * X::kItem;
+      const uint8_t* src =
+          static_cast<const uint8_t*>(p.x) +
+          ((static_cast<int64_t>(pl) * p.R + row) * p.K + half * Kq) * X::kItem;
 #pragma unroll
       for (int e = 0; e < kPer; ++e)
         if (k + e < Kq) {
@@ -250,7 +278,7 @@ __device__ void copy_stage(uint8_t* xs, uint8_t* qs, const Params& p, int kp, in
           v |= w << (8 * X::kItem * e);
         }
     }
-    *reinterpret_cast<uint32_t*>(xs + half * C::kBoxBytes + X::swz_x(r, b)) = v;
+    *reinterpret_cast<uint32_t*>(xs + box * C::kBoxBytes + X::swz_x(r, b)) = v;
   }
   const int ncols = p.tiled ? kBM : p.N - n0;
   constexpr int kQWords = kRowBytes / 4;
@@ -306,8 +334,8 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
       if (p.tiled) tma_load_3d(qs, &qmap, bar, 0, kp, blockIdx.y);
       else tma_load_2d(qs, &qmap, bar, n0, kp);
     };
-    int pre = 0;   // stages whose weight box went out before the wait (x8)
-    if constexpr (X::kA8) {
+    int pre = 0;   // stages whose weight box went out before the wait (x8, planes)
+    if constexpr (X::kDep) {
       if (loader) {
         if (p.tma) {
           pre = min(nst, kPdlStages);
@@ -316,7 +344,7 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
             load_q(smem + s * C::kStageBytes + C::kXBytes, &full[s], (s_begin + s) * kKp);
           }
         }
-        grid_dep_wait();   // x8 and sx are the quantizer's output
+        grid_dep_wait();   // x8 and sx are the quantizer's output, the planes the split's
       }
     }
     for (int s = 0; loader && s < nst; ++s) {
@@ -327,8 +355,13 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
       const int kp = (s_begin + s) * kKp;
       if (p.tma) {
         if (s >= pre) mbar_arrive_expect_tx(&full[slot], C::kStageBytes);
-        tma_load_2d(xs, &xmap, &full[slot], kp, r0);
-        tma_load_2d(xs + C::kBoxBytes, &xmap, &full[slot], p.K / 2 + kp, r0);
+        if (X::kP > 1) {   // each half's box of every plane
+          tma_load_3d(xs, &xmap, &full[slot], kp, r0, 0);
+          tma_load_3d(xs + X::kP * C::kBoxBytes, &xmap, &full[slot], p.K / 2 + kp, r0, 0);
+        } else {
+          tma_load_2d(xs, &xmap, &full[slot], kp, r0);
+          tma_load_2d(xs + C::kBoxBytes, &xmap, &full[slot], p.K / 2 + kp, r0);
+        }
         if (s >= pre) load_q(qs, &full[slot], kp);
       } else {
         copy_stage<X, RT>(xs, qs, p, kp, r0, n0, lane);
@@ -375,10 +408,16 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     for (int l = 0; l < C::kLdsm; ++l)
       ldsm_x4_trans(r[l], qs + ldm_off + l * kLdsmRows * kRowBytes);
     X::template fragments<C::kBatch>(r, t, a);
-    // k step j of the batch: 32 bytes of each x row further (16 bf16, 32 x8)
-    uint64_t d[2] = {X::desc(xs) + 2 * ks0, X::desc(xs + C::kBoxBytes) + 2 * ks0};
-    fence_reg(d[0]);
-    fence_reg(d[1]);
+    // The box of half hh and plane pl; k step j of the batch: 32 bytes of
+    // each x row further (16 bf16, 32 x8)
+    uint64_t d[2][X::kP];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int pl = 0; pl < X::kP; ++pl) {
+        d[hh][pl] = X::desc(xs + (hh * X::kP + pl) * C::kBoxBytes) + 2 * ks0;
+        fence_reg(d[hh][pl]);
+      }
 #pragma unroll
     for (int j = 0; j < C::kBatch; ++j) {
 #pragma unroll
@@ -389,8 +428,10 @@ qmm4_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int c = 0; c < C::kChunks; ++c)   // x rows [64c, 64c + 64)
-          wgmma_rs(acc[c], a[j][hh], d[hh] + 2 * j + ((c * 64 * X::kXRow) >> 4));
+        for (int pl = 0; pl < X::kP; ++pl)   // every plane reads the half's fragment
+#pragma unroll
+          for (int c = 0; c < C::kChunks; ++c)   // x rows [64c, 64c + 64)
+            wgmma_rs(acc[c], a[j][hh], d[hh][pl] + 2 * j + ((c * 64 * X::kXRow) >> 4));
       wgmma_commit();
     }
     wgmma_wait<C::kBatch>();
@@ -448,10 +489,18 @@ cudaError_t launch(const Params& p, int splits, bool pdl, cudaStream_t st) {
   memset(&xmap, 0, sizeof(xmap));
   memset(&qmap, 0, sizeof(qmap));
   if (p.tma) {
-    const uint64_t Kq = p.K / 2;
-    bool ok = encode_2d(&xmap, X::kMapType, p.x, p.K, p.R,
-                        static_cast<uint64_t>(p.K) * X::kItem, X::kXRow / X::kItem, RT,
-                        X::kSwizzle);
+    const uint64_t Kq = p.K / 2, xrow = static_cast<uint64_t>(p.K) * X::kItem;
+    bool ok;
+    if (X::kP > 1) {   // [P, R, K] bf16, boxes [P, RT, 64]: a half's planes back to back
+      const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.K), static_cast<cuuint64_t>(p.R),
+                                  X::kP};
+      const cuuint64_t strides[2] = {xrow, xrow * p.R};
+      const cuuint32_t box[3] = {X::kXRow / X::kItem, RT, X::kP};
+      ok = encode(&xmap, X::kMapType, p.x, 3, dims, strides, box, X::kSwizzle);
+    } else {
+      ok = encode_2d(&xmap, X::kMapType, p.x, p.K, p.R, xrow, X::kXRow / X::kItem, RT,
+                     X::kSwizzle);
+    }
     if (p.tiled) {
       const cuuint64_t dims[3] = {kBM, Kq, static_cast<cuuint64_t>((p.N + kBM - 1) / kBM)};
       const cuuint64_t strides[2] = {kBM, Kq * kBM};
@@ -464,7 +513,7 @@ cudaError_t launch(const Params& p, int splits, bool pdl, cudaStream_t st) {
   }
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg =
-      launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr, X::kA8 && pdl);
+      launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr, X::kDep && pdl);
   return cudaLaunchKernelEx(&cfg, qmm4_sm90<X, RT>, xmap, qmap, p);
 }
 
@@ -475,6 +524,10 @@ int clusters(int splits) {
                       Cfg<X, RT>::kSmem);
 }
 
+// Row tiles up to 256; the planes instantiation up to kMaxRTPlanes (six x
+// boxes a stage: 4 stages of 56 KB at 64 rows).
+constexpr int kMaxRTPlanes = 64;
+
 template <class X>
 int dispatch(const Params& p, int rt, int splits, bool pdl, cudaStream_t st) {
   switch (rt) {
@@ -482,8 +535,11 @@ int dispatch(const Params& p, int rt, int splits, bool pdl, cudaStream_t st) {
     case 16: return launch<X, 16>(p, splits, pdl, st);
     case 32: return launch<X, 32>(p, splits, pdl, st);
     case 64: return launch<X, 64>(p, splits, pdl, st);
-    case 128: return launch<X, 128>(p, splits, pdl, st);
-    default: return launch<X, 256>(p, splits, pdl, st);
+  }
+  if constexpr (X::kP > 1) {
+    return cudaErrorInvalidValue;
+  } else {
+    return rt == 128 ? launch<X, 128>(p, splits, pdl, st) : launch<X, 256>(p, splits, pdl, st);
   }
 }
 
@@ -494,8 +550,11 @@ int dispatch_clusters(int rt, int splits) {
     case 16: return clusters<X, 16>(splits);
     case 32: return clusters<X, 32>(splits);
     case 64: return clusters<X, 64>(splits);
-    case 128: return clusters<X, 128>(splits);
-    default: return clusters<X, 256>(splits);
+  }
+  if constexpr (X::kP > 1) {
+    return -1;
+  } else {
+    return rt == 128 ? clusters<X, 128>(splits) : clusters<X, 256>(splits);
   }
 }
 
@@ -503,20 +562,24 @@ int dispatch_clusters(int rt, int splits) {
 
 extern "C" {
 
-// x [R, K] (a8 = 0: bfloat16; a8 = 1: int8 x8 with sx [R] float32; K even),
-// q int8 packed [K/2, N] (tiled = 0) or panels [ceil(N / 128), K/2, 128]
-// (tiled = 1, bfloat16 x only), scale float32 [N], out [R, N] (out_dtype 0 =
-// float32, 1 = bfloat16); row tiles of `rt` rows (8, 16, .., 256); K split
-// over a cluster of `splits` (1..4) blocks. x and q 16-byte aligned; the
-// wrapper checks shapes, types and alignment and picks rt and splits. TMA
-// when the strides allow it (see the file note). pdl = 1 (a8 only): a
-// programmatic dependent launch after the kernel that wrote x8 and sx.
+// x (xtype kXBf16: bfloat16 [R, K]; kXS8: int8 x8 [R, K] with sx [R]
+// float32; kXPlanes: the bfloat16 planes [3, R, K] of f32 x,
+// split_bf16x3.cu; K even), q int8 packed [K/2, N] (tiled = 0) or panels
+// [ceil(N / 128), K/2, 128] (tiled = 1, not with x8), scale float32 [N], out
+// [R, N] (out_dtype 0 = float32, 1 = bfloat16); row tiles of `rt` rows (8,
+// 16, .., 256; planes up to kMaxRTPlanes); K split over a cluster of
+// `splits` (1..4) blocks. x and q 16-byte aligned; the wrapper checks
+// shapes, types and alignment and picks rt and splits. TMA when the strides
+// allow it (see the file note). pdl = 1 (x8, planes): a programmatic
+// dependent launch after the kernel that wrote x.
 int sequoia_qmm4_sm90(const void* x, const void* q, const void* sx, const void* scale, void* out,
-                      int R, int K, int N, int tiled, int a8, int rt, int splits, int out_dtype,
-                      int pdl, void* stream) {
+                      int R, int K, int N, int tiled, int xtype, int rt, int splits,
+                      int out_dtype, int pdl, void* stream) {
+  const bool a8 = xtype == kXS8;
   if (R <= 0 || K <= 0 || K % 2 || N <= 0 || splits < 1 || splits > kMaxSplit ||
-      out_dtype < 0 || out_dtype > 1 || (a8 && (sx == nullptr || tiled)) || rt < 8 ||
-      rt > kMaxRT || (rt & (rt - 1)))
+      out_dtype < 0 || out_dtype > 1 || xtype < kXBf16 || xtype > kXPlanes ||
+      (a8 && (sx == nullptr || tiled)) || rt < 8 ||
+      rt > (xtype == kXPlanes ? kMaxRTPlanes : kMaxRT) || (rt & (rt - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -534,16 +597,19 @@ int sequoia_qmm4_sm90(const void* x, const void* q, const void* sx, const void* 
   p.tma = (tiled || N % 16 == 0) && K % (a8 ? 16 : 8) == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a8 ? dispatch<XS8>(p, rt, splits, pdl != 0, st)
-            : dispatch<XBf16>(p, rt, splits, false, st);
+  if (a8) return dispatch<XS8>(p, rt, splits, pdl != 0, st);
+  if (xtype == kXPlanes) return dispatch<XPlanes>(p, rt, splits, pdl != 0, st);
+  return dispatch<XBf16>(p, rt, splits, false, st);
 }
 
-// Clusters of `splits` blocks of the kernel for row tile `rt` (a8 = 1: the
-// x8 instantiation) that the card holds at once
-// (cudaOccupancyMaxActiveClusters); negative on error.
-int sequoia_qmm4_sm90_max_clusters(int a8, int rt, int splits) {
+// Clusters of `splits` blocks of the kernel (x type `xtype`) for row tile
+// `rt` that the card holds at once (cudaOccupancyMaxActiveClusters);
+// negative on error.
+int sequoia_qmm4_sm90_max_clusters(int xtype, int rt, int splits) {
   if (splits < 1 || splits > kMaxSplit) return -1;
-  return a8 ? dispatch_clusters<XS8>(rt, splits) : dispatch_clusters<XBf16>(rt, splits);
+  if (xtype == kXS8) return dispatch_clusters<XS8>(rt, splits);
+  if (xtype == kXPlanes) return dispatch_clusters<XPlanes>(rt, splits);
+  return dispatch_clusters<XBf16>(rt, splits);
 }
 
 }  // extern "C"

@@ -1,8 +1,13 @@
-// int8-weight matmuls on Hopper's wgmma + TMA, one templated kernel with two
-// instantiations:
+// int8-weight matmuls on Hopper's wgmma + TMA, one templated kernel with
+// three instantiations:
 //   weight-only: out[R, N] = (x[R, K] bf16 @ q[K, N] int8) * scale[N], f32
 //     accumulation, cast once (replaces the Pallas kernel
 //     sequoia_tpu/kernels/quant_matmul.py::quant_matmul bits=8, _kernel_int8);
+//   weight-only with f32 x (the planes instantiation): the same product of
+//     x f32, given as its three bf16 planes [3, R, K] (x = b0 + b1 + b2
+//     exactly; split_bf16x3.cu, the kernel launched right before), so that
+//     every product runs exact on the bf16 tensor cores (replaces
+//     _kernel_int8 at f32 x, and the port's first, CUDA-core kernel);
 //   w8a8: out = float(x8[R, K] @ q[K, N]) * sx[r] * scale[n], in that order,
 //     the int8 product exact in int32 (the w8a8 route of
 //     sequoia_tpu/quant/qtensor.py::_matmul_w8a8, an XLA int8 dot there; x8
@@ -12,7 +17,8 @@
 //
 // Bound on the H100: the weight stream. At (K, N) = (4096, 11008) the int8
 // weight is 45 MB, 0.0135 ms at 3.35 TB/s; 2*R*K*N bf16 operations pass the
-// bytes only near R = 148 (int8 operations near R = 295).
+// bytes only near R = 148 (int8 operations near R = 295; f32 x, three bf16
+// passes, near R = 49).
 //
 // Design: the weight is streamed once for every R <= 256.
 // - A and B are swapped: out^T[N, R] = W^T[N, K] x^T[K, R]. The weight tile
@@ -61,13 +67,26 @@
 // - Capturable in a CUDA graph: the tensor maps are encoded on the host per
 //   call and passed by value (__grid_constant__), the shared-memory
 //   attribute is set once per instantiation, nothing synchronizes.
-// - w8a8 only: a programmatic dependent launch after the quantizer (which
-//   triggers its dependents as it starts). The producer sets up the
-//   barriers, prefetches the tensor maps and issues the weight boxes of the
-//   first kPdlStages ring stages while the quantizer still runs; then it,
-//   and each consumer before it reads sx, waits for the quantizer's grid
-//   (grid_dep_wait) before the first x8 box. The weight-only instantiation
-//   launches and loads as before.
+// - w8a8 and planes: a programmatic dependent launch after the quantizer
+//   or the split (which trigger their dependents as they start). The
+//   producer sets up the barriers, prefetches the tensor maps and issues
+//   the weight boxes of the first kPdlStages ring stages while that kernel
+//   still runs; then it waits for its grid (grid_dep_wait) before the first
+//   x box, and each w8a8 consumer before it reads sx. The bf16
+//   instantiation launches and loads as before.
+// - f32 x, the planes instantiation (P = 3): a stage holds the weight tile
+//   and one x tile per plane, all three in one 3-D TMA box over [3, R, K];
+//   each consumer builds a k step's fragment once, as for bf16 x, and
+//   issues one wgmma per plane into the same accumulator, in plane order,
+//   in the step's commit group. A product of a plane's bf16 value and an
+//   integer |w| <= 128 has at most 16 significant bits, so it is exact in
+//   f32: only the tensor cores' f32 summation, which truncates, differs
+//   from the plain version (1e-5 to 3e-5 of the largest |output| against
+//   an f64 product on the H100; PERF.md §6). Three x tiles a stage leave
+//   fewer stages, so the row tile stops at kMaxRTPlanes = 128 (4 stages of
+//   56 KB in a 224 KB budget; a cap of 64 was slower at 5 of the 8 7B
+//   shapes and R in {128, 256}, 16% summed over them, on an H100 80GB
+//   HBM3); R = 256 runs two row tiles, the second reading the weight from L2.
 
 #include "qmm_sm90.cuh"
 
@@ -78,13 +97,17 @@ using namespace sq::sm90;
 
 constexpr int kSmemBudget = 200 * 1024;
 
-template <bool A8, int RT>
+// P: x planes a stage (1, or kPlanes for f32 x split into bf16 planes).
+template <bool A8, int P, int RT>
 struct Cfg {
+  static constexpr bool kDep = A8 || P > 1;          // x is the output of the kernel before
   static constexpr int kKB = A8 ? 128 : 64;          // k per stage: 128 bytes of an x row
-  static constexpr int kXBytes = RT * kRowBytes;     // x tile: RT rows
+  static constexpr int kPlaneBytes = RT * kRowBytes; // one plane's x tile: RT rows
+  static constexpr int kXBytes = P * kPlaneBytes;
   static constexpr int kQBytes = kKB * kRowBytes;    // q tile: kKB rows of kBM bytes
   static constexpr int kStageBytes = kXBytes + kQBytes;
-  static constexpr int kStages = min_int(kSmemBudget / kStageBytes, kMaxStages);
+  static constexpr int kStages =
+      min_int((P > 1 ? kPlanesSmemBudget : kSmemBudget) / kStageBytes, kMaxStages);
   static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
   static constexpr int kChunkN = RT < 64 ? RT : 64;  // wgmma N of one instruction
   static constexpr int kChunks = RT / kChunkN;
@@ -95,7 +118,7 @@ struct Cfg {
 };
 
 struct Params {
-  const void* x;         // [R, K] bf16 (weight-only) or int8 (w8a8)
+  const void* x;         // [R, K] bf16 (weight-only) or int8 (w8a8); planes: [3, R, K] bf16
   const int8_t* q;       // [K, N]
   const float* sx;       // [R] (w8a8)
   const float* scale;    // [N]
@@ -108,28 +131,29 @@ struct Params {
 
 // The producer warp's copy of one stage where TMA cannot address the
 // tensors: the same bytes in the same swizzled layout, zero outside them.
-template <bool A8, int RT>
+template <bool A8, int P, int RT>
 __device__ void copy_stage(uint8_t* xs, uint8_t* qs, const Params& p, int k0, int r0, int n0,
                            int lane) {
-  using C = Cfg<A8, RT>;
-  for (int i = lane; i < RT * (kRowBytes / 4); i += 32) {
-    const int r = i / (kRowBytes / 4), b = (i % (kRowBytes / 4)) * 4, row = r0 + r;
+  using C = Cfg<A8, P, RT>;
+  for (int i = lane; i < P * RT * (kRowBytes / 4); i += 32) {
+    const int pl = i / (RT * (kRowBytes / 4)), j = i % (RT * (kRowBytes / 4));
+    const int r = j / (kRowBytes / 4), b = (j % (kRowBytes / 4)) * 4, row = r0 + r;
+    const int64_t src_row = static_cast<int64_t>(pl) * p.R + row;   // plane pl's row
     uint32_t v = 0;
     if (row < p.R) {
       if (A8) {
-        const int8_t* src = static_cast<const int8_t*>(p.x) + static_cast<int64_t>(row) * p.K;
+        const int8_t* src = static_cast<const int8_t*>(p.x) + src_row * p.K;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k0 + b + j < p.K) v |= uint32_t(static_cast<uint8_t>(src[k0 + b + j])) << (8 * j);
+        for (int e = 0; e < 4; ++e)
+          if (k0 + b + e < p.K) v |= uint32_t(static_cast<uint8_t>(src[k0 + b + e])) << (8 * e);
       } else {
-        const uint16_t* src =
-            static_cast<const uint16_t*>(p.x) + static_cast<int64_t>(row) * p.K;
+        const uint16_t* src = static_cast<const uint16_t*>(p.x) + src_row * p.K;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (k0 + b / 2 + j < p.K) v |= uint32_t(src[k0 + b / 2 + j]) << (16 * j);
+        for (int e = 0; e < 2; ++e)
+          if (k0 + b / 2 + e < p.K) v |= uint32_t(src[k0 + b / 2 + e]) << (16 * e);
       }
     }
-    *reinterpret_cast<uint32_t*>(xs + swz(r, b)) = v;
+    *reinterpret_cast<uint32_t*>(xs + pl * C::kPlaneBytes + swz(r, b)) = v;
   }
   for (int i = lane; i < C::kKB * (kRowBytes / 4); i += 32) {
     const int kr = i / (kRowBytes / 4), b = (i % (kRowBytes / 4)) * 4, k = k0 + kr;
@@ -189,11 +213,11 @@ __device__ __forceinline__ void load_a(const uint8_t* qs, const AOffsets<A8>& o,
   }
 }
 
-template <bool A8, int RT>
+template <bool A8, int P, int RT>
 __global__ void __launch_bounds__(kThreadsW, 1)
 qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
           const Params p) {
-  using C = Cfg<A8, RT>;
+  using C = Cfg<A8, P, RT>;
   using Acc = typename std::conditional<A8, int, float>::type;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -226,8 +250,8 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     // consumers and joins only the epilogue's two cluster barriers.
     setmaxnreg_dec<kProducerRegs>();
     const bool loader = warp == 0 && (lane == 0 || !p.tma);
-    int pre = 0;   // stages whose weight box went out before the wait (w8a8)
-    if constexpr (A8) {
+    int pre = 0;   // stages whose weight box went out before the wait (w8a8, planes)
+    if constexpr (C::kDep) {
       if (loader) {
         if (p.tma) {
           pre = min(nst, kPdlStages);
@@ -237,7 +261,7 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
             tma_load_2d(qs, &qmap, &full[s], n0, (s_begin + s) * C::kKB);
           }
         }
-        grid_dep_wait();   // x8 and sx are the quantizer's output
+        grid_dep_wait();   // x8 and sx are the quantizer's output, the planes the split's
       }
     }
     for (int s = 0; loader && s < nst; ++s) {
@@ -248,10 +272,11 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
       const int k0 = (s_begin + s) * C::kKB;
       if (p.tma) {
         if (s >= pre) mbar_arrive_expect_tx(&full[slot], C::kStageBytes);
-        tma_load_2d(xs, &xmap, &full[slot], k0, r0);
+        if (P > 1) tma_load_3d(xs, &xmap, &full[slot], k0, r0, 0);   // every plane's box
+        else tma_load_2d(xs, &xmap, &full[slot], k0, r0);
         if (s >= pre) tma_load_2d(qs, &qmap, &full[slot], n0, k0);
       } else {
-        copy_stage<A8, RT>(xs, qs, p, k0, r0, n0, lane);
+        copy_stage<A8, P, RT>(xs, qs, p, k0, r0, n0, lane);
         fence_proxy_async();   // x is read by wgmma, through the async proxy
         __syncwarp();
         if (lane == 0) mbar_arrive(&full[slot]);
@@ -289,24 +314,30 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     const int slot = s % C::kStages;
     mbar_wait(&full[slot], (s / C::kStages) & 1);
     const uint8_t* xs = smem + slot * C::kStageBytes;
-    uint64_t dsc[C::kSteps][C::kChunks];
+    uint64_t dsc[C::kSteps][P][C::kChunks];
     const uint64_t d0 = desc_k128(xs);
 #pragma unroll
     for (int ks = 0; ks < C::kSteps; ++ks)
 #pragma unroll
-      for (int j = 0; j < C::kChunks; ++j) {   // x rows [64j, 64j + 64), k bytes 32 ks..
-        dsc[ks][j] = d0 + ((j * 64 * kRowBytes) >> 4) + 2 * ks;
-        fence_reg(dsc[ks][j]);
-      }
+      for (int pl = 0; pl < P; ++pl)
+#pragma unroll
+        for (int j = 0; j < C::kChunks; ++j) {   // plane pl, x rows [64j, 64j + 64), k bytes 32 ks..
+          dsc[ks][pl][j] = d0 + ((pl * C::kPlaneBytes + j * 64 * kRowBytes) >> 4) + 2 * ks;
+          fence_reg(dsc[ks][pl][j]);
+        }
 #pragma unroll
     for (int ks = 0; ks < C::kSteps; ++ks) load_a<A8>(xs + C::kXBytes, offs, ks, a[ks]);
+    // Each k step: one fragment, read by the wgmmas of every plane (exact
+    // products: the planes' bf16 values times the weight's integers).
 #pragma unroll
     for (int ks = 0; ks < C::kSteps; ++ks) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) fence_reg(a[ks][i]);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < C::kChunks; ++j) wgmma_rs(acc[j], a[ks], dsc[ks][j]);
+      for (int pl = 0; pl < P; ++pl)
+#pragma unroll
+        for (int j = 0; j < C::kChunks; ++j) wgmma_rs(acc[j], a[ks], dsc[ks][pl][j]);
       wgmma_commit();
     }
     wgmma_wait<C::kSteps>();
@@ -338,67 +369,85 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 // Host side
 // ---------------------------------------------------------------------------
 
-template <bool A8, int RT>
+template <bool A8, int P, int RT>
 cudaError_t set_smem() {
   static bool done = false;   // above 48 KB only after this attribute; once
   if (!done) {
     const cudaError_t err = cudaFuncSetAttribute(
-        qmm8_sm90<A8, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<A8, RT>::kSmem);
+        qmm8_sm90<A8, P, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Cfg<A8, P, RT>::kSmem);
     if (err != cudaSuccess) return err;
     done = true;
   }
   return cudaSuccess;
 }
 
-template <bool A8, int RT>
+template <bool A8, int P, int RT>
 cudaError_t launch(const Params& p, int splits, bool pdl, cudaStream_t st) {
-  using C = Cfg<A8, RT>;
-  cudaError_t err = set_smem<A8, RT>();
+  using C = Cfg<A8, P, RT>;
+  cudaError_t err = set_smem<A8, P, RT>();
   if (err != cudaSuccess) return err;
   CUtensorMap xmap, qmap;
   memset(&xmap, 0, sizeof(xmap));
   memset(&qmap, 0, sizeof(qmap));
   if (p.tma) {
-    const bool ok =
-        encode_2d(&xmap, A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  p.x, p.K, p.R, static_cast<uint64_t>(p.K) * (A8 ? 1 : 2), C::kKB, RT) &&
-        encode_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, kBM, C::kKB);
+    const uint64_t xrow = static_cast<uint64_t>(p.K) * (A8 ? 1 : 2);
+    bool ok;
+    if (P > 1) {   // [P, R, K] bf16, boxes [P, RT, 64]: the stage's planes back to back
+      const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.K), static_cast<cuuint64_t>(p.R),
+                                  P};
+      const cuuint64_t strides[2] = {xrow, xrow * p.R};
+      const cuuint32_t box[3] = {C::kKB, RT, P};
+      ok = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x, 3, dims, strides, box);
+    } else {
+      ok = encode_2d(&xmap, A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     p.x, p.K, p.R, xrow, C::kKB, RT);
+    }
+    ok = ok && encode_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, kBM, C::kKB);
     if (!ok) return cudaErrorInvalidValue;
   }
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg =
-      launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr, A8 && pdl);
-  return cudaLaunchKernelEx(&cfg, qmm8_sm90<A8, RT>, xmap, qmap, p);
+      launch_config(splits, p.N, p.R, RT, C::kSmem, st, attr, C::kDep && pdl);
+  return cudaLaunchKernelEx(&cfg, qmm8_sm90<A8, P, RT>, xmap, qmap, p);
 }
 
-template <bool A8, int RT>
+template <bool A8, int P, int RT>
 int clusters(int splits) {
-  if (set_smem<A8, RT>() != cudaSuccess) return -1;
-  return max_clusters(reinterpret_cast<const void*>(qmm8_sm90<A8, RT>), splits, RT,
-                      Cfg<A8, RT>::kSmem);
+  if (set_smem<A8, P, RT>() != cudaSuccess) return -1;
+  return max_clusters(reinterpret_cast<const void*>(qmm8_sm90<A8, P, RT>), splits, RT,
+                      Cfg<A8, P, RT>::kSmem);
 }
 
-template <bool A8>
+// Row tiles up to 256; the planes instantiation up to kMaxRTPlanes (three
+// x tiles a stage: 4 stages of 56 KB at 128 rows).
+constexpr int kMaxRTPlanes = 128;
+
+template <bool A8, int P>
 int dispatch(const Params& p, int rt, int splits, bool pdl, cudaStream_t st) {
   switch (rt) {
-    case 8: return launch<A8, 8>(p, splits, pdl, st);
-    case 16: return launch<A8, 16>(p, splits, pdl, st);
-    case 32: return launch<A8, 32>(p, splits, pdl, st);
-    case 64: return launch<A8, 64>(p, splits, pdl, st);
-    case 128: return launch<A8, 128>(p, splits, pdl, st);
-    default: return launch<A8, 256>(p, splits, pdl, st);
+    case 8: return launch<A8, P, 8>(p, splits, pdl, st);
+    case 16: return launch<A8, P, 16>(p, splits, pdl, st);
+    case 32: return launch<A8, P, 32>(p, splits, pdl, st);
+    case 64: return launch<A8, P, 64>(p, splits, pdl, st);
+    case 128: return launch<A8, P, 128>(p, splits, pdl, st);
+    default:
+      if constexpr (P > 1) return cudaErrorInvalidValue;
+      else return launch<A8, P, 256>(p, splits, pdl, st);
   }
 }
 
-template <bool A8>
+template <bool A8, int P>
 int dispatch_clusters(int rt, int splits) {
   switch (rt) {
-    case 8: return clusters<A8, 8>(splits);
-    case 16: return clusters<A8, 16>(splits);
-    case 32: return clusters<A8, 32>(splits);
-    case 64: return clusters<A8, 64>(splits);
-    case 128: return clusters<A8, 128>(splits);
-    default: return clusters<A8, 256>(splits);
+    case 8: return clusters<A8, P, 8>(splits);
+    case 16: return clusters<A8, P, 16>(splits);
+    case 32: return clusters<A8, P, 32>(splits);
+    case 64: return clusters<A8, P, 64>(splits);
+    case 128: return clusters<A8, P, 128>(splits);
+    default:
+      if constexpr (P > 1) return -1;
+      else return clusters<A8, P, 256>(splits);
   }
 }
 
@@ -406,18 +455,22 @@ int dispatch_clusters(int rt, int splits) {
 
 extern "C" {
 
-// x [R, K] (a8 = 0: bfloat16; a8 = 1: int8 x8 with sx [R] float32), q int8
-// [K, N], scale float32 [N], out [R, N] (out_dtype 0 = float32,
-// 1 = bfloat16); row tiles of `rt` rows (8, 16, .., 256); K split over a
-// cluster of `splits` (1..4) blocks. x and q 16-byte aligned; the wrapper
-// checks shapes, types and alignment and picks rt and splits. TMA when the
-// strides allow it (see the file note). pdl = 1 (a8 only): a programmatic
-// dependent launch after the kernel that wrote x8 and sx.
+// x (xtype kXBf16: bfloat16 [R, K]; kXS8: int8 x8 [R, K] with sx [R]
+// float32; kXPlanes: the bfloat16 planes [3, R, K] of f32 x,
+// split_bf16x3.cu), q int8 [K, N], scale float32 [N], out [R, N] (out_dtype
+// 0 = float32, 1 = bfloat16); row tiles of `rt` rows (8, 16, .., 256; planes
+// up to kMaxRTPlanes); K split over a cluster of `splits` (1..4) blocks. x
+// and q 16-byte aligned; the wrapper checks shapes, types and alignment and
+// picks rt and splits. TMA when the strides allow it (see the file note).
+// pdl = 1 (x8, planes): a programmatic dependent launch after the kernel
+// that wrote x.
 int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* scale, void* out,
-                      int R, int K, int N, int a8, int rt, int splits, int out_dtype, int pdl,
+                      int R, int K, int N, int xtype, int rt, int splits, int out_dtype, int pdl,
                       void* stream) {
+  const bool a8 = xtype == kXS8;
   if (R <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > kMaxSplit || out_dtype < 0 ||
-      out_dtype > 1 || (a8 && sx == nullptr) || rt < 8 || rt > kMaxRT || (rt & (rt - 1)))
+      out_dtype > 1 || xtype < kXBf16 || xtype > kXPlanes || (a8 && sx == nullptr) || rt < 8 ||
+      rt > (xtype == kXPlanes ? kMaxRTPlanes : kMaxRT) || (rt & (rt - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -435,15 +488,19 @@ int sequoia_qmm8_sm90(const void* x, const void* q, const void* sx, const void* 
   p.tma = N % 16 == 0 && K % (a8 ? 16 : 8) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(q) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a8 ? dispatch<true>(p, rt, splits, pdl != 0, st)
-            : dispatch<false>(p, rt, splits, false, st);
+  if (a8) return dispatch<true, 1>(p, rt, splits, pdl != 0, st);
+  if (xtype == kXPlanes) return dispatch<false, kPlanes>(p, rt, splits, pdl != 0, st);
+  return dispatch<false, 1>(p, rt, splits, false, st);
 }
 
-// Clusters of `splits` blocks of the kernel for row tile `rt` that the card
-// holds at once (cudaOccupancyMaxActiveClusters); negative on error.
-int sequoia_qmm8_sm90_max_clusters(int a8, int rt, int splits) {
+// Clusters of `splits` blocks of the kernel (x type `xtype`) for row tile
+// `rt` that the card holds at once (cudaOccupancyMaxActiveClusters);
+// negative on error.
+int sequoia_qmm8_sm90_max_clusters(int xtype, int rt, int splits) {
   if (splits < 1 || splits > kMaxSplit) return -1;
-  return a8 ? dispatch_clusters<true>(rt, splits) : dispatch_clusters<false>(rt, splits);
+  if (xtype == kXS8) return dispatch_clusters<true, 1>(rt, splits);
+  if (xtype == kXPlanes) return dispatch_clusters<false, kPlanes>(rt, splits);
+  return dispatch_clusters<false, 1>(rt, splits);
 }
 
 }  // extern "C"

@@ -43,7 +43,7 @@ SIGNATURES = {
     "sequoia_top_p_fused": [_c_void_p, _c_void_p, _c_int, _c_int, _c_double,
                             _c_int, _c_void_p],
     "sequoia_top_p_empty": [_c_int, _c_int, _c_int, _c_void_p],
-    "sequoia_quant_matmul_f32": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],
+    "sequoia_split_bf16x3": [_c_void_p] * 2 + [_c_int] * 2 + [_c_void_p],
     "sequoia_quantize_activations": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
     "sequoia_empty_kernel": [_c_int, _c_int, _c_void_p],
     "sequoia_qmm8_sm90": [_c_void_p] * 5 + [_c_int] * 8 + [_c_void_p],
@@ -59,7 +59,7 @@ launches = dict.fromkeys((
     "top_p_threshold_fused_cluster", "quant_matmul_int8", "quant_matmul_int8_wgmma",
     "quant_matmul_int4", "quant_matmul_int4_wgmma", "quant_matmul_tiled",
     "quant_matmul_tiled_wgmma", "quantize_activations", "quant_matmul_w8a8_wgmma",
-    "quant_matmul_w4a8"), 0)
+    "quant_matmul_w4a8", "split_bf16x3"), 0)
 
 _lib = None
 _lock = threading.Lock()

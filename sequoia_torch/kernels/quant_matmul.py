@@ -42,9 +42,13 @@ tensor it runs its plain version. The kernels:
 - the activation quantizer of w4a8 and w8a8 (`quantize_activations`):
   `csrc/quant_matmul_a8.cu`; the matmul after it is a programmatic
   dependent launch, whose set-up overlaps the quantizer;
-- f32 x (the f32 test models), every weight format: the CUDA cores in full
-  f32, `csrc/quant_matmul.cu` (counters `quant_matmul_int8`,
-  `quant_matmul_int4`, `quant_matmul_tiled`).
+- f32 x, every weight format (the f32 models): x split exactly into three
+  bf16 planes (`split_bf16x3`, `csrc/split_bf16x3.cu`), then the planes
+  instantiation of the int8 or int4 wgmma kernel, a programmatic dependent
+  launch after the split: one weight fragment feeds a wgmma per plane, each
+  product exact, so only the f32 summation differs from the plain version
+  (counters `quant_matmul_int8`, `quant_matmul_int4`, `quant_matmul_tiled`;
+  `quant_matmul_f32x3_model` is the CPU model of its decomposition).
 What differs from the TPU versions: no block-size arguments (Pallas's VMEM
 budget has no meaning here); no padding of q, x or scale (the kernels mask
 ragged edges); the K axis is split across the blocks of a cluster where the
@@ -62,7 +66,6 @@ import torch
 from . import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_F32_NAME = {8: "quant_matmul_int8", 4: "quant_matmul_int4"}
 UNPACK = ("auto", "shift", "float", "w4a8")
 _BN = 128                   # the tiled kernels' bn0
 # Kernel geometry, as in csrc/quant_matmul_int8_sm90.cu and
@@ -70,8 +73,13 @@ _BN = 128                   # the tiled kernels' bn0
 SM90_BM = 128               # output columns per block (two warpgroups of 64)
 # Logical k per stage: 128 bytes of a bf16 x row (int8), of an x8 row
 # (w8a8), or 64 packed q rows (int4 and w4a8: their low and high nibbles).
-SM90_KB = {"int8": 64, "w8a8": 128, "int4": 128, "w4a8": 128}
+SM90_KB = {"int8": 64, "w8a8": 128, "int4": 128, "w4a8": 128, "int8_f32": 64, "int4_f32": 128}
 SM90_MAX_RT = 256           # rows per block (wgmma's largest N)
+# The planes instantiations (f32 x) hold three x tiles a stage, so their row
+# tiles stop lower (kMaxRTPlanes of the two kernels).
+SM90_F32_MAX_RT = {"int8_f32": 128, "int4_f32": 64}
+# Each kind's x type, as the C entries number it: bf16, int8 x8, bf16 planes.
+_XTYPE = {"int8": 0, "int4": 0, "w8a8": 1, "w4a8": 1, "int8_f32": 2, "int4_f32": 2}
 SM90_MAX_SPLIT = 4          # blocks per cluster, each a slice of K
 
 
@@ -100,6 +108,26 @@ def quantize_activations_plain(x: torch.Tensor):
     sx = amax.clamp_min(1e-8) / torch.full((), 127.0, device=x.device)
     x8 = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
     return x8, sx
+
+
+def split_bf16x3_plain(x: torch.Tensor) -> torch.Tensor:
+    """f32 x `[R, K]` -> bf16 planes `[3, R, K]` with x = b0 + b1 + b2, by
+    truncation on the f32 bit patterns: b0 is x with its low 16 bits zeroed,
+    r = x - b0 (exact), b1 is r with its low 16 bits zeroed, b2 = r - b1
+    (exact); each plane is the high half of its f32 bits, each residual
+    takes x's sign (so -0 gives three -0). b0 and b1 are bf16 values by
+    construction; b2 has at most 8 significant bits, all at or above 2^-133
+    (bf16's least subnormal) wherever |x| >= 2^-110, so there the planes sum
+    back to x exactly (in f32, in plane order). Below, b2 is truncated
+    toward zero: |x - (b0 + b1 + b2)| < 2^-133. `csrc/split_bf16x3.cu` does
+    the same, bit for bit."""
+    u = x.contiguous().view(torch.int32)
+    sign = u & torch.iinfo(torch.int32).min
+    high = -(1 << 16)                    # 0xFFFF0000
+    r = (x - (u & high).view(torch.float32)).view(torch.int32) | sign
+    r2 = (r.view(torch.float32) - (r & high).view(torch.float32)).view(torch.int32) | sign
+    # An arithmetic shift leaves each high half as a signed 16-bit integer.
+    return (torch.stack([u, r, r2]) >> 16).to(torch.int16).view(torch.bfloat16)
 
 
 QUANT_MAX_VECS, QUANT_MAX_THREADS = 4, 512
@@ -188,14 +216,17 @@ def sm90_tiling(R: int, K: int, N: int, kind: str, max_clusters) -> tuple:
     """`(row tile, cluster size)` of wgmma kernel `kind` (`SM90_KB`), the
     one place that picks both for the int8 and the int4 kernels;
     `max_clusters(rt, c)` as in `split_cluster`, for blocks of `rt` rows.
-    The row tile is `row_tile(R)`, except that w4a8 above 128 rows takes
-    128-row tiles where their clusters fit one wave and occupy more blocks
-    (at N = 4096 and R = 256: 64 tiles in clusters of 2 on 128 SMs, against
-    32 in clusters of 3); csrc/quant_matmul_int4_sm90.cu, file note. Only
-    w4a8 takes that rule because only w4a8 was timed with it; the other
-    kinds keep the tiling their times were taken with (ROADMAP B′1)."""
+    The row tile is `row_tile(R)`, with two exceptions. The planes
+    instantiations (f32 x: "int8_f32", "int4_f32") stop at
+    `SM90_F32_MAX_RT`; above it R runs several row tiles, the later ones
+    reading the weight from L2. w4a8 above 128 rows takes 128-row tiles
+    where their clusters fit one wave and occupy more blocks (at N = 4096
+    and R = 256: 64 tiles in clusters of 2 on 128 SMs, against 32 in
+    clusters of 3); csrc/quant_matmul_int4_sm90.cu, file note. Only w4a8
+    takes that rule because only w4a8 was timed with it; the other kinds
+    keep the tiling their times were taken with (ROADMAP B′1)."""
     kb = SM90_KB[kind]
-    rt = row_tile(R)
+    rt = min(row_tile(R), SM90_F32_MAX_RT.get(kind, SM90_MAX_RT))
     c = split_cluster(R, K, N, kb, functools.partial(max_clusters, rt), rt)
     if kind == "w4a8" and rt > 128:
         c2 = split_cluster(R, K, N, kb, functools.partial(max_clusters, 128), 128)
@@ -260,6 +291,41 @@ def quant_matmul_int4_sm90_model(x, q, scale, *, splits: int = 1, out_dtype=None
             k1 = min(Kq, k0 + 16)
             acc += xf[:, k0:k1] @ lo[k0:k1]
             acc += xf[:, Kq + k0:Kq + k1] @ hi[k0:k1]
+        total = acc if total is None else total + acc
+    return (total * scale.float().reshape(1, -1)).to(out_dtype or x.dtype)
+
+
+def quant_matmul_f32x3_model(x, q, scale, *, bits: int, splits: int = 1, out_dtype=None):
+    """CPU model of the f32-x route's decomposition (`split_bf16x3`, then the
+    planes instantiation of `csrc/quant_matmul_int8_sm90.cu` at bits 8 or
+    `csrc/quant_matmul_int4_sm90.cu` at bits 4), on no path: x split into
+    three bf16 planes (`split_bf16x3_plain`); the K rows of q (int8) or K/2
+    packed rows (int4) cut in stages of 64, dealt to `splits` cluster ranks
+    in contiguous runs of ceil(stages / splits); each rank sums its stages
+    in order, each stage's 16-row k steps in order, each step (int4: the low
+    nibbles' product, then the high nibbles') the products of planes 0, 1
+    and 2 in order, in f32; the ranks' partials are added in rank order;
+    then `acc * scale`. `q` as for the int8 and int4 models (int4 panels
+    are untiled first)."""
+    R, K = x.shape
+    N = scale.shape[-1]
+    planes = split_bf16x3_plain(x.float()).float()
+    if bits == 8:
+        Kq, halves = K, [(0, q.float())]    # (x column of weight row 0, weight rows)
+    else:
+        Kq = K // 2
+        w = unpack_int4(untile(q, N) if q.dim() == 3 else q).float()
+        halves = [(0, w[:Kq]), (Kq, w[Kq:])]
+    kp = SM90_KB["int8_f32"] if bits == 8 else SM90_KB["int4_f32"] // 2
+    per = math.ceil(math.ceil(Kq / kp) / splits) * kp
+    total = None
+    for b in range(splits):
+        acc = torch.zeros((R, N), dtype=torch.float32)
+        for k0 in range(b * per, min(Kq, (b + 1) * per), 16):
+            k1 = min(Kq, k0 + 16)
+            for off, wh in halves:
+                for p in range(3):
+                    acc += planes[p, :, off + k0:off + k1] @ wh[k0:k1]
         total = acc if total is None else total + acc
     return (total * scale.float().reshape(1, -1)).to(out_dtype or x.dtype)
 
@@ -348,72 +414,80 @@ def _check(x, q, scale, bits, out_dtype, *, tiled=False):
             raise ValueError(f"{name}: {nm} is not 16-byte aligned")
 
 
-def _launch_f32(counter, x, q, scale, bits, out_dtype, *, tiled=False):
-    """The CUDA-core kernel: f32 x, any weight format."""
-    R, K = x.shape
-    N = scale.shape[-1]
-    out = torch.empty((R, N), dtype=out_dtype, device=x.device)
-    rc = build.load().sequoia_quant_matmul_f32(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, K, N, bits,
-        int(tiled), _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, counter)
-    build.launches[counter] += 1
-    return out
-
-
 @functools.lru_cache(maxsize=64)
 def _max_clusters(kind: str, rt: int, c: int, device: int) -> int:
     with torch.cuda.device(device):
         lib = build.load()
-        if kind in ("int4", "w4a8"):
-            return lib.sequoia_qmm4_sm90_max_clusters(int(kind == "w4a8"), rt, c)
-        return lib.sequoia_qmm8_sm90_max_clusters(int(kind == "w8a8"), rt, c)
+        fn = (lib.sequoia_qmm4_sm90_max_clusters if kind in ("int4", "w4a8", "int4_f32")
+              else lib.sequoia_qmm8_sm90_max_clusters)
+        return fn(_XTYPE[kind], rt, c)
 
 
 @functools.lru_cache(maxsize=1024)
 def _sm90_tiling(R: int, K: int, N: int, kind: str, device: int) -> tuple:
-    """`sm90_tiling` of wgmma kernel `kind` ("int8", "w8a8", "int4", "w4a8")
-    on the card `device`."""
+    """`sm90_tiling` of wgmma kernel `kind` (a key of `SM90_KB`) on the card
+    `device`."""
     return sm90_tiling(R, K, N, kind, functools.partial(_max_clusters, kind, device=device))
 
 
 def _launch_int8_sm90(x, q, scale, out_dtype, sx=None, *, pdl=False):
-    """The int8 wgmma kernel: bf16 x, or int8 x8 with its row scales `sx`;
-    `pdl`: a programmatic dependent launch after the kernel that wrote them
-    (the quantizer, right before it in the stream)."""
-    R, K = x.shape
+    """The int8 wgmma kernel: bf16 x, int8 x8 with its row scales `sx`, or
+    the bf16 planes `[3, R, K]` of f32 x (`split_bf16x3`); `pdl` (x8,
+    planes): a programmatic dependent launch after the kernel that wrote x
+    (the quantizer or the split, right before it in the stream)."""
+    R, K = x.shape[-2:]
     N = q.shape[1]
-    a8 = sx is not None
-    rt, splits = _sm90_tiling(R, K, N, "w8a8" if a8 else "int8", x.device.index)
+    kind = "w8a8" if sx is not None else "int8_f32" if x.dim() == 3 else "int8"
+    rt, splits = _sm90_tiling(R, K, N, kind, x.device.index)
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     rc = build.load().sequoia_qmm8_sm90(
-        x.data_ptr(), q.data_ptr(), sx.data_ptr() if a8 else None, scale.data_ptr(),
-        out.data_ptr(), R, K, N, int(a8), rt, splits, _DTYPE_CODE[out_dtype], int(a8 and pdl),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    counter = "quant_matmul_w8a8_wgmma" if a8 else "quant_matmul_int8_wgmma"
+        x.data_ptr(), q.data_ptr(), None if sx is None else sx.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), R, K, N, _XTYPE[kind], rt, splits, _DTYPE_CODE[out_dtype],
+        int(_XTYPE[kind] > 0 and pdl), torch.cuda.current_stream(x.device).cuda_stream)
+    counter = {"w8a8": "quant_matmul_w8a8_wgmma", "int8_f32": "quant_matmul_int8",
+               "int8": "quant_matmul_int8_wgmma"}[kind]
     build.check(rc, counter)
     build.launches[counter] += 1
     return out
 
 
 def _launch_int4_sm90(x, q, scale, out_dtype, *, tiled=False, sx=None, pdl=False):
-    """The int4 wgmma kernel: bf16 x, packed `[K/2, N]` or panel-tiled q;
-    or row-major q with int8 x8 and its row scales `sx` (w4a8); `pdl` as in
-    `_launch_int8_sm90`."""
-    R, K = x.shape
+    """The int4 wgmma kernel: bf16 x, or the bf16 planes `[3, R, K]` of f32
+    x, on packed `[K/2, N]` or panel-tiled q; or row-major q with int8 x8
+    and its row scales `sx` (w4a8); `pdl` as in `_launch_int8_sm90`."""
+    R, K = x.shape[-2:]
     N = scale.shape[-1]
-    a8 = sx is not None
-    rt, splits = _sm90_tiling(R, K, N, "w4a8" if a8 else "int4", x.device.index)
+    kind = "w4a8" if sx is not None else "int4_f32" if x.dim() == 3 else "int4"
+    rt, splits = _sm90_tiling(R, K, N, kind, x.device.index)
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     rc = build.load().sequoia_qmm4_sm90(
-        x.data_ptr(), q.data_ptr(), sx.data_ptr() if a8 else None, scale.data_ptr(),
-        out.data_ptr(), R, K, N, int(tiled), int(a8), rt, splits, _DTYPE_CODE[out_dtype],
-        int(a8 and pdl), torch.cuda.current_stream(x.device).cuda_stream)
-    counter = ("quant_matmul_w4a8" if a8 else
-               "quant_matmul_tiled_wgmma" if tiled else "quant_matmul_int4_wgmma")
+        x.data_ptr(), q.data_ptr(), None if sx is None else sx.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), R, K, N, int(tiled), _XTYPE[kind], rt, splits, _DTYPE_CODE[out_dtype],
+        int(_XTYPE[kind] > 0 and pdl), torch.cuda.current_stream(x.device).cuda_stream)
+    name = "quant_matmul_tiled" if tiled else "quant_matmul_int4"
+    counter = {"w4a8": "quant_matmul_w4a8", "int4_f32": name, "int4": name + "_wgmma"}[kind]
     build.check(rc, counter)
     build.launches[counter] += 1
     return out
+
+
+def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 planes `[3, R, K]` of f32 x `[R, K]`: see
+    `split_bf16x3_plain`. One kernel on the card (`csrc/split_bf16x3.cu`)."""
+    if x.device.type == "cpu":
+        return split_bf16x3_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"split_bf16x3: x {tuple(x.shape)} {x.dtype} must be a contiguous "
+                         "2-D float32 tensor")
+    R, K = x.shape
+    planes = torch.empty((3, R, K), dtype=torch.bfloat16, device=x.device)
+    rc = build.load().sequoia_split_bf16x3(x.data_ptr(), planes.data_ptr(), R, K,
+                                           torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "split_bf16x3")
+    build.launches["split_bf16x3"] += 1
+    return planes
 
 
 def quantize_activations(x: torch.Tensor):
@@ -444,6 +518,16 @@ def _quant_matmul_w4a8(x, q, scale, out_dtype):
     return _launch_int4_sm90(x8, q, scale, out_dtype, sx=sx, pdl=True)
 
 
+def _quant_matmul_f32(x, q, scale, out_dtype, *, bits, tiled=False):
+    """f32 x: split into three bf16 planes, then the planes instantiation
+    of the int8 or int4 wgmma kernel, a programmatic dependent launch after
+    the split."""
+    planes = split_bf16x3(x)
+    if bits == 8:
+        return _launch_int8_sm90(planes, q, scale, out_dtype, pdl=True)
+    return _launch_int4_sm90(planes, q, scale, out_dtype, tiled=tiled, pdl=True)
+
+
 def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"):
     """`out [R, N]` = `x @ dequant(q) * scale` (see module doc). `unpack`
     (int4 only): "auto", "shift" and "float" are the one weight-only kernel;
@@ -462,7 +546,7 @@ def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"
         return _quant_matmul_w4a8(x, q, scale, out_dtype)
     _check(x, q, scale, bits, out_dtype)
     if x.dtype == torch.float32:
-        return _launch_f32(_F32_NAME[bits], x, q, scale, bits, out_dtype)
+        return _quant_matmul_f32(x, q, scale, out_dtype, bits=bits)
     if bits == 8:
         return _launch_int8_sm90(x, q, scale, out_dtype)
     return _launch_int4_sm90(x, q, scale, out_dtype)
@@ -491,5 +575,5 @@ def quant_matmul_tiled(x, q, scale, *, out_dtype=None):
     out_dtype = out_dtype or x.dtype
     _check(x, q, scale, 4, out_dtype, tiled=True)
     if x.dtype == torch.float32:
-        return _launch_f32("quant_matmul_tiled", x, q, scale, 4, out_dtype, tiled=True)
+        return _quant_matmul_f32(x, q, scale, out_dtype, bits=4, tiled=True)
     return _launch_int4_sm90(x, q, scale, out_dtype, tiled=True)

@@ -241,7 +241,8 @@ def test_quant_matmul_kernel_matches_plain(bits, R, K, N, out_dtype):
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("R,K,N", [(3, 96, 200), (64, 128, 256), (17, 4096, 4096)])
 def test_quant_matmul_f32_x_matches_plain(bits, R, K, N):
-    """f32 x runs on the CUDA cores in f32: within 1e-4."""
+    """f32 x runs on the tensor cores as three exact bf16 planes: within
+    1e-4."""
     _need_cuda()
     x, q, scale = _qmm_inputs(R, K, N, bits, torch.float32, R + bits)
     got = qmm.quant_matmul(x, q, scale, bits=bits)
@@ -259,7 +260,8 @@ def test_quant_matmul_f32_x_matches_plain(bits, R, K, N):
 ])
 def test_quant_matmul_tiled_kernel_matches_plain(R, K, N, out_dtype, x_dtype):
     """The panel-tiled int4 kernels (bf16 x: the wgmma kernel's 3-D tensor
-    map; f32 x: the CUDA cores) at the row-major int4 kernel's tolerances."""
+    map; f32 x: its planes instantiation) at the row-major int4 kernel's
+    tolerances."""
     _need_cuda()
     x, q, scale = _qmm_inputs(R, K, N, 4, x_dtype, R + K + N)
     tiled = tile_int4(QuantizedTensor(q, scale))
@@ -374,7 +376,9 @@ def test_quant_matmul_raises_instead_of_falling_back():
     assert qmm.build.launches["quant_matmul_int8_wgmma"] == before["quant_matmul_int8_wgmma"] + 1
     qmm.quant_matmul(x.float(), q, scale, bits=8)
     assert qmm.build.launches["quant_matmul_int8"] == before["quant_matmul_int8"] + 1
-    # int4 and tiled int4: bf16 x on the wgmma kernel, f32 x on the CUDA cores
+    assert qmm.build.launches["split_bf16x3"] == before["split_bf16x3"] + 1
+    # int4 and tiled int4: bf16 x on the wgmma kernel, f32 x split into bf16
+    # planes and on its planes instantiation
     _, q4, scale4 = _qmm_inputs(4, 96, 200, 4, torch.bfloat16, 1)
     tiled = tile_int4(QuantizedTensor(q4, scale4))
     calls = (("quant_matmul_int4", lambda x: qmm.quant_matmul(x, q4, scale4, bits=4)),
@@ -387,6 +391,7 @@ def test_quant_matmul_raises_instead_of_falling_back():
         call(x.float())
         assert qmm.build.launches[name] == before[name] + 1
         assert qmm.build.launches[name + "_wgmma"] == before[name + "_wgmma"] + 1
+        assert qmm.build.launches["split_bf16x3"] == before["split_bf16x3"] + 1
 
 
 def test_boundary_disagreements_rejects_a_real_difference():
