@@ -18,22 +18,22 @@ Phases, each fatal on failure:
      tree size, twice on each input, timed on peaked, flat, uniform and
      tied rows, beside an empty kernel of its grid;
      the quant matmuls (the wgmma kernels: int8 weight-only, w8a8, int4,
-     panel-tiled int4 and w4a8 at R in {1, 16, 64, 128, 256} and 300, each with its load path,
-     cluster split, row tile and stage depth; the f32-x route for int8,
-     int4 and tiled int4, the split into bf16 planes and the planes
-     instantiations, at R in {1, 16, 64, 128, 256}, with its error against
-     an f64 product beside cuBLAS f32's and two launches held to equal
-     bits) at every 7B projection shape and the lm_head, plus a ragged
-     small shape; the split alone against its plain version, bit for bit; the two int8-activation routes (w4a8, w8a8)
-     with every cycled call of the timing graph held to its plain version,
-     the quantizer and the matmul timed apart and together, with and
-     without the programmatic dependent launch, and w4a8 beside the bf16-x
-     int4 kernel; the activation quantizer against an empty kernel of its
-     grid. With device times (CUDA graphs of many launches, timed with CUDA
-     events), the least time the card could take, and the time of one
-     PyTorch library call where one computes the same function; and the
-     host time of one quantized projection call against one torch.matmul
-     on the bf16 weight;
+     panel-tiled int4 and w4a8 at R in {1, 16, 64, 128, 256} and 300, each
+     with its load path, cluster split, row tile and stage depth; the f32-x
+     route for int8, int4 and tiled int4, the split into bf16 planes and
+     the planes instantiations, at R in {1, 16, 64, 128, 256}, with its
+     error against an f64 product beside cuBLAS f32's and two launches held
+     to equal bits) at every 7B projection shape and the lm_head, plus a
+     ragged small shape; the split alone against its plain version, bit for
+     bit; the two int8-activation routes (w4a8, w8a8) with every cycled
+     call of the timing graph held to its plain version, the quantizer and
+     the matmul timed apart and together, with and without the programmatic
+     dependent launch, and w4a8 beside the bf16-x int4 kernel; the
+     activation quantizer against an empty kernel of its grid. With device
+     times (CUDA graphs of many launches, timed with CUDA events), the least
+     time the card could take, and the time of one PyTorch library call
+     where one computes the same function; and the host time of one
+     quantized projection call against one torch.matmul on the bf16 weight;
   4. small parity: test-small, f32, on the card, with an f32, an int8, an
      int4 and a tiled-int4 target: greedy speculative decoding equals greedy
      AR token for token, the kernel forward equals the CPU forward, and
@@ -75,6 +75,7 @@ this file.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -617,16 +618,17 @@ def check_quant_matmul(torch, results):
     activation-quantized routes (w4a8, w8a8) 0: exact int32 products and
     the plain version's order of the f32 rescale give equal bits. Timing
     cycles through enough weight matrices that a pass exceeds the 50 MB L2;
-    the activation-quantized routes also through as many inputs x, and
-    every call captured in the timing graph is held to its plain version
-    after the replays (a consumer that read x8 before the quantizer wrote
-    it would show the previous call's x8). For them the line also gives,
-    at R in A8_PART_ROWS, the route without the programmatic dependent
-    launch, the matmul alone on x8 quantized beforehand and the quantizer
-    alone, so that what the launch hides reads off; and, for w4a8, the
-    bf16-x int4 kernel on the same weights. The library
-    yardstick is torch.matmul on the dequantized weight (cuBLAS; bf16, twice
-    the int8 bytes, or f32 for f32 x); beside it torch._weight_int8pack_mm
+    the activation-quantized and f32-x routes also through as many inputs
+    x, and every call captured in the timing graph is held to its plain
+    version after the replays (a matmul that read x8 or the planes before
+    the kernel before it wrote them would show the previous call's). For
+    them the line also gives, at R in A8_PART_ROWS, the route without the
+    programmatic dependent launch, the matmul alone on x quantized (or
+    split) beforehand and the quantizer (or split) alone, so that what the
+    launch hides reads off (`dep_times`); and, for w4a8, the bf16-x int4
+    kernel on the same weights. The library yardstick is torch.matmul on
+    the dequantized weight (cuBLAS; bf16, twice the int8 bytes, or f32 for
+    f32 x); beside it torch._weight_int8pack_mm
     for int8, and torch._int_mm (the int8 x int8 product alone, without
     quantizer and rescale) for w8a8, where the installed PyTorch takes the
     shape. The wgmma kernels' times against the kernels they replaced come
@@ -659,8 +661,12 @@ def check_quant_matmul(torch, results):
             qs = [tile_int4(QuantizedTensor(q, s)).q for q, s in zip(rowmajor, ss)] \
                 if tiled else rowmajor
             x = torch.randn(R, K, generator=gen, device="cuda").to(x_dt)
+            # Routes whose matmul waits for the kernel that prepares x: x is
+            # cycled with the weights, and each replayed call held to its
+            # plain version.
+            dep = a8 or name in F32_KERNELS
             xc = [x] + [torch.randn(R, K, generator=gen, device="cuda").to(x_dt)
-                        for _ in range(n - 1 if a8 else 0)]
+                        for _ in range(n - 1 if dep else 0)]
             xi = lambda i: xc[i % len(xc)]  # noqa: E731  the input of cycled call i
             before = build.launches[name]
             got = kernel(x, qs[0], ss[0], out_dt)
@@ -681,15 +687,17 @@ def check_quant_matmul(torch, results):
             plain = [lambda i=i: plain_fn(xi(i), qs[i], ss[i], out_dt) for i in range(n)]
             replayed = []
             ms, plain_ms = device_ms(kern, replays=10, outs=replayed), device_ms(plain, replays=3)
-            a8_line = ""
-            if a8:
+            dep_line = ""
+            if dep:
                 for i, o in enumerate(replayed):
-                    e = (o.float() - plain_fn(xi(i), qs[i], ss[i], out_dt).float()).abs().max()
-                    err = max(err, e.item())
-                if err != 0:
-                    fail(f"{name} R={R} K={K} N={N}: a call replayed in the graph differs "
-                         f"from its plain version: max |err| {err}")
-                a8_line = a8_times(qm, name, R, K, N, qs, ss, xi, out_dt, ms)
+                    want_i = plain_fn(xi(i), qs[i], ss[i], out_dt).float()
+                    e = (o.float() - want_i).abs().max().item()
+                    if not torch.allclose(o.float(), want_i, rtol=tol,
+                                          atol=tol * want_i.abs().max().item()):
+                        fail(f"{name} R={R} K={K} N={N}: call {i} replayed in the graph "
+                             f"differs from its plain version: max |err| {e} (tol {tol})")
+                    err = max(err, e)
+                dep_line = dep_times(qm, name, R, K, N, qs, ss, xi, out_dt, ms)
             del replayed
             deq = [dequantize(QuantizedTensor(rowmajor[i], ss[i]), K, x_dt) for i in range(n)]
             lib_ms = device_ms([lambda i=i: torch.matmul(x, deq[i]) for i in range(n)],
@@ -750,7 +758,7 @@ def check_quant_matmul(torch, results):
                 f"cuBLAS {xs} dequantized {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
                 + (f"  {other} {other_ms:.4f} ms" if other_ms is not None else "")
                 + f"  bound {bound:.5f} ms ({by}, {ms / bound:.2f}x)"
-                f"  [{n} weights cycled]{f64}{a8_line}{route}"
+                f"  [{n} weights cycled]{f64}{dep_line}{route}"
                 + (f"; host µs per qtensor.matmul call: quantized {host[0]:.1f}, "
                    f"bf16 weight {host[1]:.1f}" if host is not None else ""))
             if (R, K, N, xs) == qmm_report(name):
@@ -767,28 +775,36 @@ def check_quant_matmul(torch, results):
     check_split(torch, qm, gen, results)
 
 
-def a8_times(qm, name, R, K, N, qs, ss, xi, out_dt, ms):
-    """The parts of an int8-activation route (w4a8 or w8a8) at one shape,
-    device ms: for w4a8 the bf16-x int4 kernel on the same weights and
-    inputs; at R in A8_PART_ROWS, the route without the programmatic
-    dependent launch, the matmul alone on x8 quantized beforehand, the
-    quantizer alone, and what the launch hides of the route."""
+def dep_times(qm, name, R, K, N, qs, ss, xi, out_dt, ms):
+    """The parts of a route whose matmul is a programmatic dependent launch
+    after the kernel that prepares x (w4a8 and w8a8: the quantizer; the
+    f32-x routes: the split into bf16 planes) at one shape, device ms: at R
+    in A8_PART_ROWS, the route without the programmatic dependent launch,
+    the matmul alone on x prepared beforehand, the preparing kernel alone,
+    and what the launch hides of the route; for w4a8 the bf16-x int4 kernel
+    on the same weights and inputs."""
     w4 = name == "quant_matmul_w4a8"
-    launch = qm._launch_int4_sm90 if w4 else qm._launch_int8_sm90
+    if name in F32_KERNELS:
+        part = "split"
+        prep = lambda x: (qm.split_bf16x3(x), None)  # noqa: E731  (planes, no sx)
+        launch = (qm._launch_int8_sm90 if name == "quant_matmul_int8" else functools.partial(
+            qm._launch_int4_sm90, tiled=name == "quant_matmul_tiled"))
+    else:
+        part, prep = "quantizer", qm.quantize_activations
+        launch = qm._launch_int4_sm90 if w4 else qm._launch_int8_sm90
     n, line = len(qs), ""
     if R in A8_PART_ROWS:
         def no_pdl(i):
-            x8, sx = qm.quantize_activations(xi(i))
-            return launch(x8, qs[i], ss[i], out_dt, sx=sx, pdl=False)
+            xp, sx = prep(xi(i))
+            return launch(xp, qs[i], ss[i], out_dt, sx=sx, pdl=False)
 
-        q8 = [qm.quantize_activations(xi(i)) for i in range(n)]
+        pre = [prep(xi(i)) for i in range(n)]
         nopdl_ms = device_ms([lambda i=i: no_pdl(i) for i in range(n)], replays=10)
-        mm_ms = device_ms([lambda i=i: launch(q8[i][0], qs[i], ss[i], out_dt, sx=q8[i][1])
+        mm_ms = device_ms([lambda i=i: launch(pre[i][0], qs[i], ss[i], out_dt, sx=pre[i][1])
                            for i in range(n)], replays=10)
-        quant_ms = device_ms([lambda i=i: qm.quantize_activations(xi(i)) for i in range(n)],
-                             replays=10)
+        prep_ms = device_ms([lambda i=i: prep(xi(i)) for i in range(n)], replays=10)
         line = (f"; route without PDL {nopdl_ms:.4f} ms, matmul alone {mm_ms:.4f} ms, "
-                f"quantizer {quant_ms:.4f} ms, PDL hides {(nopdl_ms - ms) * 1e3:.2f} us")
+                f"{part} {prep_ms:.4f} ms, PDL hides {(nopdl_ms - ms) * 1e3:.2f} us")
     if w4:
         int4_ms = device_ms([lambda i=i: qm.quant_matmul(xi(i), qs[i], ss[i], bits=4,
                                                           out_dtype=out_dt)

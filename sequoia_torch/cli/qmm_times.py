@@ -4,7 +4,7 @@ comparing two checkouts of the port on one card.
     python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
         [--kernels int8,w8a8,w8a8_mm,int4,tiled,w4a8,quantize,cublas_bf16,
                    int8_f32,int4_f32,tiled_f32,cublas_f32,top_p_logits,top_p_fused]
-        [--label NAME] [--reps 3] [--f32-max-rt 64|128]
+        [--label NAME] [--reps 3]
 
 Imports `sequoia_torch` from DIR (default: the checkout that holds this
 file) and builds its kernels there, so the same script times an older
@@ -30,8 +30,7 @@ kernels:
 - cublas_bf16: the yardstick, torch.matmul on a dequantized bf16 weight;
 - int8_f32, int4_f32, tiled_f32: the same three weight formats with f32 x
   (whatever route the checkout takes for f32 x; f32 out); cublas_f32:
-  torch.matmul on a dequantized f32 weight, TF32 off (`--f32-max-rt` caps
-  the int8 planes instantiation's row tile, to compare tilings);
+  torch.matmul on a dequantized f32 weight, TF32 off;
 - top_p_logits, top_p_fused: the nucleus cutoffs,
   `top_p_threshold_from_logits` and `top_p_threshold_fused` (on the
   softmax) at top_p = 0.9, at each R of `--rows` among 1 and 64 (the
@@ -104,7 +103,6 @@ def main() -> None:
     ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--f32-max-rt", type=int, default=None)
     args = ap.parse_args()
     import torch
 
@@ -125,8 +123,6 @@ def main() -> None:
         print(f"qmm_times: the top-p kernels are timed at R in {top_p_rows} only",
               file=sys.stderr)
     build.load()
-    if args.f32_max_rt is not None:
-        qm.SM90_F32_MAX_RT["int8_f32"] = args.f32_max_rt
     label = args.label or os.path.abspath(args.root)
     gen = torch.Generator(device="cuda").manual_seed(1234)
 

@@ -135,8 +135,9 @@ template <bool A8, int P, int RT>
 __device__ void copy_stage(uint8_t* xs, uint8_t* qs, const Params& p, int k0, int r0, int n0,
                            int lane) {
   using C = Cfg<A8, P, RT>;
-  for (int i = lane; i < P * RT * (kRowBytes / 4); i += 32) {
-    const int pl = i / (RT * (kRowBytes / 4)), j = i % (RT * (kRowBytes / 4));
+  constexpr int kWords = RT * (kRowBytes / 4);    // of one plane's tile
+  for (int i = lane; i < P * kWords; i += 32) {
+    const int pl = P > 1 ? i / kWords : 0, j = P > 1 ? i % kWords : i;
     const int r = j / (kRowBytes / 4), b = (j % (kRowBytes / 4)) * 4, row = r0 + r;
     const int64_t src_row = static_cast<int64_t>(pl) * p.R + row;   // plane pl's row
     uint32_t v = 0;
@@ -321,7 +322,7 @@ qmm8_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 #pragma unroll
       for (int pl = 0; pl < P; ++pl)
 #pragma unroll
-        for (int j = 0; j < C::kChunks; ++j) {   // plane pl, x rows [64j, 64j + 64), k bytes 32 ks..
+        for (int j = 0; j < C::kChunks; ++j) {   // plane pl, x rows [64j, 64j + 64), k bytes 32 ks
           dsc[ks][pl][j] = d0 + ((pl * C::kPlaneBytes + j * 64 * kRowBytes) >> 4) + 2 * ks;
           fence_reg(dsc[ks][pl][j]);
         }
