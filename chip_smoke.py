@@ -11,9 +11,10 @@ Phases, each fatal on failure:
      each kernel's registers and spills (ptxas);
   3. kernels: each kernel against its plain PyTorch version at the shapes
      of the main paths: tree attention with a float, an int8, an int4
-     head-paired and an int4 dsplit main cache (bf16: the tensor-core
-     kernel, with its split count and the key tiles its prefix skip reads;
-     f32: the CUDA-core kernel); the top-p cutoffs at V = 32000 (one block
+     head-paired and an int4 dsplit main cache, bf16 and f32 (each with its
+     split count and the key tiles its prefix skip reads; f32 also at phase
+     7's shapes, Q = 1, 16 and 64, with its error and SDPA f32's against
+     an f64 version); the top-p cutoffs at V = 32000 (one block
      per row) and V = 128256 (a cluster per row), each at R = 1 and the
      tree size, twice on each input, timed on peaked, flat, uniform and
      tied rows, beside an empty kernel of its grid;
@@ -61,7 +62,7 @@ Phases, each fatal on failure:
      weight-only, int8 w8a8, int4, tiled int4, and the int4 target with every
      projection sent through unpack="w4a8"; an int8 target with f32
      activations at widths 1, 16 and 64 (the f32-x route at 7B width, with
-     the f32 tree attention); the 68m draft's at width 8; the
+     the f32 route of tree attention); the 68m draft's at width 8; the
      tree the planner DP picks from each curve (widths 1..128); beside them,
      the host time to issue one eager forward at widths 1 and 64. Each curve
      is measured right after its path's launches are read, before that
@@ -88,7 +89,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12, "tf32": 495e12}
 
 SEED = 1234
 FULL = dict(draft="llama-68m", target="llama-2-7b", max_length=256,
@@ -231,19 +232,18 @@ def attention_case(torch, *, Q_rows, layers, H, Hkv, D, M, S, ts, dtype, gen,
     return q, k, v, main, sk, sv, scr.contiguous()
 
 
-KV_FORMATS = {   # main-cache format -> (launch counter, bytes per stored K/V element)
-    "float": ("tree_attention", None),
-    "int8": ("tree_attention_kv8", 1.0),
-    "int4_head": ("tree_attention_kv4_head", 0.5),
-    "int4_dsplit": ("tree_attention_kv4_dsplit", 0.5),
-}
+KV_FORMATS = {   # main-cache format -> bytes per stored K/V element (None: q's)
+    "float": None, "int8": 1.0, "int4_head": 0.5, "int4_dsplit": 0.5}
 
 
 def attention_bound(q, main, scr, D, H, Hkv, itemsize, kv_item=None):
     """Least time for the data: the K/V rows some query attends, q, the
     masks and the output move once; 4*D flops per live (query head, key).
     A quantized main cache (`kv_item` bytes per element) also moves two f32
-    scales per (row, head)."""
+    scales per (row, head). bf16 flops at the bf16 tensor-core rate; f32
+    flops as three TF32 passes (the least tensor-core work that keeps f32's
+    accuracy: 3xTF32, the kernel's scheme; the CUDA cores' f32 rate would
+    take 2.5x as long)."""
     main_rows = int(main.any(dim=0).sum())
     scr_rows = int(scr.any(dim=0).sum())
     main_bytes = (2 * main_rows * Hkv * D * itemsize if kv_item is None
@@ -252,17 +252,22 @@ def attention_bound(q, main, scr, D, H, Hkv, itemsize, kv_item=None):
               + main.numel() + scr.numel())
     flops = 4 * D * H * (int(main.sum()) + int(scr.sum()))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["bf16" if itemsize == 2 else "f32"] * 1e3
+    t_ops = (flops / PEAK_FLOPS["bf16"] if itemsize == 2 else 3 * flops / PEAK_FLOPS["tf32"]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_tree_attention(torch, gm, results):
     """The float-cache kernel at every attention shape of the main path, and
     each quantized cache format at the verify, AR-step and prefill shapes
-    (and the f32 verify). The library yardstick is SDPA on the float cache
-    (for a quantized one: on its dequantized rows) under the same mask."""
-    from sequoia_torch.kernels.tree_attention import (TILE_K, split_count, tile_extents,
-                                                      tree_attention, tree_attention_plain)
+    (and the f32 verify). The f32 route also at phase 7's shapes (Q = 1, 16,
+    64 queries over a 128-key prefix of M = 256 and a causal scratch of Q
+    rows), where its error and SDPA f32's against an f64 version of the
+    plain version are printed (the kernel's held to 1e-4 of the largest
+    |output|). The library yardstick is SDPA on the float cache (for a
+    quantized one: on its dequantized rows) under the same mask."""
+    from sequoia_torch.kernels.tree_attention import (TILE_K, counter, split_count,
+                                                      tile_extents, tree_attention,
+                                                      tree_attention_plain)
     from sequoia_torch.kvcache.cache import (quantize_kv_rows, quantize_kv_rows4,
                                              unpack_kv_rows4)
 
@@ -287,6 +292,10 @@ def check_tree_attention(torch, gm, results):
         ("redraft_68m", dict(Q_rows=1, layers=2, H=12, Hkv=12, D=64, M=256, S=0, ts=0,
                              dtype=torch.bfloat16, causal_offset=ts), 2e-2),
     ]
+    for Q in (1, 16, 64):   # phase 7's f32 curve: kv_len 128, a causal scratch of Q rows
+        cases.append((f"f32_q{Q}", dict(
+            Q_rows=Q, layers=4, H=32, Hkv=32, D=128, M=256, S=Q, ts=128, dtype=torch.float32,
+            scratch_rows=torch.tril(torch.ones(Q, Q, dtype=torch.bool, device="cuda"))), 1e-4))
     for lvl, (w, m) in enumerate(draft_scr):
         cases.append((f"grow_68m_l{lvl}", dict(Q_rows=w, layers=2, H=12, Hkv=12, D=64,
                                                M=256, S=gm.size, ts=ts + 1,
@@ -304,12 +313,12 @@ def check_tree_attention(torch, gm, results):
         ext = tile_extents(main, scr)
         read = int(((ext + TILE_K - 1) // TILE_K).sum())
         walk = (-(-M // TILE_K) + -(-S // TILE_K)) * ext.shape[0]
-        route = (f"splits {split_count(q.shape[0], H, M, S, sms)}, key tiles {read}/{walk}"
-                 if kw["dtype"] == torch.bfloat16 else "f32 route")
+        route = (f"splits {split_count(q.shape[0], H, M, S, sms, kw['dtype'])}, "
+                 f"key tiles {read}/{walk}")
         formats = KV_FORMATS if name in ("verify", "verify_f32", "prefill", "ar_step") \
             else ("float",)
         for fmt in formats:
-            counter, kv_item = KV_FORMATS[fmt]
+            kname, kv_item = counter(fmt, kw["dtype"]), KV_FORMATS[fmt]
             if fmt == "float":
                 km, vm, ks, vs = k, v, [None] * L, [None] * L
                 kd, vd = k, v
@@ -328,11 +337,11 @@ def check_tree_attention(torch, gm, results):
             err = (got.float() - want.float()).abs().max().item()
             ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
             if not ok or not torch.isfinite(got).all():
-                fail(f"{counter}[{name}] disagrees with its plain version: "
+                fail(f"{kname}[{name}] disagrees with its plain version: "
                      f"max |err| {err} (tol {tol})")
             kern = [lambda i=i: call(tree_attention, i) for i in range(L)]
             plain = [lambda i=i: call(tree_attention_plain, i) for i in range(L)]
-            lib_ms = None
+            lib_ms, f64_note = None, ""
             if H == Hkv:
                 qb = q.transpose(0, 1)[None]                       # [1, H, Q, D]
                 kk = [torch.cat([kd[i], sk[i]]).transpose(0, 1)[None] for i in range(L)]
@@ -340,23 +349,45 @@ def check_tree_attention(torch, gm, results):
                 full_mask = torch.cat([main, scr], dim=1)
                 lib_ms = device_ms([lambda i=i: sdpa(qb, kk[i], vv[i], attn_mask=full_mask,
                                                      scale=scale) for i in range(L)])
+                if kw["dtype"] == torch.float32:
+                    ref = f64_reference(q, km[0], vm[0], main, sk[0], sv[0], scr, scale,
+                                        ks[0], vs[0])
+                    lib = sdpa(qb, kk[0], vv[0], attn_mask=full_mask, scale=scale)[0]
+                    top = ref.abs().max().item()
+                    e_k = (got.double() - ref).abs().max().item() / top
+                    e_lib = (lib.transpose(0, 1).double() - ref).abs().max().item() / top
+                    if not e_k <= 1e-4:
+                        fail(f"{kname}[{name}]: error against f64 {e_k} of max|out| > 1e-4")
+                    f64_note = (f"; against f64, x max|out| {top:.3g}: kernel {e_k:.3g}, "
+                                f"sdpa f32 {e_lib:.3g}")
                 del kk, vv
             ms, plain_ms = device_ms(kern), device_ms(plain)
             bound, by = attention_bound(q, main, scr, D, H, Hkv, itemsize, kv_item)
-            log(f"  {counter}[{name}] Q={q.shape[0]} H={H} Hkv={Hkv} D={D} M={main.shape[1]} "
+            log(f"  {kname}[{name}] Q={q.shape[0]} H={H} Hkv={Hkv} D={D} M={main.shape[1]} "
                 f"S={scr.shape[1]} {str(kw['dtype'])[6:]}: max|err| {err:.3g} (tol {tol}) "
                 f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
-                f"  bound {bound:.5f} ms ({by}); {route}")
-            if name == "verify":
+                f"  bound {bound:.5f} ms ({by}); {route}{f64_note}")
+            if name in ("verify", "verify_f32"):
                 results.append(dict(
-                    name=counter, route="cuda", source="sequoia_torch/csrc/tree_attention.cu",
+                    name=kname, route="cuda", source="sequoia_torch/csrc/tree_attention.cu",
                     replaces="sequoia_tpu/kernels/tree_attention.py:111",
                     shape=f"verify Q={q.shape[0]} H={H} D={D} M={main.shape[1]} "
-                          f"S={scr.shape[1]} bf16, main cache {fmt}",
+                          f"S={scr.shape[1]} {'bf16' if itemsize == 2 else 'f32'}, "
+                          f"main cache {fmt}",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                     bound_by=by, library_ms=lib_ms))
             del km, vm, kd, vd, kern, plain
+
+
+def f64_reference(q, k, v, main, sk, sv, scr, scale, ks, vs):
+    """The plain version in f64 (quantized rows cast exactly, scales
+    widened): the reference of the f32 route's error."""
+    from sequoia_torch.kernels.tree_attention import tree_attention_plain
+
+    d = lambda x: x.double() if x is not None and x.is_floating_point() else x  # noqa: E731
+    return tree_attention_plain(d(q), d(k), d(v), main, d(sk), d(sv), scr, scale=scale,
+                                ks=d(ks), vs=d(vs))
 
 
 def top_p_bound(R, V, from_logits):
@@ -1519,7 +1550,7 @@ def main() -> None:
 
     log("[7] int8 weights with f32 activations (the f32-x route at 7B width)")
     models = load_models(torch, quant_bits=8, dtype="f32")
-    need = ("quant_matmul_int8", "split_bf16x3", "tree_attention")
+    need = ("quant_matmul_int8", "split_bf16x3", "tree_attention_f32")
     _, counts = width_curve(torch, models, "int8, f32 x", need=need, widths=(1, 16, 64))
     log(f"  [7] int8, f32 x curve launches: {counts}")
     add(counts)

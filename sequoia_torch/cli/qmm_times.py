@@ -1,9 +1,11 @@
-"""Device times of the quantized matmuls at the 7B projection shapes, for
-comparing two checkouts of the port on one card.
+"""Device times of the quantized matmuls at the 7B projection shapes (and
+of the f32 tree attention), for comparing two checkouts of the port on one
+card.
 
     python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
         [--kernels int8,w8a8,w8a8_mm,int4,tiled,w4a8,quantize,cublas_bf16,
-                   int8_f32,int4_f32,tiled_f32,cublas_f32,top_p_logits,top_p_fused]
+                   int8_f32,int4_f32,tiled_f32,cublas_f32,top_p_logits,top_p_fused,
+                   tree_attention_f32,sdpa_f32]
         [--label NAME] [--reps 3]
 
 Imports `sequoia_torch` from DIR (default: the checkout that holds this
@@ -36,7 +38,13 @@ kernels:
   softmax) at top_p = 0.9, at each R of `--rows` among 1 and 64 (the
   others are reported and skipped) and V in {32000, 128256}, on each kind
   of row of `TOP_P_KINDS` (16 inputs cycled; JSON lines with "V" and
-  "rows" in place of K and N).
+  "rows" in place of K and N);
+- tree_attention_f32: `tree_attention` with f32 q and a float cache
+  (whatever route the checkout takes for f32), at each case of
+  `ATTENTION_CASES` (H = 32, D = 128, M = 256; 8 layers cycled, past the
+  L2; JSON lines with "case", "Q" and "S" in place of R, K and N);
+  sdpa_f32: the yardstick, scaled_dot_product_attention in f32 over the
+  concatenated main and scratch rows under the same mask.
 Exits non-zero without a CUDA card.
 """
 
@@ -50,8 +58,14 @@ import sys
 
 SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 KERNELS = ("int8", "w8a8", "w8a8_mm", "int4", "tiled", "w4a8", "quantize", "cublas_bf16",
-           "int8_f32", "int4_f32", "tiled_f32", "cublas_f32", "top_p_logits", "top_p_fused")
+           "int8_f32", "int4_f32", "tiled_f32", "cublas_f32", "top_p_logits", "top_p_fused",
+           "tree_attention_f32", "sdpa_f32")
 TOP_P = ("top_p_logits", "top_p_fused")
+ATTENTION = ("tree_attention_f32", "sdpa_f32")
+# name -> (queries, keys of the main prefix, scratch mask): the 7B verify of
+# chip_smoke.py phase 3 (the planned tree over a 191-key prefix), then phase
+# 7's f32 curve (a 128-key prefix, a causal scratch of Q rows).
+ATTENTION_CASES = ("verify", "q1", "q16", "q64")
 TOP_P_VOCABS = (32000, 128256)
 # Kinds of top-p rows: logits from x ~ N(0, 1), and the temperature they are
 # taken at. A random-weight model's logits have a std of about 1 ("flat":
@@ -132,7 +146,7 @@ def main() -> None:
                 [torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001
                  for _ in range(n)])
 
-    for K, N in SHAPES if set(kernels) - set(TOP_P) else ():
+    for K, N in SHAPES if set(kernels) - set(TOP_P) - set(ATTENTION) else ():
         # enough weights per kernel that one pass exceeds the L2
         n8, n4 = (max(2, -(-150_000_000 // nbytes)) for nbytes in (K * N, K * N // 2))
         want8 = {"int8", "w8a8", "w8a8_mm", "w8a8_route", "cublas_bf16", "int8_f32",
@@ -198,6 +212,41 @@ def main() -> None:
                 print(json.dumps({"label": label, "kernel": name, "R": R, "V": V, "rows": kind,
                                   "ms": ms, "card": torch.cuda.get_device_name(0)}), flush=True)
             del logits, probs
+    for case in ATTENTION_CASES if set(kernels) & set(ATTENTION) else ():
+        attention_times(torch, [k for k in kernels if k in ATTENTION], case, gen, label,
+                        args.reps)
+
+
+def attention_times(torch, kernels, case, gen, label, reps):
+    """One JSON line per kernel of `kernels` at attention case `case`."""
+    from sequoia_torch.cli.testbed import load_growmap
+    from sequoia_torch.kernels.tree_attention import tree_attention
+
+    H, D, M, L = 32, 128, 256, 8
+    if case == "verify":
+        scr = torch.as_tensor(load_growmap("planned").ancestors, device="cuda")
+        Q, ts = scr.shape[0], 191
+    else:
+        Q, ts = int(case[1:]), 128
+        scr = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device="cuda"))
+    S = scr.shape[1]
+    q = torch.randn(Q, H, D, generator=gen, device="cuda")
+    k, v = (torch.randn(L, M, H, D, generator=gen, device="cuda") for _ in range(2))
+    sk, sv = (torch.randn(L, S, H, D, generator=gen, device="cuda") for _ in range(2))
+    main = (torch.arange(M, device="cuda") < ts)[None].expand(Q, M).contiguous()
+    full = torch.cat([main, scr], dim=1)
+    kk = [torch.cat([k[i], sk[i]]).transpose(0, 1)[None] for i in range(L)]
+    vv = [torch.cat([v[i], sv[i]]).transpose(0, 1)[None] for i in range(L)]
+    qb = q.transpose(0, 1)[None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = {"tree_attention_f32": lambda i: tree_attention(q, k[i], v[i], main, sk[i], sv[i],
+                                                            scr, scale=D ** -0.5),
+             "sdpa_f32": lambda i: sdpa(qb, kk[i], vv[i], attn_mask=full, scale=D ** -0.5)}
+    for name in kernels:
+        ms = statistics.median(device_ms(torch, [lambda i=i: calls[name](i) for i in range(L)])
+                               for _ in range(reps))
+        print(json.dumps({"label": label, "kernel": name, "case": case, "Q": Q, "S": S,
+                          "ms": ms, "card": torch.cuda.get_device_name(0)}), flush=True)
 
 
 if __name__ == "__main__":

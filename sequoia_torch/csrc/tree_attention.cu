@@ -22,12 +22,12 @@
 // scratch is always float. Rows never written have scale 0 and are masked.
 //
 // Bound on the H100: bytes. At the verify shape (Q = 64, H = Hkv = 32,
-// D = 128, M = 256, S = 64, bf16) one layer must read about 4.2 MB of K/V
-// (about 1.3 us at 3.35 TB/s) against about 0.17 GFLOP of dot products.
-// Two routes:
-//
-// bf16 (the engine's dtype): tensor cores, key splits, a prefix skip.
-// - A block is one 16-query tile of one query head, 4 warps. It first scans
+// D = 128, M = 256, S = 64) one layer must read about 4.2 MB of K/V in bf16
+// (about 1.3 us at 3.35 TB/s) and twice that in f32, against about 0.17
+// GFLOP of dot products (f32 on the tensor cores as three TF32 passes:
+// about 1 us at 495 TFLOP/s). Both routes share one decomposition:
+// - A block is one 16-query tile of one query head, W warps (bf16 4, f32
+//   8). It first scans
 //   its tile's mask rows (16-byte loads where aligned) into bits in shared
 //   memory and finds, for main and scratch apart, the last key that any of
 //   its valid rows attends; tiles past that extent are not read. On the
@@ -37,306 +37,317 @@
 //   the block walks everything, since such a row gets the mean of all V
 //   rows (as the plain version and the JAX kernel give it).
 // - The extent's 16-key tiles (main first, then scratch) are cut into
-//   gridDim.z * 4 contiguous runs, one per warp; gridDim.z (the wrapper's
+//   gridDim.z * W contiguous runs, one per warp; gridDim.z (the wrapper's
 //   split count) adds blocks where ceil(Q/16) * H alone leaves SMs idle.
-//   Each warp streams its run through a 2-stage cp.async ring of its own
-//   (zero-filled past the region's end), computes S = Q K^T and P V with
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate; q's A fragments come from
-//   the block's query tile in shared memory and K's B fragments from the
-//   stage through ldmatrix, V's through ldmatrix.trans; P's f32 C fragments
-//   become the A operand in registers) and keeps f32
-//   partials (m, l, acc[16 x D]). A quantized main tile lands packed at the
-//   end of its stage and is expanded in place to the bf16 rows that
-//   TileRegs::expand would write (a prmt and an f32 or bf16x2 subtraction
-//   per value, 16-byte stores), so every format shares one compute core and
-//   the float format's stages: 3 blocks of 4 warps (at most 168 registers a
-//   thread, __launch_bounds__) fit on an SM.
-// - The 4 warps merge in shared memory; with one split the block writes
+//   Each warp streams its run through a cp.async ring of its own (bf16: 2
+//   stages of 16 keys; f32: 4 of 8; zero-filled past the region's end) and
+//   keeps f32 partials (m, l, acc[16 x D]) in the mma accumulator layout,
+//   which both routes share.
+// - The W warps merge in shared memory; with one split the block writes
 //   the output, otherwise an f32 workspace (the wrapper's) takes each
 //   block's partial and tree_attention_merge_kernel combines them:
 //   out = sum_z e^(m_z - m*) acc_z / max(sum_z e^(m_z - m*) l_z, 1e-30).
-// - Shared-memory rows are D + 8 elements: 16-byte aligned for cp.async and
-//   ldmatrix, and the 8 rows of one ldmatrix fall on distinct banks.
 //
-// f32 (the card-against-CPU checks only; tensor cores would change f32's
-// numerics): the first design, on the CUDA cores in f32. One block per
-// (16-query tile, query head), 128 threads, 8 per query row; it walks the
-// whole main cache, then the scratch, in 32-key tiles staged in shared
-// memory (16-byte loads into registers, the next tile's loads in flight
-// while the current one is computed; rows padded by one word so the 8 lanes
-// of a row hit distinct banks); a quantized tile's integers are expanded on
-// their way from registers to shared memory.
+// bf16 (tree_attention_tc_kernel): a stage is 16 keys; S = Q K^T and P V on
+// mma.sync m16n8k16 (bf16 in, f32 accumulate; q's A fragments from the
+// block's query tile in shared memory and K's B fragments from the stage
+// through ldmatrix, V's through ldmatrix.trans; P's f32 C fragments become
+// the A operand in registers). A quantized main tile lands packed at the end
+// of its stage and is expanded in place to bf16 rows (a prmt and an f32 or
+// bf16x2 subtraction per value, 16-byte stores), so every format shares one
+// compute core and the float format's stages: 3 blocks of 4 warps (at most
+// 168 registers a thread, __launch_bounds__) fit on an SM. Shared rows are
+// D + 8 elements: 16-byte aligned for cp.async and ldmatrix, and the 8 rows
+// of one ldmatrix fall on distinct banks.
+//
+// f32 (tree_attention_f32_kernel): f32-accurate products on the TF32 tensor
+// cores, 3xTF32 on mma.sync m16n8k8: each f32 operand x is split into
+// hi = rna_tf32(x) and lo = rna_tf32(x - hi) (x - hi is exact; hi + lo
+// keeps x to 2^-22 |x|), and a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi (the
+// dropped a_lo.b_lo is below 2^-22 |a b|). The tensor cores sum f32 by
+// truncation, so each chain is kept short: S's 16 x 8 tile sums into six
+// accumulators (the three products, even and odd k steps), added in f32 at
+// the end; each 8-key step's P V goes into a zeroed accumulator (3 mma)
+// that one FMA folds into acc (acc * alpha + pv). P stays f32 (split like
+// the other operands). Integer rows expand exactly to f32, so a quantized
+// main tile has lo = 0 and skips that product. An f32 stage is 8 keys (one
+// n tile of S, one k step of P V); the run of 16-key tiles is walked in
+// halves, each its own online-softmax step. A warp's step is bound by its
+// own latency (mma chains, the splits), not by its loads (a 4-stage ring
+// ran no faster than 2 on an H100), so a block has 8 warps: the rings (8
+// warps x 2 stages x (K, V) of 8 x (D + 4) floats), the query tile's hi
+// and lo planes and the mask bits take 152 KB at D = 128, one block per
+// SM, and the wrapper's split count keeps the grid to one wave of them (at
+// the verify shape one split of 4-warp blocks beat three by 1.7x: a
+// second wave and the merge cost more than shorter runs saved). Rows are D + 4
+// floats (16-byte aligned; ldmatrix, which moves 32-bit elements as b16
+// pairs, gives q's A and K's B fragments; V's B fragment, a column,
+// comes from scalar loads at rows 2c and 2c + 1, on distinct banks). A
+// tf32 A fragment holds keys c and c + 4 where S's C fragment holds 2c and
+// 2c + 1: the k step of P V reads its 8 keys in the order 0, 2, 4, 6, 1,
+// 3, 5, 7, and V's rows follow it. Quantized rows land packed at the end
+// of the stage and expand in place, as on the bf16 route.
 
 #include "common.cuh"
 
 namespace {
 
 using namespace sq;
+using bf16 = __nv_bfloat16;
 
-constexpr int kQT = 16;              // query rows per block
-constexpr int kLanes = 8;            // threads per query row
-constexpr int kThreads = kQT * kLanes;
-constexpr int kTK = 32;              // keys per shared-memory tile
+constexpr int kQT = 16;                   // query rows per block
+constexpr int kWarps = 4;                 // bf16: warps per block, each a run of key tiles
+constexpr int kF32Warps = 8;              // f32: the same
+constexpr int kKT = 16;                   // keys per tile of a run
+constexpr int kKH = 8;                    // keys per f32 stage (half a tile)
+constexpr int kF32Stages = 2;             // the f32 route's cp.async ring
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Row stride in elements that makes consecutive rows start on consecutive
-// 4-byte banks (odd word stride).
-template <typename T, int D> struct Pad { static constexpr int kStride = D + 4 / int(sizeof(T)); };
 
 // Formats of the main cache.
 constexpr int kFloat = 0, kInt8 = 1, kInt4Head = 2, kInt4Dsplit = 3;
 
-// dst[0], dst[1] = a, b (dst 4-byte aligned).
-__device__ __forceinline__ void store2(float* dst, float a, float b) { dst[0] = a; dst[1] = b; }
-__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-// Byte i of the words `w` as a signed value; its nibbles, sign-extended.
-__device__ __forceinline__ int byte_at(const uint32_t* w, int i) {
-  return static_cast<int8_t>(w[i / 4] >> (8 * (i % 4)));
-}
-__device__ __forceinline__ int nib_lo(int b) {
-  return static_cast<int8_t>(static_cast<uint32_t>(b) << 4) >> 4;
-}
-__device__ __forceinline__ int nib_hi(int b) { return b >> 4; }
+// ---------------------------------------------------------------------------
+// Shared by both routes: the mask scan and the merges.
+// ---------------------------------------------------------------------------
 
-template <typename T, int D>
-struct Smem {
-  float q[kQT][D + 1];
-  T k[kTK][Pad<T, D>::kStride];
-  T v[kTK][Pad<T, D>::kStride];
-  float p[kQT][kTK + 1];
+template <int W>   // warps per block
+struct BlockShared {
+  int ext[2];                             // last live key + 1: main, scratch
+  unsigned alive;                         // rows that attend some key
+  float m[W][kQT], l[W][kQT];             // the warps' partials, for the merge
 };
 
-// Registers that carry one K tile and one V tile from device memory to
-// shared memory: 16-byte loads, all issued before any is used, so a tile
-// costs one memory latency, and the next tile's loads are in flight while
-// the current tile is computed. KV is the format in device memory; shared
-// memory always holds T. A quantized tile also carries the scales of the
-// keys whose scores this thread computes (keys lane + 8c of the tile).
-template <typename T, int D, int KV>
-struct TileRegs {
-  // Bytes of one (key, head) row in device memory, and per load: a dsplit
-  // row at D = 16 has 8 bytes, every other row 16 or more.
-  static constexpr int kRowBytes = KV == kFloat ? D * int(sizeof(T)) : KV == kInt4Dsplit ? D / 2 : D;
-  static constexpr int kVecBytes = kRowBytes < 16 ? kRowBytes : 16;
-  static constexpr int kWords = kVecBytes / 4;
-  static constexpr int kVecs = kTK * kRowBytes / kVecBytes;   // loads per tile and tensor
-  static constexpr int kPer = (kVecs + kThreads - 1) / kThreads;
-  static constexpr int kKeys = kTK / kLanes;
-  uint32_t k[kPer][kWords], v[kPer][kWords];
-  float ks[kKeys], vs[kKeys];
-
-  // `hs` heads are stored per key and this block reads stored head `hh`
-  // (head-paired int4: Hkv / 2 and kh / 2; otherwise Hkv and kh).
-  __device__ void load(const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
-                       const float* __restrict__ ksc, const float* __restrict__ vsc,
-                       int base, int len, int hs, int hh, int Hkv, int kh) {
+// Bits of mask row `row` for keys [k0, k0 + 32) (those below len).
+__device__ __forceinline__ uint32_t mask_word(const uint8_t* __restrict__ row, int k0, int len) {
+  uint32_t word = 0;
+  if (k0 + 32 <= len && (reinterpret_cast<uintptr_t>(row + k0) & 15) == 0) {
+    const uint4* p = reinterpret_cast<const uint4*>(row + k0);
+    const uint4 a = p[0], b = p[1];
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int vi = threadIdx.x + u * kThreads;
-      const int e = vi * kVecBytes, j = e / kRowBytes, b = e % kRowBytes, key = base + j;
-      const bool ok = vi < kVecs && key < len;
-      const int64_t off = (static_cast<int64_t>(key) * hs + hh) * kRowBytes + b;
-      if constexpr (kWords == 4) {
-        const uint4 zero = make_uint4(0, 0, 0, 0);
-        const uint4 a = ok ? *reinterpret_cast<const uint4*>(kc + off) : zero;
-        const uint4 c = ok ? *reinterpret_cast<const uint4*>(vc + off) : zero;
-        k[u][0] = a.x; k[u][1] = a.y; k[u][2] = a.z; k[u][3] = a.w;
-        v[u][0] = c.x; v[u][1] = c.y; v[u][2] = c.z; v[u][3] = c.w;
-      } else {
-        const uint2 zero = make_uint2(0, 0);
-        const uint2 a = ok ? *reinterpret_cast<const uint2*>(kc + off) : zero;
-        const uint2 c = ok ? *reinterpret_cast<const uint2*>(vc + off) : zero;
-        k[u][0] = a.x; k[u][1] = a.y;
-        v[u][0] = c.x; v[u][1] = c.y;
-      }
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t y = __vcmpne4(w[i], 0u);   // 0xff in each nonzero byte
+      word |= ((y & 1u) | ((y >> 7) & 2u) | ((y >> 14) & 4u) | ((y >> 21) & 8u)) << (4 * i);
     }
-    if (KV != kFloat) {
-      const int lane = threadIdx.x % kLanes;
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c) {
-        const int key = base + lane + kLanes * c;
-        ks[c] = key < len ? ksc[static_cast<int64_t>(key) * Hkv + kh] : 0.f;
-        vs[c] = key < len ? vsc[static_cast<int64_t>(key) * Hkv + kh] : 0.f;
-      }
+  } else {
+    for (int j = 0; j < 32 && k0 + j < len; ++j) word |= uint32_t(row[k0 + j] != 0) << j;
+  }
+  return word;
+}
+
+// This warp's run of 16-key tiles: tiles [0, ntm) are main, [ntm, nt)
+// scratch; the warp takes [t_begin, t_end).
+struct Run {
+  int ntm, t_begin, t_end;
+};
+
+// The tile's mask rows as bits [kQT][bw] in `bits` (bw = words of main,
+// then of scratch); the last live key of each region over the valid rows;
+// which rows attend some key; then this warp's run (of gridDim.z * W).
+// Waits for the block's cp.async groups (the query tile) and ends with a
+// __syncthreads.
+template <int W>
+__device__ __forceinline__ Run scan_masks(const uint8_t* __restrict__ mask,
+                                          const uint8_t* __restrict__ smask, uint32_t* bits,
+                                          BlockShared<W>& sh, int q0, int Q, int M, int S) {
+  constexpr int kThreads = W * 32;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int mw = (M + 31) / 32, bw = mw + (S + 31) / 32;
+  if (tid == 0) { sh.ext[0] = 0; sh.ext[1] = 0; sh.alive = 0u; }
+  __syncthreads();
+  for (int i = tid; i < kQT * bw; i += kThreads) {
+    const int r = i / bw, w = i % bw, qq = q0 + r;
+    const bool in_main = w < mw;
+    const int len = in_main ? M : S, k0 = (in_main ? w : w - mw) * 32;
+    uint32_t word = 0;
+    if (qq < Q) word = mask_word((in_main ? mask : smask) + static_cast<int64_t>(qq) * len, k0, len);
+    bits[i] = word;
+    if (word) {
+      atomicMax(&sh.ext[in_main ? 0 : 1], k0 + 32 - __clz(word));
+      atomicOr(&sh.alive, 1u << r);
     }
   }
+  cp_wait<0>();
+  __syncthreads();
+  int ext_m = sh.ext[0], ext_s = sh.ext[1];
+  const int nvalid = min(kQT, Q - q0);
+  const unsigned valid = (1u << nvalid) - 1u;
+  if ((sh.alive & valid) != valid) { ext_m = M; ext_s = S; }   // a row attends nothing
+  const int ntm = (ext_m + kKT - 1) / kKT, nt = ntm + (ext_s + kKT - 1) / kKT;
+  const int slots = gridDim.z * W, slot = blockIdx.z * W + warp;
+  return {ntm, static_cast<int>(static_cast<int64_t>(nt) * slot / slots),
+          static_cast<int>(static_cast<int64_t>(nt) * (slot + 1) / slots)};
+}
 
-  // One loaded vector of row bytes [b, b + kVecBytes) into the row `dst`.
-  __device__ static void expand(T* dst, const uint32_t* w, int b, int odd_head) {
-    if constexpr (KV == kFloat) {
-      // Padded rows are 4-byte aligned, not 16: store word by word.
-      uint32_t* d = reinterpret_cast<uint32_t*>(dst + b / int(sizeof(T)));
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// out[0], out[1] = a, b in the output type.
+__device__ __forceinline__ void store_pair(float* out, float a, float b) {
+  *reinterpret_cast<float2*>(out) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* out, float a, float b) {
+  *reinterpret_cast<uint32_t*>(out) = bf16x2(a, b);
+}
+
+// The block's W warps merged in shared memory (from `smem`, whose stages are
+// free once every warp is here), then the output (one split) or the block's
+// partial in `part`. acc is the mma C layout: acc[n] holds rows g (0, 1) and
+// g + 8 (2, 3), dims n * 8 + c, c + 1.
+template <int D, int W, typename T>
+__device__ __forceinline__ void merge_block(const float (&acc)[D / 8][4], float m_0, float m_1,
+                                            float l_0, float l_1, unsigned char* smem,
+                                            BlockShared<W>& sh, T* __restrict__ out,
+                                            float* __restrict__ part, int q0, int Q, int H,
+                                            int h) {
+  constexpr int kThreads = W * 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, c = (lane & 3) * 2;
 #pragma unroll
-      for (int i = 0; i < kWords; ++i) d[i] = w[i];
+  for (int o = 1; o < 4; o <<= 1) {
+    l_0 += __shfl_xor_sync(0xffffffffu, l_0, o);
+    l_1 += __shfl_xor_sync(0xffffffffu, l_1, o);
+  }
+  __syncthreads();
+  if ((lane & 3) == 0) {
+    sh.m[warp][g] = m_0;
+    sh.m[warp][g + 8] = m_1;
+    sh.l[warp][g] = l_0;
+    sh.l[warp][g + 8] = l_1;
+  }
+  __syncthreads();
+  float ms0 = kNeg, ms1 = kNeg;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    ms0 = fmaxf(ms0, sh.m[w][g]);
+    ms1 = fmaxf(ms1, sh.m[w][g + 8]);
+  }
+  const float e0 = expf(m_0 - ms0), e1 = expf(m_1 - ms1);
+  constexpr int kAccStride = D + 8;   // floats; float2 stores of a half warp hit 32 banks
+  float* macc = reinterpret_cast<float*>(smem);   // [W][kQT][kAccStride]
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float* p0 = macc + (warp * kQT + g) * kAccStride + n * 8 + c;
+    float* p1 = p0 + 8 * kAccStride;
+    *reinterpret_cast<float2*>(p0) = make_float2(acc[n][0] * e0, acc[n][1] * e0);
+    *reinterpret_cast<float2*>(p1) = make_float2(acc[n][2] * e1, acc[n][3] * e1);
+  }
+  __syncthreads();
+  const int z = blockIdx.z, Z = gridDim.z;
+  for (int i = tid; i < kQT * D / 2; i += kThreads) {
+    const int r = i / (D / 2), d = (i % (D / 2)) * 2, qq = q0 + r;
+    if (qq >= Q) continue;
+    float ms = kNeg;
+#pragma unroll
+    for (int w = 0; w < W; ++w) ms = fmaxf(ms, sh.m[w][r]);
+    float lsum = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      lsum += expf(sh.m[w][r] - ms) * sh.l[w][r];
+      const float2 x = *reinterpret_cast<const float2*>(macc + (w * kQT + r) * kAccStride + d);
+      a0 += x.x;
+      a1 += x.y;
+    }
+    const int64_t qh = static_cast<int64_t>(qq) * H + h;
+    if (Z == 1) {
+      const float inv = 1.f / fmaxf(lsum, 1e-30f);
+      store_pair(out + qh * D + d, a0 * inv, a1 * inv);
     } else {
+      // part: acc [Z, Q*H, D], then (m, l) [Z, Q*H, 2].
+      const int64_t QH = static_cast<int64_t>(Q) * H;
+      *reinterpret_cast<float2*>(part + (z * QH + qh) * D + d) = make_float2(a0, a1);
+      if (d == 0)
+        *reinterpret_cast<float2*>(part + Z * QH * D + (z * QH + qh) * 2) = make_float2(ms, lsum);
+    }
+  }
+}
+
+// out[qh, d] from the Z splits' partials (see merge_block's `part`).
+template <typename T>
+__global__ void tree_attention_merge_kernel(const float* __restrict__ part, T* __restrict__ out,
+                                            int Z, int64_t QH, int D) {
+  const int64_t n = QH * (D / 2);
+  const float* ml = part + Z * QH * D;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t qh = i / (D / 2);
+    const int d = static_cast<int>(i % (D / 2)) * 2;
+    float ms = kNeg;
+    for (int z = 0; z < Z; ++z) ms = fmaxf(ms, ml[(z * QH + qh) * 2]);
+    float lsum = 0.f, a0 = 0.f, a1 = 0.f;
+    for (int z = 0; z < Z; ++z) {
+      const float2 st = *reinterpret_cast<const float2*>(ml + (z * QH + qh) * 2);
+      const float w = expf(st.x - ms);
+      const float2 x = *reinterpret_cast<const float2*>(part + (z * QH + qh) * D + d);
+      lsum += w * st.y;
+      a0 += w * x.x;
+      a1 += w * x.y;
+    }
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+    store_pair(out + qh * D + d, a0 * inv, a1 * inv);
+  }
+}
+
+// Scale, mask and the online-softmax update of one row pair's scores
+// x[n][e] (rows g: e = 0, 1; g + 8: e = 2, 3; keys n * 8 + c + (e & 1)),
+// in place: keys past the region's end are -inf (no key at all), masked
+// keys the finite -1e30; quantized main scores times ks (`ksc`, per key of
+// the tile). Returns the rescale factors of the rows' running sums and
+// accumulators, and leaves the probabilities in x (their sum in l_0, l_1).
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&x)[N][4], uint32_t bits0, uint32_t bits1,
+                                               int base, int len, int c, float scale,
+                                               const float* ksc, float& m_0, float& m_1,
+                                               float& l_0, float& l_1, float& alpha0,
+                                               float& alpha1) {
+  float tmax0 = kNeg, tmax1 = kNeg;
 #pragma unroll
-      for (int i = 0; i < kVecBytes; i += 2) {
-        const int b0 = byte_at(w, i), b1 = byte_at(w, i + 1);
-        if (KV == kInt8) {
-          store2(dst + b + i, float(b0), float(b1));
-        } else if (KV == kInt4Head) {
-          store2(dst + b + i, float(odd_head ? nib_hi(b0) : nib_lo(b0)),
-                 float(odd_head ? nib_hi(b1) : nib_lo(b1)));
-        } else {
-          store2(dst + b + i, float(nib_lo(b0)), float(nib_lo(b1)));
-          store2(dst + D / 2 + b + i, float(nib_hi(b0)), float(nib_hi(b1)));
-        }
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = n * 8 + c + e;
+      float x0 = x[n][e], x1 = x[n][2 + e];
+      if (base + col >= len) {
+        x0 = x1 = -INFINITY;
+      } else {
+        x0 = (bits0 >> col) & 1u ? (ksc ? x0 * scale * ksc[col] : x0 * scale) : kNeg;
+        x1 = (bits1 >> col) & 1u ? (ksc ? x1 * scale * ksc[col] : x1 * scale) : kNeg;
       }
+      x[n][e] = x0;
+      x[n][2 + e] = x1;
+      tmax0 = fmaxf(tmax0, x0);
+      tmax1 = fmaxf(tmax1, x1);
     }
   }
-
-  __device__ void store(Smem<T, D>& sm, int odd_head) const {
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int vi = threadIdx.x + u * kThreads;
-      if (vi >= kVecs) continue;
-      const int e = vi * kVecBytes, j = e / kRowBytes, b = e % kRowBytes;
-      expand(&sm.k[j][0], k[u], b, odd_head);
-      expand(&sm.v[j][0], v[u], b, odd_head);
+  for (int o = 1; o < 4; o <<= 1) {
+    tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, o));
+    tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, o));
+  }
+  const float mn0 = fmaxf(m_0, tmax0), mn1 = fmaxf(m_1, tmax1);
+  alpha0 = expf(m_0 - mn0);
+  alpha1 = expf(m_1 - mn1);
+  m_0 = mn0;
+  m_1 = mn1;
+  float psum0 = 0.f, psum1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      x[n][e] = expf(x[n][e] - mn0);
+      x[n][2 + e] = expf(x[n][2 + e] - mn1);
+      psum0 += x[n][e];
+      psum1 += x[n][2 + e];
     }
   }
-};
-
-// One region (main cache or scratch): `len` rows in format KV (scales ksc,
-// vsc [len, Hkv] when quantized), mask [Q, len].
-template <typename T, int D, int KV>
-__device__ void attend_region(Smem<T, D>& sm, const void* __restrict__ kc_,
-                              const void* __restrict__ vc_,
-                              const float* __restrict__ ksc, const float* __restrict__ vsc,
-                              const uint8_t* __restrict__ mask, int len,
-                              int q0, int Q, int Hkv, int kh, float scale,
-                              float& m, float& l, float (&acc)[D / kLanes]) {
-  const uint8_t* kc = static_cast<const uint8_t*>(kc_);
-  const uint8_t* vc = static_cast<const uint8_t*>(vc_);
-  const int hs = KV == kInt4Head ? Hkv / 2 : Hkv, hh = KV == kInt4Head ? kh / 2 : kh;
-  const int odd_head = kh & 1;
-  const int tid = threadIdx.x;
-  const int r = tid / kLanes, lane = tid % kLanes;
-  const int q = q0 + r;
-  constexpr int kCols = D / kLanes;
-  constexpr int kKeys = kTK / kLanes;
-  TileRegs<T, D, KV> regs;
-  if (len > 0) regs.load(kc, vc, ksc, vsc, 0, len, hs, hh, Hkv, kh);
-  for (int base = 0; base < len; base += kTK) {
-    __syncthreads();  // the previous tile's readers are done
-    regs.store(sm, odd_head);
-    float kscale[kKeys], vscale[kKeys];   // this tile's, before the next load overwrites them
-#pragma unroll
-    for (int c = 0; c < kKeys; ++c) {
-      kscale[c] = KV != kFloat ? regs.ks[c] : 1.f;
-      vscale[c] = KV != kFloat ? regs.vs[c] : 1.f;
-    }
-    __syncthreads();
-    if (base + kTK < len) regs.load(kc, vc, ksc, vsc, base + kTK, len, hs, hh, Hkv, kh);
-
-    // Scores of this thread's kKeys keys: d outer, so the kKeys dot
-    // products are independent chains and q[r][d] is read once.
-    float s[kKeys];
-#pragma unroll
-    for (int c = 0; c < kKeys; ++c) s[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = sm.q[r][d];
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c) s[c] += qd * to_f(sm.k[lane + kLanes * c][d]);
-    }
-    float tmax = kNeg;
-#pragma unroll
-    for (int c = 0; c < kKeys; ++c) {
-      const int key = base + lane + kLanes * c;
-      const bool live = q < Q && key < len &&
-                        mask[static_cast<int64_t>(q) * len + key] != 0;
-      // Past the region's end: no key (-inf), so a row that attends nothing
-      // averages the real rows only.
-      s[c] = key >= len ? -INFINITY
-             : !live    ? kNeg
-             : KV != kFloat ? s[c] * scale * kscale[c] : s[c] * scale;
-      tmax = fmaxf(tmax, s[c]);
-    }
-#pragma unroll
-    for (int o = kLanes / 2; o > 0; o >>= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kKeys; ++c) {
-      const float p = expf(s[c] - m_new);
-      psum += p;
-      // probs (main, quantized: times the row's V scale) in q's dtype
-      sm.p[r][lane + kLanes * c] = to_f(from_f<T>(KV != kFloat ? p * vscale[c] : p));
-    }
-#pragma unroll
-    for (int o = kLanes / 2; o > 0; o >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // a row's 8 lanes share one warp
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] *= alpha;
-#pragma unroll 4
-    for (int j = 0; j < kTK; ++j) {
-      const float p = sm.p[r][j];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[c] += p * to_f(sm.v[j][lane + kLanes * c]);
-    }
-  }
-}
-
-template <typename T, int D, int KV>
-__global__ void __launch_bounds__(kThreads)
-tree_attention_kernel(const T* __restrict__ q, const void* __restrict__ k,
-                      const void* __restrict__ v, const float* __restrict__ ks,
-                      const float* __restrict__ vs, const uint8_t* __restrict__ mask,
-                      const T* __restrict__ sk, const T* __restrict__ sv,
-                      const uint8_t* __restrict__ smask, T* __restrict__ out,
-                      int Q, int H, int Hkv, int M, int S, float scale) {
-  __shared__ Smem<T, D> sm;
-  const int q0 = blockIdx.x * kQT, h = blockIdx.y, kh = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kQT * D; i += kThreads) {
-    const int rr = i / D, d = i % D, qq = q0 + rr;
-    sm.q[rr][d] = qq < Q ? to_f(q[(static_cast<int64_t>(qq) * H + h) * D + d]) : 0.f;
-  }
-  // attend_region's first __syncthreads orders these stores before use.
-  float m = kNeg, l = 0.f;
-  float acc[D / kLanes];
-#pragma unroll
-  for (int c = 0; c < D / kLanes; ++c) acc[c] = 0.f;
-  attend_region<T, D, KV>(sm, k, v, ks, vs, mask, M, q0, Q, Hkv, kh, scale, m, l, acc);
-  attend_region<T, D, kFloat>(sm, sk, sv, nullptr, nullptr, smask, S, q0, Q, Hkv, kh, scale, m,
-                              l, acc);
-
-  const int r = tid / kLanes, lane = tid % kLanes, qq = q0 + r;
-  if (qq < Q) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int c = 0; c < D / kLanes; ++c) {
-      const int d = lane + kLanes * c;
-      out[(static_cast<int64_t>(qq) * H + h) * D + d] = from_f<T>(acc[c] * inv);
-    }
-  }
+  l_0 = l_0 * alpha0 + psum0;
+  l_1 = l_1 * alpha1 + psum1;
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route: tensor cores, key splits, prefix skip.
+// bf16 route: mma.sync m16n8k16, 16-key stages.
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 4;                 // warps per block, each a run of key tiles
-constexpr int kTcThreads = kWarps * 32;
-constexpr int kKT = 16;                   // keys per warp tile
 
 template <int D, int KV>
 struct TcLayout {
@@ -370,9 +381,9 @@ __device__ __forceinline__ void int4x4_to_bf16(uint32_t n, uint32_t& lo, uint32_
 }
 
 // A quantized tile, packed at `buf + kRaw`, expanded in place to bf16 rows
-// [16][kStride] (the same values as TileRegs::expand): `load` takes this
-// lane's packed vectors into registers; after a __syncwarp (every lane has
-// loaded) `store` writes their rows over the packed bytes.
+// [16][kStride] (the integers cast exactly): `load` takes this lane's
+// packed vectors into registers; after a __syncwarp (every lane has loaded)
+// `store` writes their rows over the packed bytes.
 template <int D, int KV>
 struct RawTile {
   using L = TcLayout<D, KV>;
@@ -424,31 +435,8 @@ struct RawTile {
   }
 };
 
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Bits of mask row `row` for keys [k0, k0 + 32) (those below len).
-__device__ __forceinline__ uint32_t mask_word(const uint8_t* __restrict__ row, int k0, int len) {
-  uint32_t word = 0;
-  if (k0 + 32 <= len && (reinterpret_cast<uintptr_t>(row + k0) & 15) == 0) {
-    const uint4* p = reinterpret_cast<const uint4*>(row + k0);
-    const uint4 a = p[0], b = p[1];
-    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint32_t y = __vcmpne4(w[i], 0u);   // 0xff in each nonzero byte
-      word |= ((y & 1u) | ((y >> 7) & 2u) | ((y >> 14) & 4u) | ((y >> 21) & 8u)) << (4 * i);
-    }
-  } else {
-    for (int j = 0; j < 32 && k0 + j < len; ++j) word |= uint32_t(row[k0 + j] != 0) << j;
-  }
-  return word;
-}
-
 template <int D, int KV>
-__global__ void __launch_bounds__(kTcThreads, 3)   // 3 blocks of 4 warps per SM
+__global__ void __launch_bounds__(kWarps * 32, 3)   // 3 blocks of 4 warps per SM
 tree_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
                          const void* __restrict__ v, const float* __restrict__ ks,
                          const float* __restrict__ vs, const uint8_t* __restrict__ mask,
@@ -457,11 +445,9 @@ tree_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
                          float* __restrict__ part, int Q, int H, int Hkv, int M, int S,
                          float scale) {
   using L = TcLayout<D, KV>;
-  constexpr int kStride = L::kStride;
+  constexpr int kStride = L::kStride, kThreads = kWarps * 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_ext[2];
-  __shared__ unsigned s_alive;
-  __shared__ float s_m[kWarps][kQT], s_l[kWarps][kQT];
+  __shared__ BlockShared<kWarps> sh;
 
   const int q0 = blockIdx.x * kQT, h = blockIdx.y, kh = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -469,40 +455,16 @@ tree_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
   bf16* qs = reinterpret_cast<bf16*>(smem + kWarps * L::kWarpBytes);
   uint32_t* bits = reinterpret_cast<uint32_t*>(smem + kWarps * L::kWarpBytes + L::kTileBytes);
 
-  // 1. The query tile (rows past Q zero); the tile's mask rows as bits; the
-  //    last live key of each region over the valid rows; which rows attend
-  //    some key.
-  for (int i = tid; i < kQT * D / 8; i += kTcThreads) {
+  // 1. The query tile (rows past Q zero), in flight while the masks are scanned.
+  for (int i = tid; i < kQT * D / 8; i += kThreads) {
     const int r = i / (D / 8), ch = i % (D / 8);
     const int qq = min(q0 + r, Q - 1);
     cp_async(qs + r * kStride + ch * 8, q + ((static_cast<int64_t>(qq) * H + h) * D + ch * 8),
              q0 + r < Q, 16);
   }
   cp_commit();
-  if (tid == 0) { s_ext[0] = 0; s_ext[1] = 0; s_alive = 0u; }
-  __syncthreads();
-  for (int i = tid; i < kQT * bw; i += kTcThreads) {
-    const int r = i / bw, w = i % bw, qq = q0 + r;
-    const bool in_main = w < mw;
-    const int len = in_main ? M : S, k0 = (in_main ? w : w - mw) * 32;
-    uint32_t word = 0;
-    if (qq < Q) word = mask_word((in_main ? mask : smask) + static_cast<int64_t>(qq) * len, k0, len);
-    bits[i] = word;
-    if (word) {
-      atomicMax(&s_ext[in_main ? 0 : 1], k0 + 32 - __clz(word));
-      atomicOr(&s_alive, 1u << r);
-    }
-  }
-  cp_wait<0>();
-  __syncthreads();
-  int ext_m = s_ext[0], ext_s = s_ext[1];
-  const int nvalid = min(kQT, Q - q0);
-  const unsigned valid = (1u << nvalid) - 1u;
-  if ((s_alive & valid) != valid) { ext_m = M; ext_s = S; }   // a row attends nothing
-  const int ntm = (ext_m + kKT - 1) / kKT, nt = ntm + (ext_s + kKT - 1) / kKT;
-  const int slots = gridDim.z * kWarps, slot = blockIdx.z * kWarps + warp;
-  const int t_begin = static_cast<int>(static_cast<int64_t>(nt) * slot / slots);
-  const int t_end = static_cast<int>(static_cast<int64_t>(nt) * (slot + 1) / slots);
+  const Run run = scan_masks(mask, smask, bits, sh, q0, Q, M, S);
+  const int ntm = run.ntm, t_begin = run.t_begin, t_end = run.t_end;
 
   // 2. The warp's run of tiles. In the mma fragments a lane holds rows g and
   //    g + 8 and, of each 8 keys or dims, c and c + 1.
@@ -601,51 +563,18 @@ tree_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
       mma_bf16(sc[1], a, b[2], b[3]);
     }
 
-    // Scale, mask, online softmax. Keys past the region's end are -inf
-    // (no key at all); masked keys the finite -1e30.
-    const int word = (in_main ? 0 : mw) + (base >> 5), sh = base & 31;
-    const uint32_t bits0 = bits[g * bw + word] >> sh, bits1 = bits[(g + 8) * bw + word] >> sh;
+    const int word = (in_main ? 0 : mw) + (base >> 5), sh5 = base & 31;
     const float* tks = scl + s * 2 * kKT;
-    float tmax0 = kNeg, tmax1 = kNeg;
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n * 8 + c + e;
-        float x0 = sc[n][e], x1 = sc[n][2 + e];
-        if (base + col >= len) {
-          x0 = x1 = -INFINITY;
-        } else {
-          x0 = (bits0 >> col) & 1u ? (quant ? x0 * scale * tks[col] : x0 * scale) : kNeg;
-          x1 = (bits1 >> col) & 1u ? (quant ? x1 * scale * tks[col] : x1 * scale) : kNeg;
-        }
-        sc[n][e] = x0;
-        sc[n][2 + e] = x1;
-        tmax0 = fmaxf(tmax0, x0);
-        tmax1 = fmaxf(tmax1, x1);
-      }
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, o));
-      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, o));
-    }
-    const float mn0 = fmaxf(m_0, tmax0), mn1 = fmaxf(m_1, tmax1);
-    const float alpha0 = expf(m_0 - mn0), alpha1 = expf(m_1 - mn1);
-    m_0 = mn0;
-    m_1 = mn1;
-    float psum0 = 0.f, psum1 = 0.f;
+    float alpha0, alpha1;
+    online_softmax(sc, bits[g * bw + word] >> sh5, bits[(g + 8) * bw + word] >> sh5, base, len,
+                   c, scale, quant ? tks : nullptr, m_0, m_1, l_0, l_1, alpha0, alpha1);
     uint32_t pa[4];
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
-      float p[4];
+      float* p = sc[n];
+      if (quant) {   // the row's V scale, before the rounding
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        p[e] = expf(sc[n][e] - mn0);
-        p[2 + e] = expf(sc[n][2 + e] - mn1);
-        psum0 += p[e];
-        psum1 += p[2 + e];
-        if (quant) {   // the row's V scale, before the rounding
+        for (int e = 0; e < 2; ++e) {
           const float w = tks[kKT + n * 8 + c + e];
           p[e] *= w;
           p[2 + e] *= w;
@@ -654,8 +583,6 @@ tree_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
       pa[2 * n] = bf16x2(p[0], p[1]);       // row g, keys n*8 + c, +1
       pa[2 * n + 1] = bf16x2(p[2], p[3]);   // row g + 8
     }
-    l_0 = l_0 * alpha0 + psum0;
-    l_1 = l_1 * alpha1 + psum1;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       acc[n][0] *= alpha0;
@@ -665,101 +592,375 @@ tree_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
     }
 
     // acc += P V: P's fragments as the A operand (keys 0-7 then 8-15).
-    const uint32_t a[4] = {pa[0], pa[1], pa[2], pa[3]};
     const bf16* vp = vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride + (lane >> 4) * 8;
 #pragma unroll
     for (int dn = 0; dn < D / 16; ++dn) {
       uint32_t b[4];
       ldsm_x4_trans(b, vp + dn * 16);
-      mma_bf16(acc[2 * dn], a, b[0], b[1]);
-      mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
+      mma_bf16(acc[2 * dn], pa, b[0], b[1]);
+      mma_bf16(acc[2 * dn + 1], pa, b[2], b[3]);
     }
     __syncwarp();   // stage s is free for the next issue
   }
 
-  // 3. Merge the 4 warps in shared memory (the stages are free now).
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    l_0 += __shfl_xor_sync(0xffffffffu, l_0, o);
-    l_1 += __shfl_xor_sync(0xffffffffu, l_1, o);
-  }
-  __syncthreads();
-  if ((lane & 3) == 0) {
-    s_m[warp][g] = m_0;
-    s_m[warp][g + 8] = m_1;
-    s_l[warp][g] = l_0;
-    s_l[warp][g + 8] = l_1;
-  }
-  __syncthreads();
-  float ms0 = kNeg, ms1 = kNeg;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    ms0 = fmaxf(ms0, s_m[w][g]);
-    ms1 = fmaxf(ms1, s_m[w][g + 8]);
-  }
-  const float e0 = expf(m_0 - ms0), e1 = expf(m_1 - ms1);
-  constexpr int kAccStride = D + 8;   // floats; float2 stores of a half warp hit 32 banks
-  float* macc = reinterpret_cast<float*>(smem);   // [kWarps][kQT][kAccStride]
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    float* p0 = macc + (warp * kQT + g) * kAccStride + n * 8 + c;
-    float* p1 = p0 + 8 * kAccStride;
-    *reinterpret_cast<float2*>(p0) = make_float2(acc[n][0] * e0, acc[n][1] * e0);
-    *reinterpret_cast<float2*>(p1) = make_float2(acc[n][2] * e1, acc[n][3] * e1);
-  }
-  __syncthreads();
-  const int z = blockIdx.z, Z = gridDim.z;
-  for (int i = tid; i < kQT * D / 2; i += kTcThreads) {
-    const int r = i / (D / 2), d = (i % (D / 2)) * 2, qq = q0 + r;
-    if (qq >= Q) continue;
-    float ms = kNeg;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) ms = fmaxf(ms, s_m[w][r]);
-    float lsum = 0.f, a0 = 0.f, a1 = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      lsum += expf(s_m[w][r] - ms) * s_l[w][r];
-      const float2 x = *reinterpret_cast<const float2*>(macc + (w * kQT + r) * kAccStride + d);
-      a0 += x.x;
-      a1 += x.y;
-    }
-    const int64_t qh = static_cast<int64_t>(qq) * H + h;
-    if (Z == 1) {
-      const float inv = 1.f / fmaxf(lsum, 1e-30f);
-      *reinterpret_cast<uint32_t*>(out + qh * D + d) = bf16x2(a0 * inv, a1 * inv);
-    } else {
-      // part: acc [Z, Q*H, D], then (m, l) [Z, Q*H, 2].
-      const int64_t QH = static_cast<int64_t>(Q) * H;
-      *reinterpret_cast<float2*>(part + (z * QH + qh) * D + d) = make_float2(a0, a1);
-      if (d == 0)
-        *reinterpret_cast<float2*>(part + Z * QH * D + (z * QH + qh) * 2) = make_float2(ms, lsum);
-    }
-  }
+  // 3. Merge the 4 warps, then the output or the block's partial.
+  merge_block<D>(acc, m_0, m_1, l_0, l_1, smem, sh, out, part, q0, Q, H, h);
 }
 
-// out[qh, d] from the Z splits' partials (see the kernel's `part`).
-__global__ void tree_attention_merge_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                                            int Z, int64_t QH, int D) {
-  const int64_t n = QH * (D / 2);
-  const float* ml = part + Z * QH * D;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t qh = i / (D / 2);
-    const int d = static_cast<int>(i % (D / 2)) * 2;
-    float ms = kNeg;
-    for (int z = 0; z < Z; ++z) ms = fmaxf(ms, ml[(z * QH + qh) * 2]);
-    float lsum = 0.f, a0 = 0.f, a1 = 0.f;
-    for (int z = 0; z < Z; ++z) {
-      const float2 st = *reinterpret_cast<const float2*>(ml + (z * QH + qh) * 2);
-      const float w = expf(st.x - ms);
-      const float2 x = *reinterpret_cast<const float2*>(part + (z * QH + qh) * D + d);
-      lsum += w * st.y;
-      a0 += w * x.x;
-      a1 += w * x.y;
+// ---------------------------------------------------------------------------
+// f32 route: 3xTF32 on mma.sync m16n8k8, 8-key stages.
+// ---------------------------------------------------------------------------
+
+template <int D, int KV>
+struct F32Layout {
+  static constexpr int kStride = D + 4;                  // floats per shared row
+  static constexpr int kHalfBytes = kKH * kStride * 4;   // one K or V stage
+  // Per warp: kF32Stages stages of (K, V); a quantized main cache adds as
+  // many of (ks, vs) for 8 keys. Per block, after the warps: the query
+  // tile's hi and lo planes [16][kStride] each, then the mask bits.
+  static constexpr int kScales = 2 * kF32Stages * kHalfBytes;
+  static constexpr int kWarpBytes = kScales + (KV != kFloat ? kF32Stages * 2 * kKH * 4 : 0);
+  static constexpr int kQBytes = kQT * kStride * 4;
+  static constexpr int kRowBytes = KV == kFloat ? 4 * D : KV == kInt4Dsplit ? D / 2 : D;
+  static constexpr int kVec = kRowBytes < 16 ? kRowBytes : 16;
+  static constexpr int kRaw = kHalfBytes - kKH * kRowBytes;   // offset of the packed rows
+  static constexpr int kVecs = kKH * kRowBytes / kVec;
+};
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// as f32 bits whose low 13 bits are zero: cvt.rna.tf32.f32 on the bits.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// x = hi + lo + (at most 2^-22 |x|), both tf32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a * b, m16n8k8, tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4 bytes `u` (each biased by + 128 or + 8 into 0..255) as 4 floats less
+// `bias` (2^23 + 128 or 2^23 + 8): 2^23 + byte is exact in f32 (one prmt),
+// one subtraction gives the signed value.
+__device__ __forceinline__ float4 bytes_to_f32(uint32_t u, float bias) {
+  return make_float4(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - bias);
+}
+
+// A quantized 8-key stage, packed at `buf + kRaw`, expanded in place to f32
+// rows [8][kStride] (the integers cast exactly), as RawTile does for bf16.
+template <int D, int KV>
+struct RawTileF32 {
+  using L = F32Layout<D, KV>;
+  static constexpr int kW = L::kVec / 4, kPer = (L::kVecs + 31) / 32;
+  uint32_t w[kPer][kW];
+
+  __device__ __forceinline__ void load(const unsigned char* buf, int lane) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = lane + 32 * u;
+      if (i < L::kVecs) {
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(buf + L::kRaw + i * L::kVec);
+#pragma unroll
+        for (int x = 0; x < kW; ++x) w[u][x] = src[x];
+      }
     }
-    const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    *reinterpret_cast<uint32_t*>(out + qh * D + d) = bf16x2(a0 * inv, a1 * inv);
   }
+
+  __device__ __forceinline__ void store(unsigned char* buf, int lane, int odd_head) const {
+    float* rows = reinterpret_cast<float*>(buf);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = lane + 32 * u;
+      if (i >= L::kVecs) continue;
+      const int e = i * L::kVec, j = e / L::kRowBytes, b = e % L::kRowBytes;
+      float4* dst = reinterpret_cast<float4*>(rows + j * L::kStride + b);
+#pragma unroll
+      for (int x = 0; x < kW; ++x) {
+        const uint32_t word = w[u][x];
+        if (KV == kInt8) {
+          dst[x] = bytes_to_f32(word ^ 0x80808080u, 8388736.f);
+        } else if (KV == kInt4Head) {
+          const uint32_t n = odd_head ? (word >> 4) & 0x0F0F0F0Fu : word & 0x0F0F0F0Fu;
+          dst[x] = bytes_to_f32(n ^ 0x08080808u, 8388616.f);
+        } else {
+          dst[x] = bytes_to_f32((word & 0x0F0F0F0Fu) ^ 0x08080808u, 8388616.f);
+          dst[D / 8 + x] = bytes_to_f32(((word >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 8388616.f);
+        }
+      }
+    }
+  }
+};
+
+template <int D, int KV>
+__global__ void __launch_bounds__(kF32Warps * 32, 1)   // 1 block of 8 warps per SM
+tree_attention_f32_kernel(const float* __restrict__ q, const void* __restrict__ k,
+                          const void* __restrict__ v, const float* __restrict__ ks,
+                          const float* __restrict__ vs, const uint8_t* __restrict__ mask,
+                          const float* __restrict__ sk, const float* __restrict__ sv,
+                          const uint8_t* __restrict__ smask, float* __restrict__ out,
+                          float* __restrict__ part, int Q, int H, int Hkv, int M, int S,
+                          float scale) {
+  using L = F32Layout<D, KV>;
+  constexpr int kStride = L::kStride, W = kF32Warps, kThreads = W * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ BlockShared<W> sh;
+
+  const int q0 = blockIdx.x * kQT, h = blockIdx.y, kh = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int mw = (M + 31) / 32, bw = mw + (S + 31) / 32;
+  float* qhi = reinterpret_cast<float*>(smem + W * L::kWarpBytes);
+  float* qlo = qhi + kQT * kStride;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + W * L::kWarpBytes + 2 * L::kQBytes);
+
+  // 1. The query tile (rows past Q zero) lands in the first warp's stages
+  //    while the masks are scanned, then splits into its hi and lo planes.
+  float* qraw = reinterpret_cast<float*>(smem);
+  for (int i = tid; i < kQT * D / 4; i += kThreads) {
+    const int r = i / (D / 4), ch = i % (D / 4);
+    const int qq = min(q0 + r, Q - 1);
+    cp_async(qraw + r * kStride + ch * 4, q + ((static_cast<int64_t>(qq) * H + h) * D + ch * 4),
+             q0 + r < Q, 16);
+  }
+  cp_commit();
+  const Run run = scan_masks(mask, smask, bits, sh, q0, Q, M, S);
+  const int ntm = run.ntm, h_begin = 2 * run.t_begin, h_end = 2 * run.t_end;
+  for (int i = tid; i < kQT * D; i += kThreads) {
+    const int o = (i / D) * kStride + i % D;
+    uint32_t hi, lo;
+    split_tf32(qraw[o], hi, lo);
+    qhi[o] = __uint_as_float(hi);
+    qlo[o] = __uint_as_float(lo);
+  }
+  __syncthreads();   // the planes are written and the first warp's stages free
+
+  // 2. The warp's run, in 8-key steps (two per 16-key tile). In the mma
+  //    fragments a lane holds rows g and g + 8; of S's 8 keys 2c' and
+  //    2c' + 1 (c' = lane & 3), of each 8 dims of acc c and c + 1.
+  const int g = lane >> 2, cq = lane & 3, c = cq * 2;
+  unsigned char* wsm = smem + warp * L::kWarpBytes;
+  auto stage_k = [&](int s) { return reinterpret_cast<float*>(wsm + (2 * s) * L::kHalfBytes); };
+  auto stage_v = [&](int s) { return reinterpret_cast<float*>(wsm + (2 * s + 1) * L::kHalfBytes); };
+  float* scl = reinterpret_cast<float*>(wsm + L::kScales);   // [stage][ks, vs][8]
+  const int odd_head = kh & 1;
+  // Step hs covers keys base .. base + 7 of the main cache (tile < ntm) or the scratch.
+  auto step_base = [&](int hs) {
+    const int t = hs >> 1;
+    return (t < ntm ? t : t - ntm) * kKT + (hs & 1) * kKH;
+  };
+
+  auto issue = [&](int hs, int s) {
+    const bool in_main = (hs >> 1) < ntm;
+    const int base = step_base(hs);
+    unsigned char* dk = reinterpret_cast<unsigned char*>(stage_k(s));
+    unsigned char* dv = reinterpret_cast<unsigned char*>(stage_v(s));
+    if (KV != kFloat && in_main) {
+      // The 8 keys' scales (first: scattered words), then the raw rows,
+      // packed [8][kRowBytes] at kRaw.
+      if (lane < 2 * kKH) {
+        const int key = base + (lane & (kKH - 1));
+        const bool ok = key < M;
+        const float* src = (lane < kKH ? ks : vs) + (ok ? static_cast<int64_t>(key) * Hkv + kh : 0);
+        cp_async(scl + s * 2 * kKH + lane, src, ok, 4);
+      }
+      const int hs_ = KV == kInt4Head ? Hkv / 2 : Hkv, hh = KV == kInt4Head ? kh / 2 : kh;
+      const uint8_t* kc = static_cast<const uint8_t*>(k);
+      const uint8_t* vc = static_cast<const uint8_t*>(v);
+#pragma unroll
+      for (int i = lane; i < L::kVecs; i += 32) {
+        const int e = i * L::kVec, j = e / L::kRowBytes, b = e % L::kRowBytes, key = base + j;
+        const bool ok = key < M;
+        const int64_t off = (static_cast<int64_t>(ok ? key : 0) * hs_ + hh) * L::kRowBytes + b;
+        cp_async(dk + L::kRaw + e, kc + off, ok, L::kVec);
+        cp_async(dv + L::kRaw + e, vc + off, ok, L::kVec);
+      }
+    } else {
+      const float* kc = in_main ? static_cast<const float*>(k) : sk;
+      const float* vc = in_main ? static_cast<const float*>(v) : sv;
+      const int len = in_main ? M : S;
+      constexpr int kChunks = D / 4;   // 16-byte chunks per row
+#pragma unroll
+      for (int i = lane; i < kKH * kChunks; i += 32) {
+        const int j = i / kChunks, ch = i % kChunks, key = base + j;
+        const bool ok = key < len;
+        const int64_t off = (static_cast<int64_t>(ok ? key : 0) * Hkv + kh) * D + ch * 4;
+        cp_async(dk + (j * kStride + ch * 4) * 4, kc + off, ok, 16);
+        cp_async(dv + (j * kStride + ch * 4) * 4, vc + off, ok, 16);
+      }
+    }
+    cp_commit();
+  };
+
+  float m_0 = kNeg, m_1 = kNeg, l_0 = 0.f, l_1 = 0.f;   // rows g, g + 8
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // ldmatrix lane addresses. q's A fragment for dims 8kk..8kk+7: matrices
+  // (rows 0-7, dims +0..3), (rows 8-15, +0..3), (rows 0-7, +4..7), (rows
+  // 8-15, +4..7). K's B fragments of two k steps: keys 0-7 at dims +0, +4,
+  // +8, +12.
+  const int qo = ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride + (lane >> 4) * 4;
+  const int ko = (lane & 7) * kStride + (lane >> 3) * 4;
+
+  // The ring: step hs in stage (hs - h_begin) % kF32Stages, issued
+  // kF32Stages - 1 steps ahead (one commit group a step, empty past the run).
+#pragma unroll
+  for (int i = 0; i < kF32Stages - 1; ++i) {
+    if (h_begin + i < h_end) issue(h_begin + i, i);
+    else cp_commit();
+  }
+  for (int hs = h_begin; hs < h_end; ++hs) {
+    const int s = (hs - h_begin) % kF32Stages;
+    const int next = hs + kF32Stages - 1;   // into the stage step hs - 1 has freed
+    if (next < h_end) issue(next, (next - h_begin) % kF32Stages);
+    else cp_commit();
+    cp_wait<kF32Stages - 1>();
+    __syncwarp();   // every lane's copies of stage s have landed
+    const bool in_main = (hs >> 1) < ntm;
+    const bool quant = KV != kFloat && in_main;
+    const int base = step_base(hs), len = in_main ? M : S;
+    if (base < len) {   // (a step wholly past the region's end changes nothing)
+      float* kt = stage_k(s);
+      float* vt = stage_v(s);
+      if (quant) {   // expand the packed K and V rows in place
+        RawTileF32<D, KV> rk, rv;
+        rk.load(reinterpret_cast<unsigned char*>(kt), lane);
+        rv.load(reinterpret_cast<unsigned char*>(vt), lane);
+        __syncwarp();
+        rk.store(reinterpret_cast<unsigned char*>(kt), lane, odd_head);
+        rv.store(reinterpret_cast<unsigned char*>(vt), lane, odd_head);
+        __syncwarp();
+      }
+
+      // S = Q K^T [16 x 8]: q_hi.k_hi, q_hi.k_lo (none for integer rows)
+      // and q_lo.k_hi, each in two accumulators (even and odd k steps).
+      float shh[2][4] = {}, shl[2][4] = {}, slh[2][4] = {};
+#pragma unroll
+      for (int kp = 0; kp < D / 16; ++kp) {
+        uint32_t kb[4];
+        ldsm_x4(kb, kt + ko + kp * 16);
+#pragma unroll
+        for (int z = 0; z < 2; ++z) {
+          const int kk = 2 * kp + z;
+          uint32_t ah[4], al[4], bh[2], bl[2];
+          ldsm_x4(ah, qhi + qo + kk * 8);
+          ldsm_x4(al, qlo + qo + kk * 8);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (quant) bh[e] = kb[2 * z + e];
+            else split_tf32(__uint_as_float(kb[2 * z + e]), bh[e], bl[e]);
+          }
+          mma_tf32(shh[z], ah, bh[0], bh[1]);
+          if (!quant) mma_tf32(shl[z], ah, bl[0], bl[1]);
+          mma_tf32(slh[z], al, bh[0], bh[1]);
+        }
+      }
+      float sc[1][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sc[0][i] = (shh[0][i] + shh[1][i]) + ((shl[0][i] + shl[1][i]) + (slh[0][i] + slh[1][i]));
+
+      const int word = (in_main ? 0 : mw) + (base >> 5), sh5 = base & 31;
+      const float* tks = scl + s * 2 * kKH;
+      float alpha0, alpha1;
+      online_softmax(sc, bits[g * bw + word] >> sh5, bits[(g + 8) * bw + word] >> sh5, base,
+                     len, c, scale, quant ? tks : nullptr, m_0, m_1, l_0, l_1, alpha0, alpha1);
+      float* p = sc[0];
+      if (quant) {   // the row's V scale
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[e] *= tks[kKH + c + e];
+          p[2 + e] *= tks[kKH + c + e];
+        }
+      }
+      // P as the A operand of the k step: k index cq is key 2cq (p[0], p[2]),
+      // cq + 4 key 2cq + 1 (p[1], p[3]).
+      uint32_t ph[4], pl[4];
+      split_tf32(p[0], ph[0], pl[0]);
+      split_tf32(p[2], ph[1], pl[1]);
+      split_tf32(p[1], ph[2], pl[2]);
+      split_tf32(p[3], ph[3], pl[3]);
+
+      // acc = acc * alpha + P V, 8 dims an n tile; V's B fragment is
+      // V[key 2cq][8n + g] and V[key 2cq + 1][8n + g].
+      const float* vp = vt + (2 * cq) * kStride + g;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float v0 = vp[n * 8], v1 = vp[kStride + n * 8];
+        uint32_t vh[2], vl[2];
+        if (quant) {
+          vh[0] = __float_as_uint(v0);
+          vh[1] = __float_as_uint(v1);
+        } else {
+          split_tf32(v0, vh[0], vl[0]);
+          split_tf32(v1, vh[1], vl[1]);
+        }
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(pv, ph, vh[0], vh[1]);
+        if (!quant) mma_tf32(pv, ph, vl[0], vl[1]);
+        mma_tf32(pv, pl, vh[0], vh[1]);
+        acc[n][0] = fmaf(acc[n][0], alpha0, pv[0]);
+        acc[n][1] = fmaf(acc[n][1], alpha0, pv[1]);
+        acc[n][2] = fmaf(acc[n][2], alpha1, pv[2]);
+        acc[n][3] = fmaf(acc[n][3], alpha1, pv[3]);
+      }
+    }
+    __syncwarp();   // stage s is free for the next issue
+  }
+
+  // 3. Merge the 4 warps, then the output or the block's partial.
+  merge_block<D>(acc, m_0, m_1, l_0, l_1, smem, sh, out, part, q0, Q, H, h);
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+// The kernel over a (query tile, head, split) grid with `bytes` of dynamic
+// shared memory (`allowed`: what the kernel may already take), then, with
+// more than one split, the merge of the partials.
+template <typename T, int W, typename Kernel>
+cudaError_t launch_split(Kernel kern, int bytes, int& allowed, const void* q, const void* k,
+                         const void* v, const void* ks, const void* vs, const void* mask,
+                         const void* sk, const void* sv, const void* smask, void* out,
+                         void* part, int Q, int H, int Hkv, int D, int M, int S, int splits,
+                         float scale, cudaStream_t stream) {
+  // 227 KB per block, less the kernel's static shared memory (under 1 KB).
+  constexpr int kMaxBytes = 226 * 1024;
+  if (bytes > kMaxBytes || splits < 1 || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  if (bytes > allowed) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    allowed = bytes;
+  }
+  const dim3 grid((Q + kQT - 1) / kQT, H, splits);
+  kern<<<grid, W * 32, bytes, stream>>>(
+      static_cast<const T*>(q), k, v, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const uint8_t*>(mask),
+      static_cast<const T*>(sk), static_cast<const T*>(sv), static_cast<const uint8_t*>(smask),
+      static_cast<T*>(out), static_cast<float*>(part), Q, H, Hkv, M, S, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const int64_t QH = static_cast<int64_t>(Q) * H;
+  const int64_t n = QH * (D / 2);
+  const int blocks = static_cast<int>(n < 256 * 1024 ? (n + 255) / 256 : 1024);
+  tree_attention_merge_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
+                                                             static_cast<T*>(out), splits, QH, D);
+  return cudaGetLastError();
 }
 
 template <int D, int KV>
@@ -770,68 +971,37 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* k
   using L = TcLayout<D, KV>;
   const int bytes =
       kWarps * L::kWarpBytes + L::kTileBytes + kQT * ((M + 31) / 32 + (S + 31) / 32) * 4;
-  // 227 KB per block, less the kernel's static shared memory (under 1 KB).
-  constexpr int kMaxBytes = 226 * 1024;
-  if (bytes > kMaxBytes || splits < 1 || (splits > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
-  auto kern = tree_attention_tc_kernel<D, KV>;
   static int allowed = 48 * 1024;   // dynamic shared memory the kernel may take
-  if (bytes > allowed) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    allowed = bytes;
-  }
-  const dim3 grid((Q + kQT - 1) / kQT, H, splits);
-  kern<<<grid, kTcThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), k, v, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const uint8_t*>(mask),
-      static_cast<const bf16*>(sk), static_cast<const bf16*>(sv),
-      static_cast<const uint8_t*>(smask), static_cast<bf16*>(out), static_cast<float*>(part), Q,
-      H, Hkv, M, S, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return e;
-  const int64_t QH = static_cast<int64_t>(Q) * H;
-  const int64_t n = QH * (D / 2);
-  const int blocks = static_cast<int>(n < 256 * 1024 ? (n + 255) / 256 : 1024);
-  tree_attention_merge_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
-                                                          static_cast<bf16*>(out), splits, QH, D);
-  return cudaGetLastError();
+  return launch_split<bf16, kWarps>(tree_attention_tc_kernel<D, KV>, bytes, allowed, q, k, v, ks, vs,
+                            mask, sk, sv, smask, out, part, Q, H, Hkv, D, M, S, splits, scale,
+                            stream);
 }
 
-template <int KV>
+template <int D, int KV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* ks,
                        const void* vs, const void* mask, const void* sk, const void* sv,
-                       const void* smask, void* out, int Q, int H, int Hkv, int D, int M, int S,
-                       float scale, cudaStream_t stream) {
-  const dim3 grid((Q + kQT - 1) / kQT, H), block(kThreads);
-#define SEQ_TA_CASE(DD)                                                        \
-  if (D == DD) {                                                               \
-    tree_attention_kernel<float, DD, KV><<<grid, block, 0, stream>>>(          \
-        static_cast<const float*>(q), k, v, static_cast<const float*>(ks),     \
-        static_cast<const float*>(vs), static_cast<const uint8_t*>(mask),      \
-        static_cast<const float*>(sk), static_cast<const float*>(sv),          \
-        static_cast<const uint8_t*>(smask), static_cast<float*>(out), Q, H,    \
-        Hkv, M, S, scale);                                                     \
-    return cudaGetLastError();                                                 \
-  }
-  SEQ_TA_CASE(16)
-  SEQ_TA_CASE(32)
-  SEQ_TA_CASE(64)
-  SEQ_TA_CASE(128)
-#undef SEQ_TA_CASE
-  return cudaErrorInvalidValue;
+                       const void* smask, void* out, void* part, int Q, int H, int Hkv, int M,
+                       int S, int splits, float scale, cudaStream_t stream) {
+  using L = F32Layout<D, KV>;
+  const int bytes =
+      kF32Warps * L::kWarpBytes + 2 * L::kQBytes + kQT * ((M + 31) / 32 + (S + 31) / 32) * 4;
+  static int allowed = 48 * 1024;
+  return launch_split<float, kF32Warps>(tree_attention_f32_kernel<D, KV>, bytes, allowed, q, k, v, ks, vs,
+                             mask, sk, sv, smask, out, part, Q, H, Hkv, D, M, S, splits, scale,
+                             stream);
 }
 
 template <int KV>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* ks,
-                        const void* vs, const void* mask, const void* sk, const void* sv,
-                        const void* smask, void* out, void* part, int Q, int H, int Hkv, int D,
-                        int M, int S, int splits, float scale, cudaStream_t stream) {
-#define SEQ_TA_CASE(DD)                                                                 \
-  if (D == DD)                                                                          \
-    return launch_tc<DD, KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, part, Q, H, Hkv, \
-                             M, S, splits, scale, stream);
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* ks,
+                   const void* vs, const void* mask, const void* sk, const void* sv,
+                   const void* smask, void* out, void* part, int Q, int H, int Hkv, int D, int M,
+                   int S, int splits, float scale, cudaStream_t stream) {
+#define SEQ_TA_CASE(DD)                                                                        \
+  if (D == DD)                                                                                 \
+    return dtype == 0 ? launch_f32<DD, KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, part, Q, \
+                                           H, Hkv, M, S, splits, scale, stream)                \
+                      : launch_tc<DD, KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, part, Q,  \
+                                          H, Hkv, M, S, splits, scale, stream);
   SEQ_TA_CASE(16)
   SEQ_TA_CASE(32)
   SEQ_TA_CASE(64)
@@ -844,14 +1014,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 
 extern "C" {
 
-// dtype (of q, the scratch and the output): 0 = float32 (the CUDA-core
-// route; `part` and `splits` are not read), 1 = bfloat16 (the tensor-core
-// route). kv_format of the main cache k, v: 0 = the same float type
+// dtype (of q, the scratch and the output): 0 = float32 (3xTF32), 1 =
+// bfloat16. kv_format of the main cache k, v: 0 = the same float type
 // [M, Hkv, D]; 1 = int8 [M, Hkv, D]; 2 = int4 head-paired [M, Hkv/2, D]
 // (Hkv even); 3 = int4 dsplit [M, Hkv, D/2]; 1..3 with float32 scales ks, vs
 // [M, Hkv] (else not read). Masks are uint8 (torch.bool) [Q, M] and [Q, S];
 // S may be 0 (then sk, sv and smask are not read). Head dim D must be one of
-// 16, 32, 64, 128; the wrapper checks it. bf16: `splits` blocks share each
+// 16, 32, 64, 128; the wrapper checks it. `splits` blocks share each
 // (16-query tile, head); with more than one, `part` is an f32 workspace of
 // splits * Q * H * (D + 2) floats.
 int sequoia_tree_attention(const void* q, const void* k, const void* v, const void* ks,
@@ -863,15 +1032,11 @@ int sequoia_tree_attention(const void* q, const void* k, const void* v, const vo
   if (kv_format == kInt4Head && Hkv % 2) return static_cast<int>(cudaErrorInvalidValue);
   if (kv_format != kFloat && (ks == nullptr || vs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-#define SEQ_TA_FORMAT(KV)                                                                    \
-  if (kv_format == KV) {                                                                     \
-    if (dtype == 0)                                                                          \
-      return static_cast<int>(launch_f32<KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, Q, H, \
-                                             Hkv, D, M, S, scale, st));                      \
-    if (dtype == 1)                                                                          \
-      return static_cast<int>(launch_bf16<KV>(q, k, v, ks, vs, mask, sk, sv, smask, out,     \
-                                              part, Q, H, Hkv, D, M, S, splits, scale, st)); \
-  }
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+#define SEQ_TA_FORMAT(KV)                                                                     \
+  if (kv_format == KV)                                                                        \
+    return static_cast<int>(launch<KV>(dtype, q, k, v, ks, vs, mask, sk, sv, smask, out, part, \
+                                       Q, H, Hkv, D, M, S, splits, scale, st));
   SEQ_TA_FORMAT(kFloat)
   SEQ_TA_FORMAT(kInt8)
   SEQ_TA_FORMAT(kInt4Head)

@@ -54,7 +54,8 @@ SIGNATURES = {
 
 launches = dict.fromkeys((
     "tree_attention", "tree_attention_kv8", "tree_attention_kv4_head",
-    "tree_attention_kv4_dsplit", "top_p_threshold_from_logits",
+    "tree_attention_kv4_dsplit", "tree_attention_f32", "tree_attention_kv8_f32",
+    "tree_attention_kv4_head_f32", "tree_attention_kv4_dsplit_f32", "top_p_threshold_from_logits",
     "top_p_threshold_fused", "top_p_threshold_from_logits_cluster",
     "top_p_threshold_fused_cluster", "quant_matmul_int8", "quant_matmul_int8_wgmma",
     "quant_matmul_int4", "quant_matmul_int4_wgmma", "quant_matmul_tiled",

@@ -21,14 +21,17 @@ never written has scale 0 and is masked by every caller.
 
 On a CUDA tensor `tree_attention` launches the kernel of
 `csrc/tree_attention.cu` (or raises); on a CPU tensor it runs
-`tree_attention_plain`. A bf16 call runs on the tensor cores: each 16-query
+`tree_attention_plain`. Both dtypes share one decomposition: each 16-query
 tile reads its keys only up to the last one its mask rows attend, in runs
-of 16-key tiles spread over `split_count(...)` blocks of `WARPS` warps,
-whose partials a second kernel merges. `tree_attention_split_plain` is a
-plain model of that decomposition (on no path; the tests hold it against
-the JAX kernel).
+of 16-key tiles spread over `split_count(...)` blocks of `WARPS` warps
+(f32: `F32_WARPS`), whose partials a second kernel merges. bf16 runs its
+products on the bf16 tensor cores; f32 on the TF32 tensor cores as three
+products of split operands (3xTF32: x = hi + lo, both TF32), which keeps
+f32's accuracy.
+`tree_attention_split_plain` models the bf16 kernel and
+`tree_attention_f32_model` the f32 one, arithmetic included (both on no
+path; the tests hold them against the JAX kernel).
 """
-
 from __future__ import annotations
 
 import functools
@@ -43,23 +46,39 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Main-cache formats: the kernel's code and the wrapper's launch counter.
 _FORMAT_CODE = {"float": 0, "int8": 1, "int4_head": 2, "int4_dsplit": 3}
+# (The f32 route's counters add "_f32": `counter`.)
 _COUNTER = {"float": "tree_attention", "int8": "tree_attention_kv8",
             "int4_head": "tree_attention_kv4_head",
             "int4_dsplit": "tree_attention_kv4_dsplit"}
-# The bf16 kernel's decomposition: a block is one 16-query tile of one head
-# with WARPS warps; a warp walks a run of 16-key tiles.
+# The kernels' decomposition: a block is one 16-query tile of one head with
+# WARPS warps (F32_WARPS for f32); a warp walks a run of 16-key tiles (the
+# f32 kernel in two steps of F32_STEP keys each).
 WARPS = 4
+F32_WARPS = 8
 TILE_Q = 16
 TILE_K = 16
+F32_STEP = 8
 BLOCKS_PER_SM = 2
 
 
-def split_count(Q: int, H: int, M: int, S: int, sms: int) -> int:
-    """Blocks that share one (16-query tile, head) in the bf16 kernel: enough
-    for about BLOCKS_PER_SM blocks on each of `sms` SMs, and no more than
-    leave each warp one 16-key tile of the whole main cache and scratch."""
+def counter(fmt: str, dtype: torch.dtype) -> str:
+    """The launch counter of the kernel for a main cache in format `fmt`
+    and queries of `dtype`."""
+    return _COUNTER[fmt] + ("_f32" if dtype == torch.float32 else "")
+
+
+def split_count(Q: int, H: int, M: int, S: int, sms: int,
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks that share one (16-query tile, head) in the kernel, no more
+    than leave each warp one 16-key tile of the whole main cache and
+    scratch: bf16 (WARPS warps a block), enough for about BLOCKS_PER_SM
+    blocks on each of `sms` SMs; f32 (F32_WARPS warps, one block fills an
+    SM's shared memory), as many as one wave of one block per SM holds (a
+    second wave or the merge costs more than shorter runs save)."""
     pairs = -(-Q // TILE_Q) * H
     tiles = -(-M // TILE_K) + -(-S // TILE_K)
+    if dtype == torch.float32:
+        return max(1, min(sms // pairs, -(-tiles // F32_WARPS)))
     return max(1, min(-(-BLOCKS_PER_SM * sms // pairs), -(-tiles // WARPS)))
 
 
@@ -70,7 +89,7 @@ def _sm_count(index: int) -> int:
 
 def tile_extents(main_mask: torch.Tensor, scr_mask: torch.Tensor) -> torch.Tensor:
     """`[ceil(Q / 16), 2]` int64: for each 16-query tile, the keys of the main
-    region and of the scratch that the bf16 kernel reads, as it finds them
+    region and of the scratch that the kernel reads, as it finds them
     in the mask: one past the last key any row of the tile attends, or the
     whole region when some row of the tile attends no key at all."""
     Q, M = main_mask.shape
@@ -109,37 +128,44 @@ def cache_format(k: torch.Tensor, Hkv: int, D: int) -> str:
 
 def tree_attention_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
                          ks=None, vs=None):
-    """Einsum/softmax over `cat(main, scratch)`, step by step."""
+    """Einsum/softmax over `cat(main, scratch)`, step by step, in f32 (in
+    f64 for f64 q: a reference for the f32 kernels' error)."""
     Q, H, D = q.shape
     Hkv = sk.shape[1]
     g = H // Hkv
     M = k.shape[0]
-    qg = q.reshape(Q, Hkv, g, D).float()
+    ft = _compute_dtype(q)
+    qg = q.reshape(Q, Hkv, g, D).to(ft)
     k, v, fmt = _float_rows(q, k, v, Hkv, D)
     scores = torch.einsum("qhgd,mhd->hgqm", qg, k) * scale
     if fmt != "float":
         scores = scores * ks.T[:, None, None, :]
     scores = scores.masked_fill(~main_mask[None, None], NEG)
-    scores_scr = torch.einsum("qhgd,shd->hgqs", qg, sk.float()) * scale
+    scores_scr = torch.einsum("qhgd,shd->hgqs", qg, sk.to(ft)) * scale
     scores_scr = scores_scr.masked_fill(~scr_mask[None, None], NEG)
     full = torch.softmax(torch.cat([scores, scores_scr], dim=-1), dim=-1)
     probs, probs_scr = full[..., :M], full[..., M:]
     if fmt != "float":
         probs = probs * vs.T[:, None, None, :]
-    out = (torch.einsum("hgqm,mhd->qhgd", probs.to(q.dtype).float(), v)
-           + torch.einsum("hgqs,shd->qhgd", probs_scr.to(q.dtype).float(), sv.float()))
+    out = (torch.einsum("hgqm,mhd->qhgd", probs.to(q.dtype).to(ft), v)
+           + torch.einsum("hgqs,shd->qhgd", probs_scr.to(q.dtype).to(ft), sv.to(ft)))
     return out.reshape(Q, H, D).to(q.dtype)
 
 
+def _compute_dtype(q):
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def _float_rows(q, k, v, Hkv, D):
-    """The main rows as floats (integers cast exactly to q's dtype), and the
-    format's name."""
+    """The main rows in the compute dtype (integers cast exactly to q's
+    dtype), and the format's name."""
     fmt = cache_format(k, Hkv, D)
     if fmt.startswith("int4"):
         k, v = (unpack_kv_rows4(t, packing=fmt[5:]) for t in (k, v))
     if fmt != "float":
         k, v = k.to(q.dtype), v.to(q.dtype)
-    return k.float(), v.float(), fmt
+    ft = _compute_dtype(q)
+    return k.to(ft), v.to(ft), fmt
 
 
 def _merge(parts):
@@ -151,14 +177,16 @@ def _merge(parts):
     return m, lsum, acc
 
 
-def tree_attention_split_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
-                               ks=None, vs=None, splits: int = 1):
-    """The bf16 kernel's decomposition in plain PyTorch, on no path: for each
-    16-query tile, its `tile_extents`; the extent's 16-key tiles (main, then
-    scratch) cut into `splits * WARPS` contiguous runs; per run the online
-    softmax tile by tile into (m, l, acc); the runs of a block merged, then
-    the blocks. Scores in f32, masked -1e30; probabilities (main, quantized:
-    times `vs`) rounded to q's dtype for the value product."""
+def _decomposed(q, k, v, main_mask, sk, sv, scr_mask, scale, ks, vs, splits, warps, step,
+                dot, pv):
+    """The kernels' decomposition in plain PyTorch: for each 16-query tile,
+    its `tile_extents`; the extent's 16-key tiles (main, then scratch) cut
+    into `splits * warps` contiguous runs; per run the online softmax in
+    steps of `step` keys (none past the region's end) into (m, l, acc); the
+    runs of a block merged, then the blocks. `dot(qt [H, r, D], kr [n, H, D])`
+    gives the scores `[H, r, n]` in f32; `pv(acc, alpha, p, vr)` folds the
+    probabilities `p` (main, quantized: times `vs`) into acc. Masked scores
+    are -1e30."""
     Q, H, D = q.shape
     Hkv = sk.shape[1]
     kvh = torch.arange(H) // (H // Hkv)
@@ -166,42 +194,115 @@ def tree_attention_split_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: f
     scales = (ks, vs) if fmt != "float" else (None, None)
     regions = [(kf, vf, main_mask, *scales), (sk.float(), sv.float(), scr_mask, None, None)]
     ext = tile_extents(main_mask, scr_mask).tolist()
-    slots = splits * WARPS
+    slots = splits * warps
     out = torch.empty_like(q)
     for ti, q0 in enumerate(range(0, Q, TILE_Q)):
         rows = slice(q0, min(q0 + TILE_Q, Q))
-        qt = q[rows].float()                                   # [r, H, D]
-        r = qt.shape[0]
+        qt = q[rows].float().permute(1, 0, 2)                  # [H, r, D]
+        r = qt.shape[1]
         ntm = -(-ext[ti][0] // TILE_K)
         nt = ntm + -(-ext[ti][1] // TILE_K)
         blocks = []
         for z in range(splits):
             runs = []
-            for j in range(z * WARPS, (z + 1) * WARPS):
+            for j in range(z * warps, (z + 1) * warps):
                 m = torch.full((H, r), NEG)
                 lsum, acc = torch.zeros(H, r), torch.zeros(H, r, D)
                 for t in range(nt * j // slots, nt * (j + 1) // slots):
                     kr, vr, mask, kscale, vscale = regions[t >= ntm]
-                    base = (t if t < ntm else t - ntm) * TILE_K
-                    keys = slice(base, base + TILE_K)        # past the end: no key
-                    s = torch.einsum("rhd,nhd->hrn", qt, kr[keys][:, kvh]) * scale
-                    if kscale is not None:
-                        s = s * kscale[keys][:, kvh].T[:, None, :]
-                    s = s.masked_fill(~mask[rows, keys][None], NEG)
-                    m_new = torch.maximum(m, s.amax(dim=-1))
-                    alpha = torch.exp(m - m_new)
-                    p = torch.exp(s - m_new[..., None])
-                    lsum = lsum * alpha + p.sum(dim=-1)
-                    if vscale is not None:
-                        p = p * vscale[keys][:, kvh].T[:, None, :]
-                    pv = torch.einsum("hrn,nhd->hrd", p.to(q.dtype).float(), vr[keys][:, kvh])
-                    acc = acc * alpha[..., None] + pv
-                    m = m_new
+                    tile = (t if t < ntm else t - ntm) * TILE_K
+                    for base in range(tile, min(tile + TILE_K, kr.shape[0]), step):
+                        keys = slice(base, base + step)      # past the end: no key
+                        s = dot(qt, kr[keys][:, kvh]) * scale
+                        if kscale is not None:
+                            s = s * kscale[keys][:, kvh].T[:, None, :]
+                        s = s.masked_fill(~mask[rows, keys][None], NEG)
+                        m_new = torch.maximum(m, s.amax(dim=-1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[..., None])
+                        lsum = lsum * alpha + p.sum(dim=-1)
+                        if vscale is not None:
+                            p = p * vscale[keys][:, kvh].T[:, None, :]
+                        acc = pv(acc, alpha, p, vr[keys][:, kvh])
+                        m = m_new
                 runs.append((m, lsum, acc))
             blocks.append(_merge(runs))
         _, lsum, acc = _merge(blocks)
         out[rows] = (acc / lsum.clamp_min(1e-30)[..., None]).permute(1, 0, 2).to(q.dtype)
     return out
+
+
+def tree_attention_split_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
+                               ks=None, vs=None, splits: int = 1):
+    """The bf16 kernel's decomposition (`_decomposed`, 16-key steps) in
+    plain PyTorch, on no path: scores in f32, probabilities rounded to q's
+    dtype for the value product."""
+    def dot(qt, kr):
+        return torch.einsum("hrd,nhd->hrn", qt, kr)
+
+    def pv(acc, alpha, p, vr):
+        return acc * alpha[..., None] + torch.einsum("hrn,nhd->hrd", p.to(q.dtype).float(), vr)
+
+    return _decomposed(q, k, v, main_mask, sk, sv, scr_mask, scale, ks, vs, splits, WARPS,
+                       TILE_K, dot, pv)
+
+
+def split_tf32(x: torch.Tensor):
+    """f32 x -> (hi, lo), f32 tensors of TF32 values (the low 13 bits zero):
+    hi = x rounded to TF32 (to nearest, ties away from zero), lo = x - hi
+    (exact in f32) rounded the same way, so |x - hi - lo| <= 2^-22 |x|. The
+    f32 kernel's `split_tf32`, bit for bit (finite x)."""
+    def rna(t):
+        u = t.contiguous().view(torch.int32)
+        return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _mma_rz(c, a, b):
+    """c + a @ b as one tensor-core step that sums in f32 by truncation: the
+    products (TF32 x TF32, exact in f64) summed in f64, then rounded toward
+    zero to f32."""
+    x = c.double() + a.double() @ b.double()
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def tree_attention_f32_model(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
+                             ks=None, vs=None, splits: int = 1):
+    """The f32 kernel (3xTF32 on mma.sync m16n8k8) in plain PyTorch, on no
+    path: `_decomposed` over F32_WARPS warps a block, in 8-key steps; every
+    f32 operand split by `split_tf32`; a product a.b is a_hi.b_hi +
+    a_hi.b_lo + a_lo.b_hi, each a truncating tensor-core step (`_mma_rz`)
+    over 8 of its sum's terms.
+    S sums q.k into six accumulators (the three products, even and odd
+    8-dim steps) added in f32 as the kernel adds them; P V of each step goes
+    into a zeroed accumulator that one FMA folds into acc."""
+    zero = torch.zeros(())
+
+    def dot(qt, kr):                          # [H, r, D] x [n, H, D] -> [H, r, n]
+        qh, ql = split_tf32(qt)
+        kh, kl = split_tf32(kr.permute(1, 2, 0).contiguous())
+        acc = {(p, z): zero for p in ("hh", "hl", "lh") for z in (0, 1)}
+        for kk in range(qt.shape[-1] // 8):
+            d, z = slice(8 * kk, 8 * kk + 8), kk % 2
+            acc["hh", z] = _mma_rz(acc["hh", z], qh[..., d], kh[:, d])
+            acc["hl", z] = _mma_rz(acc["hl", z], qh[..., d], kl[:, d])
+            acc["lh", z] = _mma_rz(acc["lh", z], ql[..., d], kh[:, d])
+        return (acc["hh", 0] + acc["hh", 1]) + (
+            (acc["hl", 0] + acc["hl", 1]) + (acc["lh", 0] + acc["lh", 1]))
+
+    def pv(acc, alpha, p, vr):                # [H, r, n] x [n, H, D] -> [H, r, D]
+        ph, pl = split_tf32(p)
+        vh, vl = split_tf32(vr.permute(1, 0, 2).contiguous())
+        x = _mma_rz(zero, ph, vh)
+        x = _mma_rz(x, ph, vl)
+        x = _mma_rz(x, pl, vh)
+        return (acc.double() * alpha.double()[..., None] + x.double()).float()
+
+    return _decomposed(q, k, v, main_mask, sk, sv, scr_mask, scale, ks, vs, splits, F32_WARPS,
+                       F32_STEP, dot, pv)
 
 
 def _check(q, k, v, main_mask, sk, sv, scr_mask, ks, vs) -> str:
@@ -269,12 +370,9 @@ def tree_attention(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
     M = k.shape[0]
     S, Hkv = sk.shape[0], sk.shape[1]
     out = torch.empty_like(q)
-    splits, part = 1, None
-    if q.dtype == torch.bfloat16:
-        splits = split_count(Q, H, M, S, _sm_count(q.device.index or 0))
-        if splits > 1:   # the blocks' partials: acc, then (m, l)
-            part = torch.empty(splits * Q * H * (D + 2), dtype=torch.float32,
-                               device=q.device)
+    splits, part = split_count(Q, H, M, S, _sm_count(q.device.index or 0), q.dtype), None
+    if splits > 1:   # the blocks' partials: acc, then (m, l)
+        part = torch.empty(splits * Q * H * (D + 2), dtype=torch.float32, device=q.device)
     lib = build.load()
     rc = lib.sequoia_tree_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -283,6 +381,7 @@ def tree_attention(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
         out.data_ptr(), None if part is None else part.data_ptr(), Q, H, Hkv, D, M, S,
         splits, float(scale), _DTYPE_CODE[q.dtype], _FORMAT_CODE[fmt],
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, _COUNTER[fmt])
-    build.launches[_COUNTER[fmt]] += 1
+    name = counter(fmt, q.dtype)
+    build.check(rc, name)
+    build.launches[name] += 1
     return out

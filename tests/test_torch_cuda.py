@@ -11,7 +11,7 @@ import torch
 
 from sequoia_torch.kernels import quant_matmul as qmm
 from sequoia_torch.kernels import top_p as tp
-from sequoia_torch.kernels.tree_attention import (split_count, tree_attention,
+from sequoia_torch.kernels.tree_attention import (counter, split_count, tree_attention,
                                                   tree_attention_plain)
 from sequoia_torch.kvcache.cache import quantize_kv_rows, quantize_kv_rows4
 from sequoia_torch.quant.qtensor import QuantizedTensor, tile_int4
@@ -76,10 +76,10 @@ def test_tree_attention_quantized_cache_matches_plain(Q, M, S, Hkv, g, D, fmt, d
     for t in (kq, vq, ks, vs):
         t[M - 5:] = 0
     args = (q, kq, vq, mask, sk, sv, smask)
-    counter = {"int8": "tree_attention_kv8"}.get(fmt, "tree_attention_kv4_" + fmt[5:])
-    before = qmm.build.launches[counter]
+    name = counter(fmt, dtype)
+    before = qmm.build.launches[name]
     got = tree_attention(*args, scale=D ** -0.5, ks=ks, vs=vs)
-    assert qmm.build.launches[counter] == before + 1
+    assert qmm.build.launches[name] == before + 1
     want = tree_attention_plain(*args, scale=D ** -0.5, ks=ks, vs=vs)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -136,24 +136,33 @@ def test_tree_attention_row_with_no_live_key(fmt, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,S,want", [(1, 1, 5), (64, 64, 3)])
-def test_tree_attention_split_count_on_the_card(Q, S, want):
-    """The split count the wrapper picks at the 7B AR step and verify: at
-    least two blocks per SM unless every warp already has one key tile (5
-    and 3 on a 132-SM H100); the kernel runs with the workspace it needs."""
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("Q,S,want", [(1, 1, {torch.bfloat16: 5, torch.float32: 3}),
+                                      (64, 64, {torch.bfloat16: 3, torch.float32: 1})])
+def test_tree_attention_split_count_on_the_card(Q, S, want, dtype, tol):
+    """The split count the wrapper picks at the 7B AR step and verify: bf16,
+    at least two blocks per SM unless every warp already has one key tile
+    (5 and 3 on a 132-SM H100); f32, one wave of at most one block per SM
+    unless every warp of 8 has one key tile (3 and 1); the kernel runs once,
+    with the workspace it needs."""
     _need_cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = split_count(Q, 32, 256, S, sms)
+    splits = split_count(Q, 32, 256, S, sms, dtype)
     tiles = 256 // 16 + -(-S // 16)
-    assert splits == -(-tiles // 4) or -(-Q // 16) * 32 * splits >= 2 * sms
+    blocks = -(-Q // 16) * 32 * splits
+    if dtype == torch.bfloat16:
+        assert splits == -(-tiles // 4) or blocks >= 2 * sms
+    else:
+        assert splits == 1 or splits == -(-tiles // 8) or blocks <= sms
     if sms == 132:
-        assert splits == want
-    args = _attention_inputs(Q, 256, S, 32, 1, 128, torch.bfloat16)
-    before = qmm.build.launches["tree_attention"]
+        assert splits == want[dtype]
+    args = _attention_inputs(Q, 256, S, 32, 1, 128, dtype)
+    name = counter("float", dtype)
+    before = qmm.build.launches[name]
     got = tree_attention(*args, scale=128 ** -0.5)
-    assert qmm.build.launches["tree_attention"] == before + 1
+    assert qmm.build.launches[name] == before + 1
     want_out = tree_attention_plain(*args, scale=128 ** -0.5)
-    torch.testing.assert_close(got.float(), want_out.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.float(), want_out.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
