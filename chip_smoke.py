@@ -43,8 +43,9 @@ Phases, each fatal on failure:
      cache: forward against the CPU forward, and greedy speculative decoding
      runs; then bf16 int8, int4 and tiled-int4 targets, whose card forward
      (the tensor-core kernels at 24 and 21 rows) equals the CPU forward. Its
-     launches count (the f32-x quant matmuls run here and in phase 7's f32
-     curve);
+     launches count (the f32-x quant matmuls and the f32 route of tree
+     attention, every cache format, run here; the float cache also in phase
+     7's f32 curve);
   5. full width: llama-68m -> llama-2-7b, bf16, random weights (seeded),
      the planned 64-node growmap, max_length 256, 2 synthetic 128-token
      prompts, T=0.6, P=0.9: the stochastic AR baseline and Sequoia through
@@ -252,7 +253,8 @@ def attention_bound(q, main, scr, D, H, Hkv, itemsize, kv_item=None):
               + main.numel() + scr.numel())
     flops = 4 * D * H * (int(main.sum()) + int(scr.sum()))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_FLOPS["bf16"] if itemsize == 2 else 3 * flops / PEAK_FLOPS["tf32"]) * 1e3
+    ops = flops / PEAK_FLOPS["bf16"] if itemsize == 2 else 3 * flops / PEAK_FLOPS["tf32"]
+    t_ops = ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1500,7 +1502,7 @@ def main() -> None:
     log("[4] small parity on the card")
     build.reset_launches()
     small_parity(torch)
-    add(build.launches)   # f32 x: the f32-x quant matmuls run here and in the f32 curve
+    add(build.launches)   # f32 x: the f32-x matmuls and f32 attention run here and in phase 7
 
     from sequoia_torch.core import model as model_mod
     from sequoia_torch.kernels.quant_matmul import quant_matmul

@@ -44,7 +44,8 @@ kernels:
   `ATTENTION_CASES` (H = 32, D = 128, M = 256; 8 layers cycled, past the
   L2; JSON lines with "case", "Q" and "S" in place of R, K and N);
   sdpa_f32: the yardstick, scaled_dot_product_attention in f32 over the
-  concatenated main and scratch rows under the same mask.
+  concatenated main and scratch rows under the same mask (its line also
+  names the device kernels of one call, from a torch.profiler trace).
 Exits non-zero without a CUDA card.
 """
 
@@ -62,9 +63,9 @@ KERNELS = ("int8", "w8a8", "w8a8_mm", "int4", "tiled", "w4a8", "quantize", "cubl
            "tree_attention_f32", "sdpa_f32")
 TOP_P = ("top_p_logits", "top_p_fused")
 ATTENTION = ("tree_attention_f32", "sdpa_f32")
-# name -> (queries, keys of the main prefix, scratch mask): the 7B verify of
-# chip_smoke.py phase 3 (the planned tree over a 191-key prefix), then phase
-# 7's f32 curve (a 128-key prefix, a causal scratch of Q rows).
+# The 7B verify of chip_smoke.py phase 3 (the planned tree over a 191-key
+# prefix), then phase 7's f32 curve at Q queries (a 128-key prefix, a causal
+# scratch of Q rows).
 ATTENTION_CASES = ("verify", "q1", "q16", "q64")
 TOP_P_VOCABS = (32000, 128256)
 # Kinds of top-p rows: logits from x ~ N(0, 1), and the temperature they are
@@ -245,8 +246,24 @@ def attention_times(torch, kernels, case, gen, label, reps):
     for name in kernels:
         ms = statistics.median(device_ms(torch, [lambda i=i: calls[name](i) for i in range(L)])
                                for _ in range(reps))
-        print(json.dumps({"label": label, "kernel": name, "case": case, "Q": Q, "S": S,
-                          "ms": ms, "card": torch.cuda.get_device_name(0)}), flush=True)
+        line = {"label": label, "kernel": name, "case": case, "Q": Q, "S": S, "ms": ms,
+                "card": torch.cuda.get_device_name(0)}
+        if name == "sdpa_f32":
+            line["device_kernels"] = device_kernels(torch, lambda: calls[name](0))
+        print(json.dumps(line), flush=True)
+
+
+def device_kernels(torch, fn):
+    """Names of the device kernels one call of `fn` runs (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0})
 
 
 if __name__ == "__main__":

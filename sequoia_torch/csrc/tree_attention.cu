@@ -972,9 +972,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* k
   const int bytes =
       kWarps * L::kWarpBytes + L::kTileBytes + kQT * ((M + 31) / 32 + (S + 31) / 32) * 4;
   static int allowed = 48 * 1024;   // dynamic shared memory the kernel may take
-  return launch_split<bf16, kWarps>(tree_attention_tc_kernel<D, KV>, bytes, allowed, q, k, v, ks, vs,
-                            mask, sk, sv, smask, out, part, Q, H, Hkv, D, M, S, splits, scale,
-                            stream);
+  return launch_split<bf16, kWarps>(tree_attention_tc_kernel<D, KV>, bytes, allowed, q, k, v,
+                                    ks, vs, mask, sk, sv, smask, out, part, Q, H, Hkv, D, M, S,
+                                    splits, scale, stream);
 }
 
 template <int D, int KV>
@@ -986,9 +986,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   const int bytes =
       kF32Warps * L::kWarpBytes + 2 * L::kQBytes + kQT * ((M + 31) / 32 + (S + 31) / 32) * 4;
   static int allowed = 48 * 1024;
-  return launch_split<float, kF32Warps>(tree_attention_f32_kernel<D, KV>, bytes, allowed, q, k, v, ks, vs,
-                             mask, sk, sv, smask, out, part, Q, H, Hkv, D, M, S, splits, scale,
-                             stream);
+  return launch_split<float, kF32Warps>(tree_attention_f32_kernel<D, KV>, bytes, allowed, q, k,
+                                        v, ks, vs, mask, sk, sv, smask, out, part, Q, H, Hkv, D,
+                                        M, S, splits, scale, stream);
 }
 
 template <int KV>

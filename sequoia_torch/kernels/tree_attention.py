@@ -27,11 +27,11 @@ of 16-key tiles spread over `split_count(...)` blocks of `WARPS` warps
 (f32: `F32_WARPS`), whose partials a second kernel merges. bf16 runs its
 products on the bf16 tensor cores; f32 on the TF32 tensor cores as three
 products of split operands (3xTF32: x = hi + lo, both TF32), which keeps
-f32's accuracy.
-`tree_attention_split_plain` models the bf16 kernel and
+f32's accuracy. `tree_attention_split_plain` models the bf16 kernel and
 `tree_attention_f32_model` the f32 one, arithmetic included (both on no
 path; the tests hold them against the JAX kernel).
 """
+
 from __future__ import annotations
 
 import functools
