@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase (the contract run)
     python3 chip_smoke.py --attention   # phases 1, 2 and phase 3's tree attention
     python3 chip_smoke.py --qmm         # phases 1, 2 and phase 3's top-p and matmuls
+    python3 chip_smoke.py --loops       # phases 1, 2, 4 and phase 5's bf16 path
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -37,23 +38,34 @@ Phases, each fatal on failure:
      quantized projection call against one torch.matmul on the bf16 weight;
   4. small parity: test-small, f32, on the card, with an f32, an int8, an
      int4 and a tiled-int4 target: greedy speculative decoding equals greedy
-     AR token for token, the kernel forward equals the CPU forward, and
-     (f32) all four algorithms run; the int8 target with w8a8 forced on and
-     the f32 target with an int8, an int4 head-paired and an int4 dsplit KV
-     cache: forward against the CPU forward, and greedy speculative decoding
-     runs; then bf16 int8, int4 and tiled-int4 targets, whose card forward
-     (the tensor-core kernels at 24 and 21 rows) equals the CPU forward. Its
-     launches count (the f32-x quant matmuls and the f32 route of tree
-     attention, every cache format, run here; the float cache also in phase
-     7's f32 curve);
+     AR token for token, eager and replayed (`generate_fast`, CUDA graphs),
+     the kernel forward equals the CPU forward, and (f32) all four
+     algorithms and the stochastic AR run, seeds 1 and 2 replayed through
+     one captured set of graphs equal to eager, with one eager iteration
+     (and AR step) under `set_sync_debug_mode("error")`; the int8 target
+     with w8a8 forced on and the f32 target with an int8, an int4
+     head-paired and an int4 dsplit KV cache: forward against the CPU
+     forward, and greedy speculative decoding runs, replayed as eager; then
+     bf16 int8, int4 and tiled-int4 targets, whose card forward (the
+     tensor-core kernels at 24 and 21 rows) equals the CPU forward; last, a
+     capture with a host read inside must raise. Its launches count (the
+     f32-x quant matmuls and the f32 route of tree attention, every cache
+     format, run here; the float cache also in phase 7's f32 curve);
   5. full width: llama-68m -> llama-2-7b, bf16, random weights (seeded),
      the planned 64-node growmap, max_length 256, 2 synthetic 128-token
      prompts, T=0.6, P=0.9: the stochastic AR baseline and Sequoia through
-     the testbed's entry points, with launch counts of every kernel; then
+     the testbed's entry points (`generate_fast`: the captured graphs'
+     kernel nodes and capture seconds, then replays, whose launches count),
+     with launch counts of every kernel; on the bf16, int8 and int4 paths
+     also the eager `generate` on the same prompts and seeds (bf16: the
+     tokens must equal the replayed ones), the graphs' replay device times,
+     and the busy share of graphed runs (profiler trace, and replay
+     events); then
      the same target with kv_quant int8 and int4 (head-paired; one more
      Sequoia prompt with the dsplit packing); then stochastic AR and Sequoia
-     at the Llama-3 vocabulary (llama-3.2-1b widths, 2 and 1 layers), where
-     both top-p kernels must run their cluster route;
+     at the Llama-3 vocabulary (llama-3.2-1b widths, 2 and 1 layers,
+     `generate_fast`), where both top-p kernels must run their cluster
+     route;
   6. the same with the target's weights quantized: int8 weight-only (w8a8
      off) and int8 with w8a8 on (Sequoia), int4, and panel-tiled int4
      (tile_int4 over the seven projections and the head), all on the wgmma
@@ -1022,6 +1034,7 @@ def small_parity(torch):
         log(f"  {kind} target, bf16: forward card vs CPU (prefill 24 + verify 21): "
             f"max|err| {worst:.3g} (tol {tol} x max|CPU logits| {peak:.3g})")
     qtensor.set_w8a8("auto")
+    capture_failure_is_fatal(torch, cfg, draft, targets["f32"])
 
 
 def forward_card_vs_cpu(torch, cfg, target, make_kv, n_prefill, tree):
@@ -1059,10 +1072,39 @@ def forward_card_vs_cpu(torch, cfg, target, make_kv, n_prefill, tree):
     return worst, max(b.abs().max().item() for b in outs["cpu"]), flips
 
 
+def no_sync(torch, fn, label):
+    """Run `fn` (eager launches) under `set_sync_debug_mode("error")`: a
+    host read or a blocking copy inside it fails the phase."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        fail(f"{label}: a synchronizing CUDA operation inside the iteration: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def replayed_equals_eager(eng, prompt, label, seeds=(0,), n=40):
+    """`generate_fast` (graph replays) gives `generate`'s tokens and counts
+    for each seed, all through one captured set of graphs; returns the
+    last output."""
+    import numpy as np
+
+    for seed in seeds:
+        want = eng.generate(prompt, max_new_tokens=n, seed=seed)
+        steps = eng.num_large_model_steps
+        got = eng.generate_fast(prompt, max_new_tokens=n, seed=seed)
+        if not np.array_equal(got, want) or eng.num_large_model_steps != steps:
+            fail(f"{label}: replayed tokens differ from eager ones (seed {seed}):\n{want}\n{got}")
+    return got
+
+
 def greedy_runs(torch, cfg, draft, target, label, kv_quant=None, kv4_packing=None):
-    """Greedy speculative decoding runs and emits valid tokens. (Under a
-    quantized cache it need not equal greedy AR: verify reads float scratch
-    rows that AR has already quantized.)"""
+    """Greedy speculative decoding runs and emits valid tokens, replayed as
+    eager, with no host read in an eager iteration. (Under a quantized
+    cache it need not equal greedy AR: verify reads float scratch rows that
+    AR has already quantized.)"""
     from sequoia_torch.engine.engine import SpecEngine
     from sequoia_torch.trees.growmap import uniform_tree
     import numpy as np
@@ -1072,11 +1114,14 @@ def greedy_runs(torch, cfg, draft, target, label, kv_quant=None, kv4_packing=Non
     if kv4_packing is not None:
         eng._kv4_packing = kv4_packing   # the engine itself picks "head" for an even Hkv
     prompt = np.random.default_rng(5).integers(3, cfg.vocab_size, size=11)
-    out = eng.generate(prompt, max_new_tokens=40, seed=0)
+    state = eng.prefill(prompt)
+    no_sync(torch, lambda: eng.iterate(state), label)
+    out = replayed_equals_eager(eng, prompt, label)
     if len(out) <= len(prompt) or out.min() < 0 or out.max() >= cfg.vocab_size:
         fail(f"{label}: greedy speculative decoding produced invalid output {out}")
     log(f"  {label}: greedy spec, {len(out) - len(prompt)} tokens in "
-        f"{eng.num_large_model_steps} target steps")
+        f"{eng.num_large_model_steps} target steps; replayed == eager; no sync in an "
+        "eager iteration")
 
 
 def greedy_parity(torch, cfg, draft, target, kind):
@@ -1087,29 +1132,72 @@ def greedy_parity(torch, cfg, draft, target, kind):
 
     gm = uniform_tree(3, 2)
     rng = np.random.default_rng(3)
+    ar = ARBaseline(target, cfg, max_length=128, greedy=True, prefill_chunk=16, device="cuda")
+    eng = SpecEngine(draft, cfg, target, cfg, gm, algorithm="greedy",
+                     max_length=128, prefill_chunk=16, device="cuda")
     for trial in range(3):
         prompt = rng.integers(3, cfg.vocab_size, size=9 + trial)
-        ar = ARBaseline(target, cfg, max_length=128, greedy=True, prefill_chunk=16,
-                        device="cuda")
         exp = ar.generate(prompt, max_new_tokens=40)
-        eng = SpecEngine(draft, cfg, target, cfg, gm, algorithm="greedy",
-                         max_length=128, prefill_chunk=16, device="cuda")
-        got = eng.generate(prompt, max_new_tokens=40, seed=trial)
+        if not np.array_equal(ar.generate_fast(prompt, max_new_tokens=40), exp):
+            fail(f"{kind} target: replayed greedy AR != eager (trial {trial})")
+        got = replayed_equals_eager(eng, prompt, f"{kind} target, greedy", seeds=(trial,))
         n = min(len(exp), len(got))
         if n <= len(prompt) or not np.array_equal(exp[:n], got[:n]):
             fail(f"{kind} target: greedy spec != greedy AR on the card (trial {trial}):"
                  f"\n{exp}\n{got}")
-    log(f"  {kind} target: greedy spec == greedy AR, token for token "
+    log(f"  {kind} target: greedy spec == greedy AR, token for token, eager and replayed "
         "(test-small f32, 3 prompts x 40 tokens)")
     if kind != "f32":
         return
+    prompt = np.arange(5, 14)
+    for greedy in (True, False):
+        ar = ARBaseline(target, cfg, max_length=128, greedy=greedy, temperature=0.7,
+                        top_p=0.9, prefill_chunk=16, device="cuda")
+        state = ar.prefill(prompt, seed=1)
+        no_sync(torch, lambda: ar.step(state), f"AR step (greedy {greedy})")
+        for seed in (1, 2):
+            if not np.array_equal(ar.generate_fast(prompt, 30, seed=seed),
+                                  ar.generate(prompt, 30, seed=seed)):
+                fail(f"AR (greedy {greedy}, seed {seed}): replayed tokens differ from eager")
     for algo in ("sequoia", "specinfer", "greedy", "greedys"):
         eng = SpecEngine(draft, cfg, target, cfg, gm, algorithm=algo, max_length=128,
                          temperature=0.7, top_p=0.9, prefill_chunk=16, device="cuda")
-        out = eng.generate(np.arange(5, 14), max_new_tokens=30, seed=1)
+        state = eng.prefill(prompt, seed=1)
+        no_sync(torch, lambda: eng.iterate(state), algo)
+        out = replayed_equals_eager(eng, prompt, algo, seeds=(1, 2), n=30)
         if len(out) <= 9 or out.min() < 0 or out.max() >= cfg.vocab_size:
             fail(f"{algo} produced invalid output {out}")
-        log(f"  {algo}: {len(out) - 9} tokens in {eng.num_large_model_steps} target steps")
+        log(f"  {algo}: {len(out) - 9} tokens in {eng.num_large_model_steps} target steps; "
+            "seeds 1 and 2 replayed == eager through one captured set; no sync in an "
+            "eager iteration")
+    log("  AR (greedy and stochastic): no sync in an eager step; seeds 1 and 2 replayed == "
+        "eager")
+
+
+def capture_failure_is_fatal(torch, cfg, draft, target):
+    """A phase that reads the host inside its capture: `generate_fast`
+    must raise (no fallback to the eager loop)."""
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.trees.growmap import uniform_tree
+    import numpy as np
+
+    eng = SpecEngine(draft, cfg, target, cfg, uniform_tree(3, 2), algorithm="greedy",
+                     max_length=128, prefill_chunk=16, device="cuda")
+    grow = eng._grow
+
+    def reads_back(state):
+        out = grow(state)
+        out[0].sum().item()
+        return out
+
+    eng._grow = reads_back
+    try:
+        eng.generate_fast(np.arange(5, 14), max_new_tokens=8)
+    except RuntimeError as e:
+        log(f"  a host read inside a capture raises: {str(e).splitlines()[0][:100]}")
+    else:
+        fail("a capture with a host read inside did not raise")
+    eng._grow = grow
 
 
 # ---------------------------------------------------------------------------
@@ -1117,10 +1205,11 @@ def greedy_parity(torch, cfg, draft, target, kind):
 # ---------------------------------------------------------------------------
 
 def profile_kernels(torch, fn, label, top=8):
-    """Device kernel time (ms) of `fn` from a torch.profiler trace, with
-    the largest kernels and the top-p kernels (µs a launch on this path's
-    own rows) printed; None when the trace holds no device time (then the
-    share is not measured)."""
+    """The device work of `fn` from a torch.profiler trace: (its kernel ms,
+    its kernels' (start, end) µs in start order), with the `top` largest
+    kernels and the top-p kernels (µs a launch on this path's own rows)
+    printed unless `top` is 0; None when the trace holds no device time
+    (then the share is not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1131,17 +1220,32 @@ def profile_kernels(torch, fn, label, top=8):
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
     total_ms = sum(r[1] for r in rows) / 1e3
-    if not rows:
+    if not rows or not spans:
         log(f"  {label}: the profiler trace holds no device time (busy share not measured)")
         return None
-    log(f"  {label} trace: {total_ms:.3f} kernel ms in {sum(r[2] for r in rows)} kernels; top: "
-        + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{n}" for k, t, n in rows[:top]))
-    top_p = [(k, t, n) for k, t, n in rows if "top_p_kernel" in k]
-    log(f"  {label} trace, top-p: " + ("; ".join(
-        f"{k[k.index('top_p_kernel'):][:28]} {t / 1e3:.4f} ms x{n} ({t / n:.2f} µs a launch)"
-        for k, t, n in top_p) or "no launch"))
-    return total_ms
+    log(f"  {label} trace: {total_ms:.3f} kernel ms in {sum(r[2] for r in rows)} kernels"
+        + (("; top: " + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{n}" for k, t, n in rows[:top]))
+           if top else ""))
+    if top:
+        top_p = [(k, t, n) for k, t, n in rows if "top_p_kernel" in k]
+        log(f"  {label} trace, top-p: " + ("; ".join(
+            f"{k[k.index('top_p_kernel'):][:28]} {t / 1e3:.4f} ms x{n} ({t / n:.2f} µs a launch)"
+            for k, t, n in top_p) or "no launch"))
+    return total_ms, spans
+
+
+def busy_share(spans):
+    """The share of the window from the first kernel's start to the last
+    kernel's end in which some kernel runs (overlapping kernels once)."""
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / (end - spans[0][0])
 
 
 PATH_KERNELS = ("tree_attention", "top_p_threshold_from_logits", "top_p_threshold_fused")
@@ -1167,14 +1271,171 @@ def load_models(torch, quant_bits=None, dtype="bf16"):
     return target, tcfg, draft, dcfg
 
 
+def graph_lines(torch, engine, label):
+    """Kernel nodes and capture seconds of each graph `engine` captured."""
+    return ", ".join(
+        f"{name} {graph_kernels(g.graph)} kernels, captured in {g.seconds:.2f} s"
+        for name, g in engine._graphs.graphs.items())
+
+
+def step_graph_ms(torch, ar, prompt, replays=16):
+    """Device ms of one replay of the AR step graph: CUDA events around
+    `replays` replays after a prefill of `prompt`, with a budget of
+    `replays` tokens (a step after a stop token is a no-op of the same
+    kernels)."""
+    ar.prefill(prompt, seed=SEED)
+    ar._produced.zero_()
+    ar._budget.fill_(replays)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    ar._graphs.replay("step", replays)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / replays
+
+
+def prefill_ms(torch, engine, prompt, reps=5):
+    """Wall ms of `engine.prefill(prompt)`, synced on both sides (median)."""
+    from sequoia_torch.utils import hard_sync
+
+    times = []
+    for _ in range(reps):
+        hard_sync("cuda")
+        t0 = time.perf_counter()
+        engine.prefill(prompt, seed=SEED)
+        hard_sync("cuda")
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def block_start(parts, k):
+    """Index (among the generated tokens) of the first token that is new
+    and is emitted by the first iteration of a block of `k` after the first
+    block; `parts` holds each iteration's tokens."""
+    seen = [t for p in parts[:k] for t in p]
+    for j in range(k, len(parts)):
+        for t in parts[j]:
+            if j % k == 0 and t not in seen:
+                return len(seen)
+            seen.append(t)
+    fail("block costs: no new token starts a block")
+
+
+def block_costs(torch, models, gm, prompt, ar_out, sq_out, ar, eng, label):
+    """What the blocks of replays cost and save, on prompt 0 with its seed.
+
+    The no-op tail: an AR baseline and a Sequoia engine whose stop tokens
+    add a token that the seeded run emits first in the first iteration of
+    a block (`block_start`), so the rest of that block replays as no-ops. Each
+    request runs once with the full budget and once with a budget that ends
+    at the stop token (the same tokens; the blocks shrink to it): the wall
+    time between them over the no-op replays between them is the cost of
+    one no-op (alternated, 2 runs each). Then the block cap swept on the
+    engines without the stop token: wall ms/token and host reads at each
+    cap; the difference between caps over the reads they save is the cost
+    of one host read. Every run's tokens are checked against prompt 0's."""
+    import dataclasses
+    import itertools
+
+    import numpy as np
+
+    from sequoia_torch.engine import baseline as baseline_mod
+    from sequoia_torch.engine import engine as engine_mod
+    from sequoia_torch.engine.baseline import ARBaseline
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.utils import hard_sync
+
+    target, tcfg, draft, dcfg = models
+    M, gen, T, P, plen = FULL["max_length"], FULL["gen"], FULL["T"], FULL["P"], len(prompt)
+
+    def wall(fn, budget, want):
+        hard_sync("cuda")
+        t0 = time.perf_counter()
+        out = fn(prompt, max_new_tokens=budget, seed=SEED)
+        hard_sync("cuda")
+        dt = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(out, want):
+            fail(f"{label}: block costs: a run's tokens differ from prompt 0's")
+        return dt
+
+    def replays(e, name):
+        return e.graph_report()[name]["replays"]
+
+    # The Sequoia iterations of prompt 0, eagerly (the replayed tokens).
+    k_sq, k_ar = engine_mod.BLOCK_ITERATIONS, baseline_mod.BLOCK_STEPS
+    iters = [list(t) for t in itertools.islice(eng.stream(prompt, gen, seed=SEED), 16)]
+    gen_ar, gen_sq = list(ar_out[plen:]), list(sq_out[plen:])
+    at = {"AR": block_start([[t] for t in gen_ar], k_ar), "sequoia": block_start(iters, k_sq)}
+    for name, want_full, graph in (("AR", gen_ar, "step"), ("sequoia", gen_sq, "finalize")):
+        i = at[name]
+        cfg = dataclasses.replace(tcfg, stop_tokens=tuple(tcfg.stop_tokens) + (want_full[i],))
+        if name == "AR":
+            e = ARBaseline(target, cfg, max_length=M, temperature=T, top_p=P, device="cuda")
+        else:
+            e = SpecEngine(draft, dcfg, target, cfg, gm, algorithm="sequoia", max_length=M,
+                           temperature=T, top_p=P, device="cuda")
+        want = np.asarray(list(prompt) + want_full[:i + 1], dtype=np.int32)
+        e.generate_fast(prompt, max_new_tokens=4, seed=SEED)   # capture
+        times, noops = {"full": [], "exact": []}, {}
+        for case in ("full", "exact", "exact", "full"):
+            r0 = replays(e, graph)
+            times[case].append(wall(e.generate_fast, gen if case == "full" else i + 1, want))
+            live = len(want) - plen if name == "AR" else e.num_large_model_steps
+            noops[case] = replays(e, graph) - r0 - live
+        full, exact = (sum(times[c]) / 2 for c in ("full", "exact"))
+        per = (full - exact) / max(noops["full"] - noops["exact"], 1)
+        log(f"  stop-token tail, {name}: stop at generated token {i} (blocks of "
+            f"{k_ar if name == 'AR' else k_sq} {'steps' if name == 'AR' else 'iterations'}"
+            f"), wall {full:.3f} ms with {noops['full']} no-op replays, {exact:.3f} ms with "
+            f"the budget ending at the stop ({noops['exact']} no-ops): {per:.3f} ms a no-op "
+            f"(runs: {times})")
+        del e
+    torch.cuda.empty_cache()
+
+    # The block cap swept, without the stop token.
+    reads = []
+    block = eng._block
+    eng._block = lambda state, k: (reads.append(k), block(state, k))
+    try:
+        for name, base, caps, want in (("AR", ar, (16, 8, 4, 2, 1), ar_out),
+                                       ("sequoia", eng, (8, 4, 2, 1), sq_out)):
+            times, n_reads = {k: [] for k in caps}, {}
+            for k in caps + caps[::-1]:
+                if name == "AR":
+                    baseline_mod.BLOCK_STEPS = k
+                else:
+                    engine_mod.BLOCK_ITERATIONS = k
+                reads.clear()
+                times[k].append(wall(base.generate_fast, gen, want))
+                n_reads[k] = len(reads) if name == "sequoia" else -(-gen // k)
+            baseline_mod.BLOCK_STEPS, engine_mod.BLOCK_ITERATIONS = k_ar, k_sq
+            ms = {k: sum(v) / len(v) for k, v in times.items()}
+            per_read = (ms[1] - ms[caps[0]]) / (n_reads[1] - n_reads[caps[0]])
+            log(f"  block cap swept, {name} (prompt 0, {len(want) - plen} tokens): " + ", ".join(
+                f"k {k}: {ms[k] / (len(want) - plen):.4f} ms/token, {n_reads[k]} host reads"
+                for k in caps) + f"; {per_read:.4f} ms a host read (k 1 against k {caps[0]}); "
+                f"runs {times}")
+    finally:
+        baseline_mod.BLOCK_STEPS, engine_mod.BLOCK_ITERATIONS = k_ar, k_sq
+        del eng._block
+
+
 def full_width(torch, gm, models, label, need, *, kv_quant=None, run_ar=True, extras=False,
-               dsplit_prompt=False):
+               dsplit_prompt=False, check_eager=False, stop_tail=False):
     """One full-width path on `models`: the stochastic AR baseline (unless
-    `run_ar` is off) and Sequoia over the prompts, through the testbed's
-    entry points, with the kernels in `need` required to launch. `extras`
-    adds the per-phase times, the profiler traces and the host-drift check;
-    `dsplit_prompt` one more Sequoia prompt with the int4 cache in its dsplit
-    packing. Returns the main path's launches of the kernels in `need`."""
+    `run_ar` is off) and Sequoia over the prompts through `generate_fast`
+    (CUDA-graph replays; the testbed's timed entry point), with the kernels
+    in `need` required to launch under replay. `extras` adds the eager
+    `generate` over the same prompts and seeds (the eager-vs-graphed
+    column; `check_eager` fails unless the tokens are equal), the phase
+    graphs' replay times (`generate_benchmark`), the step graph's, the
+    profiler traces of graphed runs and the busy share; `dsplit_prompt` one
+    more Sequoia prompt with the int4 cache in its dsplit packing (a
+    recapture); `stop_tail` (with `extras`) `block_costs`. Returns the main
+    path's launches of the kernels in `need`."""
+    import numpy as np
+
     from sequoia_torch.cli.testbed import load_prompts
     from sequoia_torch.core.model import forward
     from sequoia_torch.engine.baseline import ARBaseline
@@ -1211,47 +1472,49 @@ def full_width(torch, gm, models, label, need, *, kv_quant=None, run_ar=True, ex
         if not bool(torch.isfinite(x).all()):
             fail(f"{label}: non-finite {name}")
     del st, ds
+    # Warm up and capture (a failed capture raises: nothing falls back).
     if run_ar:
-        ar.generate(prompts[0], max_new_tokens=4)        # warm up
-    eng.generate(prompts[0], max_new_tokens=4)
+        ar.generate_fast(prompts[0], max_new_tokens=4)
+    eng.generate_fast(prompts[0], max_new_tokens=4)
+    log(f"  graphs: sequoia {graph_lines(torch, eng, label)}"
+        + (f"; AR {graph_lines(torch, ar, label)}" if run_ar else ""))
 
-    def timed_ar(p, seed):
+    def timed(fn, p, seed):
         hard_sync("cuda")
         t0 = time.perf_counter()
-        out = ar.generate(p, max_new_tokens=gen, seed=seed)
+        out = fn(p, max_new_tokens=gen, seed=seed)
         hard_sync("cuda")
-        return out, time.perf_counter() - t0
-
-    def timed_sequoia(p, seed):
-        hard_sync("cuda")
-        t0 = time.perf_counter()
-        out = eng.generate(p, max_new_tokens=gen, seed=seed)
-        hard_sync("cuda")
+        dt = time.perf_counter() - t0
         if len(out) <= len(p) or out.min() < 0 or out.max() >= tcfg.vocab_size:
-            fail(f"{label}: sequoia produced no or out-of-range tokens")
-        return time.perf_counter() - t0
+            fail(f"{label}: {fn.__qualname__} produced no or out-of-range tokens")
+        return out, dt
 
     build.reset_launches()                               # the main path starts here
-    ar_tokens, t_ar, ar0_ms = 0, 0.0, None
+    ar_out, ar_dts, ar_tokens, t_ar = [], [], 0, 0.0
     for i, p in enumerate(prompts if run_ar else []):
-        out, dt = timed_ar(p, SEED + i)
-        if i == 0:
-            ar0_ms = dt / (len(out) - len(p)) * 1e3
+        out, dt = timed(ar.generate_fast, p, SEED + i)
+        ar_out.append(out)
+        ar_dts.append(dt)
         t_ar += dt
         ar_tokens += len(out) - len(p)
-        if out.min() < 0 or out.max() >= tcfg.vocab_size:
-            fail(f"{label}: AR produced out-of-range tokens")
     ar_launches = dict(build.launches)
-    sq_tokens, sq_steps, t_sq = 0, 0, 0.0
+    sq_out, sq_dts, sq_steps_0, sq_tokens, sq_steps, t_sq = [], [], None, 0, 0, 0.0
     for i, p in enumerate(prompts):
-        t_sq += timed_sequoia(p, SEED + i)
+        out, dt = timed(eng.generate_fast, p, SEED + i)
+        sq_out.append(out)
+        sq_dts.append(dt)
+        t_sq += dt
         sq_tokens += eng.num_decoding_steps
         sq_steps += eng.num_large_model_steps
+        if i == 0:
+            sq_steps_0 = eng.num_large_model_steps
     sq_launches = {k: v - ar_launches[k] for k, v in build.launches.items()}
     if dsplit_prompt:
         eng._kv4_packing = "dsplit"   # the engine itself picks "head" for an even Hkv
-        dt = timed_sequoia(prompts[0], SEED)
-        log(f"  sequoia, int4 cache in the dsplit packing, prompt 0 again: "
+        eng.generate_fast(prompts[0], max_new_tokens=4)  # recapture on the new cache
+        _, dt = timed(eng.generate_fast, prompts[0], SEED)
+        log(f"  sequoia, int4 cache in the dsplit packing (recaptured: "
+            f"{graph_lines(torch, eng, label)}), prompt 0 again: "
             f"{dt / eng.num_decoding_steps * 1e3:.3f} ms/token, "
             f"{eng.num_decoding_steps / eng.num_large_model_steps:.3f} tokens per target step, "
             f"{build.launches['tree_attention_kv4_dsplit']} launches of its kernel")
@@ -1264,14 +1527,15 @@ def full_width(torch, gm, models, label, need, *, kv_quant=None, run_ar=True, ex
     sq_ms = t_sq / sq_tokens * 1e3
     if run_ar:
         ar_ms = t_ar / ar_tokens * 1e3
-        log(f"  AR (stochastic, T={T} P={P}): {ar_tokens} tokens, {ar_ms:.3f} ms/token "
-            f"(weight stream bound {bound_ms:.3f} ms/forward, {weight_bytes / 1e9:.3f} GB)")
-    log(f"  sequoia: {sq_tokens} tokens in {sq_steps} iterations, {sq_ms:.3f} ms/token, "
-        f"iteration {t_sq / sq_steps * 1e3:.3f} ms, accepted tokens per target step "
-        f"{sq_tokens / sq_steps:.3f}"
+        log(f"  AR generate_fast (stochastic, T={T} P={P}): {ar_tokens} tokens, "
+            f"{ar_ms:.3f} ms/token (weight stream bound {bound_ms:.3f} ms/forward, "
+            f"{weight_bytes / 1e9:.3f} GB)")
+    log(f"  sequoia generate_fast: {sq_tokens} tokens in {sq_steps} iterations, "
+        f"{sq_ms:.3f} ms/token, iteration {t_sq / sq_steps * 1e3:.3f} ms, accepted tokens "
+        f"per target step {sq_tokens / sq_steps:.3f}"
         + (f", speedup vs AR {ar_ms / sq_ms:.3f}x" if run_ar else ""))
     shown = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
-    log(f"  launches: AR {shown(ar_launches)}; sequoia {shown(sq_launches)} "
+    log(f"  launches (replays counted): AR {shown(ar_launches)}; sequoia {shown(sq_launches)} "
         f"(per iteration: " + ", ".join(f"{k} {v / sq_steps:.1f}" for k, v in
                                         shown(sq_launches).items()) + ")")
     for k in need:
@@ -1285,30 +1549,71 @@ def full_width(torch, gm, models, label, need, *, kv_quant=None, run_ar=True, ex
                  f"sequoia {sq_launches[k]}")
 
     if extras:
+        # The eager loops over the same prompts and seeds: the time the
+        # graphs save, and the same tokens.
+        e_ar = e_sq = 0.0
+        same = []
+        for i, p in enumerate(prompts):
+            out, dt = timed(ar.generate, p, SEED + i)
+            e_ar += dt
+            same.append(np.array_equal(out, ar_out[i]))
+            out, dt = timed(eng.generate, p, SEED + i)
+            e_sq += dt
+            same.append(np.array_equal(out, sq_out[i]))
+        log(f"  eager generate, the same prompts and seeds: AR {e_ar / ar_tokens * 1e3:.3f} "
+            f"ms/token, sequoia {e_sq / sq_tokens * 1e3:.3f} ms/token; graphed / eager: AR "
+            f"{t_ar / e_ar:.3f}, sequoia {t_sq / e_sq:.3f}; tokens equal to the replayed "
+            f"runs: {all(same)} ({same})")
+        if check_eager and not all(same):
+            fail(f"{label}: replayed tokens differ from eager ones (seeded, AR and sequoia "
+                 f"per prompt: {same})")
         phases, b_steps = {}, 0
         for i, p in enumerate(prompts):
             _, tot = eng.generate_benchmark(p, max_new_tokens=gen, seed=SEED + i)
             b_steps += eng.num_large_model_steps
             for k, v in tot.items():
                 phases[k] = phases.get(k, 0.0) + v
-        log("  generate_benchmark phases (device ms per iteration, CUDA events): " + ", ".join(
-            f"{k} {v / b_steps * 1e3:.3f}" for k, v in phases.items()))
-        # Device busy share: kernel time from a torch.profiler trace of one
-        # more run (the profiler does not change device times) over the wall
-        # time of the unprofiled runs above.
-        n_ar = []
-        ar_dev = profile_kernels(torch, lambda: n_ar.append(
-            len(ar.generate(prompts[0], 32, seed=SEED)) - len(prompts[0])), "AR")
-        sq_dev = profile_kernels(torch, lambda: eng.generate(prompts[0], 32, seed=SEED),
-                                 "sequoia")
-        if ar_dev is not None and sq_dev is not None:
-            log(f"  device busy share: AR {ar_dev / n_ar[0] / (t_ar / ar_tokens * 1e3):.3f}, "
-                f"sequoia {sq_dev / eng.num_large_model_steps / (t_sq / sq_steps * 1e3):.3f} "
-                f"(kernel ms per token / iteration over wall ms)")
-        # Does host time drift within the run (e.g. after the traces)? Prompt 0 again.
-        out, dt = timed_ar(prompts[0], SEED)
-        log(f"  AR prompt 0: {ar0_ms:.3f} ms/token in the main path, "
-            f"{dt / (len(out) - len(prompts[0])) * 1e3:.3f} after the traces")
+        iter_dev = sum(phases.values()) / b_steps * 1e3
+        step_ms = step_graph_ms(torch, ar, prompts[0])
+        log("  graph replay device ms (CUDA events between replays): " + ", ".join(
+            f"{k} {v / b_steps * 1e3:.3f}" for k, v in phases.items())
+            + f" (iteration {iter_dev:.3f}); AR step {step_ms:.3f}")
+        # Device busy share of the graphed runs: the kernel ms of a
+        # torch.profiler trace of prompt 0's run (its prompt, seed and
+        # budget) over the wall ms of its timed run; then of the decode loop
+        # alone, without the prefill's kernel ms (a trace of its own) and
+        # wall ms (`prefill_ms`). Beside them the share of the traced run's
+        # own device window in which a kernel runs (the profiler slows that
+        # run), and the share the replay events give.
+        traces = [profile_kernels(torch, lambda: e.generate_fast(prompts[0], gen, seed=SEED),
+                                  f"{name} graphed") for name, e in (("AR", ar), ("sequoia", eng))]
+        prefills = [profile_kernels(torch, lambda: e.prefill(prompts[0], seed=SEED),
+                                    f"{name} prefill", top=0)
+                    for name, e in (("AR", ar), ("sequoia", eng))]
+        pre_wall = [prefill_ms(torch, e, prompts[0]) for e in (ar, eng)]
+        walls = [ar_dts[0] * 1e3, sq_dts[0] * 1e3]
+        loops = [w - p for w, p in zip(walls, pre_wall)]
+        n_ar0 = len(ar_out[0]) - len(prompts[0])
+        wall_tok, wall_it = t_ar / ar_tokens * 1e3, t_sq / sq_steps * 1e3
+        log(f"  prefill of prompt 0 ({len(prompts[0])} tokens), wall ms (median of 5): AR "
+            f"{pre_wall[0]:.3f}, sequoia {pre_wall[1]:.3f}; the decode loop without it: AR "
+            f"{loops[0] / n_ar0:.3f} ms/token ({loops[0] / n_ar0 - step_ms:.3f} ms a step past "
+            f"the step graph's replay), sequoia iteration {loops[1] / sq_steps_0:.3f} ms "
+            f"({loops[1] / sq_steps_0 - iter_dev:.3f} ms past the phase graphs' replays)")
+        if None not in traces + prefills:
+            share = [t[0] / w for t, w in zip(traces, walls)]
+            loop_share = [(t[0] - p[0]) / w for t, p, w in zip(traces, prefills, loops)]
+            window = [busy_share(t[1]) for t in traces]
+            log(f"  device busy share, graphed (trace, prompt 0): AR {share[0]:.3f}, sequoia "
+                f"{share[1]:.3f} (kernel ms over the timed run's wall ms); the decode loop "
+                f"alone: AR {loop_share[0]:.3f}, sequoia {loop_share[1]:.3f}; the prefill "
+                f"alone: AR {prefills[0][0] / pre_wall[0]:.3f}, sequoia "
+                f"{prefills[1][0] / pre_wall[1]:.3f}; within the profiled run's device window:"
+                f" AR {window[0]:.3f}, sequoia {window[1]:.3f}")
+        log(f"  device busy share, graphed (replay events): AR {step_ms / wall_tok:.3f}, "
+            f"sequoia {iter_dev / wall_it:.3f} (replay ms per token / iteration over wall ms)")
+        if stop_tail:
+            block_costs(torch, models, gm, prompts[0], ar_out[0], sq_out[0], ar, eng, label)
     return {k: launches[k] for k in need}
 
 
@@ -1386,8 +1691,9 @@ def llama3_vocab(torch, gm):
     top-p kernels run their cluster route on a real path: llama-3.2-1b's
     widths (V = 128256) cut to 2 layers for the target and 1 for the draft,
     random bf16 weights (seeded), the planned growmap, stochastic AR and
-    Sequoia (T=0.6, P=0.9) over 2 synthetic 64-token prompts, 32 new tokens
-    each. Returns the launches of this path."""
+    Sequoia (T=0.6, P=0.9) through `generate_fast` (graph replays) over 2
+    synthetic 64-token prompts, 32 new tokens each. Returns the launches of
+    this path."""
     import dataclasses
 
     import numpy as np
@@ -1408,18 +1714,23 @@ def llama3_vocab(torch, gm):
     ar = ARBaseline(target, tcfg, max_length=M, temperature=T, top_p=P, device="cuda")
     eng = SpecEngine(draft, dcfg, target, tcfg, gm, algorithm="sequoia", max_length=M,
                      temperature=T, top_p=P, device="cuda")
-    ar.generate(prompts[0], max_new_tokens=4)            # warm up
-    eng.generate(prompts[0], max_new_tokens=4)
+    ar.generate_fast(prompts[0], max_new_tokens=4)       # warm up and capture
+    eng.generate_fast(prompts[0], max_new_tokens=4)
     hard_sync("cuda")
     build.reset_launches()                               # the path starts here
     t0 = time.perf_counter()
     n_ar = n_sq = steps = 0
+    t_ar = t_sq = 0.0
     for i, p in enumerate(prompts):
-        out = ar.generate(p, max_new_tokens=32, seed=SEED + i)
+        t1 = time.perf_counter()
+        out = ar.generate_fast(p, max_new_tokens=32, seed=SEED + i)
+        t_ar += time.perf_counter() - t1
         n_ar += len(out) - len(p)
         if len(out) <= len(p) or out.min() < 0 or out.max() >= tcfg.vocab_size:
             fail(f"Llama-3 vocabulary: AR produced invalid tokens {out[len(p):]}")
-        out = eng.generate(p, max_new_tokens=32, seed=SEED + i)
+        t1 = time.perf_counter()
+        out = eng.generate_fast(p, max_new_tokens=32, seed=SEED + i)
+        t_sq += time.perf_counter() - t1
         n_sq += eng.num_decoding_steps
         steps += eng.num_large_model_steps
         if len(out) <= len(p) or out.min() < 0 or out.max() >= tcfg.vocab_size:
@@ -1428,7 +1739,9 @@ def llama3_vocab(torch, gm):
     launches = dict(build.launches)                      # ... and ends here
     shown = {k: v for k, v in launches.items() if v}
     log(f"  {n_ar} AR and {n_sq} Sequoia tokens ({steps} target steps) in "
-        f"{time.perf_counter() - t0:.1f} s; launches {shown}")
+        f"{time.perf_counter() - t0:.1f} s, generate_fast: AR {t_ar / n_ar * 1e3:.3f} ms/token, "
+        f"sequoia {t_sq / n_sq * 1e3:.3f} ms/token, iteration {t_sq / steps * 1e3:.3f} ms; "
+        f"graphs: sequoia {graph_lines(torch, eng, 'llama-3')}; launches {shown}")
     for k in ("top_p_threshold_from_logits_cluster", "top_p_threshold_fused_cluster"):
         if launches[k] == 0:
             fail(f"Llama-3 vocabulary: {k} never launched: {shown}")
@@ -1478,8 +1791,18 @@ def main() -> None:
     log(f"  planned growmap: {gm.size} nodes, depth {int(gm.depth.max())}, "
         f"max branch {gm.max_branch}, level widths {gm.level_widths}")
 
-    log("[3] kernels vs plain versions")
     kernels = []
+    if "--loops" in sys.argv[1:]:
+        log("[4] small parity on the card")
+        small_parity(torch)
+        log("[5] full width: llama-68m -> llama-2-7b bf16")
+        full_width(torch, gm, load_models(torch), "bf16", PATH_KERNELS, extras=True,
+                   check_eager=True, stop_tail=True)
+        log(f"  --loops: phase 4 and the bf16 path only, {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return
+
+    log("[3] kernels vs plain versions")
     if "--qmm" not in sys.argv[1:]:
         check_tree_attention(torch, gm, kernels)
     if "--attention" in sys.argv[1:]:
@@ -1511,7 +1834,8 @@ def main() -> None:
 
     log("[5] full width: llama-68m -> llama-2-7b bf16")
     models = load_models(torch)
-    add(full_width(torch, gm, models, "bf16", PATH_KERNELS, extras=True))
+    add(full_width(torch, gm, models, "bf16", PATH_KERNELS, extras=True, check_eager=True,
+                   stop_tail=True))
     curves["bf16"], _ = width_curve(torch, models, "bf16", need=("tree_attention",), host=True)
     draft_time = time_forward_widths(models[2], models[3], [8], max_length=FULL["max_length"],
                                      kv_len=128, reps=20)[0]

@@ -3,7 +3,11 @@
 one `--algorithm` flag (port of `sequoia_tpu/cli/testbed.py`).
 
 Prints the reference's metrics (tests/testbed.py:94,215): total time,
-per-token latency, decoding steps, large-model steps, accepted/step.
+per-token latency, decoding steps, large-model steps, accepted/step. As
+JAX's testbed does, `--mode spec` and `--mode baseline` time `generate_fast`
+(the loop on the device: CUDA-graph replays, one host read per block), and
+`--mode benchmark` times `generate_benchmark`, whose iterations go through
+`iterate_phased` (the phase graphs with CUDA events between them).
 
 Runs on the CUDA card (`--device cpu` only for small checks). Weights are
 random, from `--seed`; prompts are `synthetic:N,LEN`. `--quant int8|int4`
@@ -128,11 +132,11 @@ def main(argv=None) -> None:
                         temperature=args.T, top_p=args.P,
                         greedy=(args.algorithm == "greedy"), kv_quant=args.kv_quant,
                         device=device)
-        ar.generate(prompts[0], max_new_tokens=4)  # warm up
+        ar.generate_fast(prompts[0], max_new_tokens=4)  # warm up (and capture)
         for i, prompt in enumerate(prompts):
             hard_sync(device)
             t0 = time.perf_counter()
-            out = ar.generate(prompt, max_new_tokens=args.gen, seed=args.seed + i)
+            out = ar.generate_fast(prompt, max_new_tokens=args.gen, seed=args.seed + i)
             t_total += time.perf_counter() - t0
             produced = len(out) - len(prompt)
             total_tokens += produced
@@ -147,7 +151,11 @@ def main(argv=None) -> None:
                          device=device)
         phase_totals = {}
         bench = args.mode == "benchmark"
-        eng.generate(prompts[0], max_new_tokens=4)  # warm up
+        # Warm up (and capture the phase graphs).
+        if bench:
+            eng.generate_benchmark(prompts[0], max_new_tokens=4)
+        else:
+            eng.generate_fast(prompts[0], max_new_tokens=4)
         for i, prompt in enumerate(prompts):
             hard_sync(device)
             t0 = time.perf_counter()
@@ -157,7 +165,7 @@ def main(argv=None) -> None:
                 for k, v in totals.items():
                     phase_totals[k] = phase_totals.get(k, 0.0) + v
             else:
-                eng.generate(prompt, max_new_tokens=args.gen, seed=args.seed + i)
+                eng.generate_fast(prompt, max_new_tokens=args.gen, seed=args.seed + i)
             t_total += time.perf_counter() - t0
             total_tokens += eng.num_decoding_steps
             total_steps += eng.num_large_model_steps

@@ -7,6 +7,14 @@ purpose: the prefill's tail chunk shrinks to `max_length`, as
 `SpecEngine.prefill` does. The JAX baseline rounds the prompt up to a whole
 chunk past `max_length`, and its window write then clamps and overwrites
 committed rows.
+
+The state lives in buffers the baseline allocates once (`prefill` resets
+them), and a step reads nothing back to the host, so `generate_fast`
+captures one step into a CUDA graph (`engine/graphs.py`) and replays it
+`min(BLOCK_STEPS, remaining budget)` times per host read of `(produced, terminal)`,
+where JAX runs `_loop_impl`'s `lax.while_loop`. A step after a stop token is
+a predicated no-op (`n` and the logits keep their values; writes land at
+slot `n`). On the CPU the same block runs eagerly.
 """
 
 from __future__ import annotations
@@ -21,11 +29,21 @@ from ..core.model import LlamaParams, forward
 from ..kvcache.cache import KV_CACHES, KVCache
 from ..ops import masks
 from ..ops.sampling import sample_categorical_probs, target_probs
+from ..quant.qtensor import w8a8_setting
 from ..utils import make_generator
+from .graphs import GraphSet
+
+# Most steps a `generate_fast` block replays before the host reads. A
+# block that a stop token ends early replays the rest of its steps as
+# no-ops, each as long as a live one; a host read costs about 0.13 ms at 7B
+# on an H100 (PERF.md, chip_smoke.py's `block_costs`).
+BLOCK_STEPS = 2
 
 
 @dataclass
 class ARState:
+    """Views of the baseline's buffers; `prefill` resets them, so a new
+    `prefill` ends the request of every earlier state."""
     tokens: torch.Tensor       # long [max_length]
     n: torch.Tensor            # long 0-d committed length
     kv: KVCache                # or KVCache8 / KVCache4
@@ -87,6 +105,20 @@ class ARBaseline:
         self._scratch = KVCache.init(cfg, 1, params.embed.dtype, self.device)
         self._scr_mask = torch.ones((1, 1), dtype=torch.bool, device=self.device)
         self._slot0 = torch.zeros((1,), dtype=torch.long, device=self.device)
+        # The request's buffers, allocated once and reset by `prefill`.
+        dev = self.device
+        self._gen = make_generator(0, dev)
+        self._tokens = torch.zeros(max_length, dtype=torch.long, device=dev)
+        self._n = torch.zeros((), dtype=torch.long, device=dev)
+        self._kv = KV_CACHES[self.kv_quant].init(cfg, max_length, params.embed.dtype, device=dev)
+        self._last_logits = torch.zeros(cfg.vocab_size, dtype=torch.float32, device=dev)
+        self._terminal = torch.zeros((), dtype=torch.bool, device=dev)
+        # The device loop's counters: tokens since the loop began, its budget.
+        self._produced = torch.zeros((), dtype=torch.long, device=dev)
+        self._budget = torch.zeros((), dtype=torch.long, device=dev)
+        self._always = torch.ones((), dtype=torch.bool, device=dev)
+        # The step's CUDA graph; on the CPU the same step runs eagerly.
+        self._graphs = GraphSet(dev, self._gen) if dev.type == "cuda" else None
 
     def _prefill_chunk(self, state: ARState, chunk: torch.Tensor, offset: int,
                        prompt_len: int) -> None:
@@ -97,7 +129,7 @@ class ARBaseline:
                             offset, mask)
         last = prompt_len - 1 - offset
         if 0 <= last < C:
-            state.last_logits = logits[last]
+            state.last_logits.copy_(logits[last])
         state.tokens[offset:offset + C] = chunk
 
     def _sample(self, gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
@@ -106,38 +138,50 @@ class ARBaseline:
         p = target_probs(logits[None], self.top_p, self.temperature)[0]
         return sample_categorical_probs(gen, p)
 
-    def step(self, state: ARState) -> torch.Tensor:
+    def _step(self, state: ARState, live: torch.Tensor) -> torch.Tensor:
         """One decode step, in place on `state`; returns the token (0-d).
         Split-cache step: the main cache is read-only in the forward, the
-        new row lands in a 1-row scratch and is committed after."""
+        new row lands in a 1-row scratch and is committed after. `live`
+        (bool 0-d) false makes it a no-op: the token and K/V row land at
+        slot `n`, which stays uncommitted."""
         token = self._sample(state.gen, state.last_logits)
-        state.tokens.index_copy_(0, state.n[None], token[None])
+        state.tokens.index_copy_(0, state.n.reshape(1), token.reshape(1))
         mask = (self._k_idx < state.n)[None, :]
         logits, scr = forward(
-            self.params, self.cfg, token[None], state.n[None], state.kv,
+            self.params, self.cfg, token.reshape(1), state.n.reshape(1), state.kv,
             state.n, mask, scratch=self._scratch, scratch_offset=0,
             scratch_mask=self._scr_mask,
         )
         state.kv.commit_rows(scr, self._slot0, state.n)
-        state.n = state.n + 1
-        state.last_logits = logits[0]
-        state.terminal = state.terminal | (token == self._stop).any()
+        state.last_logits.copy_(torch.where(live, logits[0], state.last_logits))
+        state.terminal.copy_(state.terminal | (live & (token == self._stop).any()))
+        state.n.add_(live.long())
         return token
 
+    def step(self, state: ARState) -> torch.Tensor:
+        """One decode step, launched eagerly; returns the token (0-d)."""
+        return self._step(state, self._always)
+
+    def _step_counted(self, state: ARState) -> None:
+        """A step under the device loop's predicate (JAX `_loop_impl`'s
+        `cond`: not terminal, under the budget), counting its token."""
+        live = ~state.terminal & (self._produced < self._budget)
+        self._step(state, live)
+        self._produced.add_(live.long())
+
     def prefill(self, prompt: np.ndarray, seed: int = 0) -> ARState:
+        """Chunked prefill; resets and reuses the buffers (and reseeds the
+        generator with `seed`): the returned state replaces every earlier
+        one."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = len(prompt)
         if not 1 <= plen <= self.max_length:
             raise ValueError(f"prompt length {plen} vs max_length {self.max_length}")
+        self._gen.manual_seed(int(seed))
         state = ARState(
-            tokens=torch.zeros(self.max_length, dtype=torch.long, device=self.device),
-            n=torch.tensor(plen, dtype=torch.long, device=self.device),
-            kv=KV_CACHES[self.kv_quant].init(
-                self.cfg, self.max_length, self.params.embed.dtype, device=self.device),
-            last_logits=torch.zeros(self.cfg.vocab_size, dtype=torch.float32,
-                                    device=self.device),
-            gen=make_generator(seed, self.device),
-            terminal=torch.zeros((), dtype=torch.bool, device=self.device),
+            tokens=self._tokens.zero_(), n=self._n.fill_(plen), kv=self._kv.zero_(),
+            last_logits=self._last_logits.zero_(), gen=self._gen,
+            terminal=self._terminal.zero_(),
         )
         C = self.prefill_chunk
         padded = np.zeros(_round_up(plen, C), np.int64)
@@ -167,11 +211,47 @@ class ARBaseline:
                 break
         return state.tokens[:n].cpu().numpy().astype(np.int32)
 
+    def _ensure_graph(self, state: ARState) -> None:
+        """Capture the counted step for the current matmul routes, after one
+        warm-up step that is a no-op (budget 0; it writes at slot `n`, so
+        `n` must be below `max_length`). On the card only."""
+        def capture(g):
+            self._budget.zero_()
+            with g.warmup():
+                self._step_counted(state)
+            g.capture("step", lambda: self._step_counted(state))
+
+        self._graphs.ensure(w8a8_setting(), capture)
+
+    def graph_report(self) -> dict:
+        """{"step": capture seconds, replays, launches per replay}; empty on
+        the CPU or before the first capture."""
+        return self._graphs.report() if self._graphs is not None else {}
+
     def generate_fast(self, prompt: np.ndarray, max_new_tokens: int = 128,
                       seed: int = 0) -> np.ndarray:
-        """Same loop as `generate`: the JAX version keeps the loop on the
-        device; here that waits for CUDA-graph capture of the step."""
-        return self.generate(prompt, max_new_tokens, seed)
+        """`generate` with the loop on the device (JAX `generate_fast`):
+        blocks of `min(BLOCK_STEPS, remaining)` replayed steps, one host read
+        each.
+        The same tokens as `generate` for one seed."""
+        state = self.prefill(prompt, seed)
+        plen = int(np.asarray(prompt).size)
+        self._check_budget(plen, max_new_tokens)
+        if self._graphs is not None and max_new_tokens > 0:
+            self._ensure_graph(state)
+        self._produced.zero_()
+        self._budget.fill_(max_new_tokens)
+        produced, terminal = 0, False
+        while not terminal and produced < max_new_tokens:
+            k = min(BLOCK_STEPS, max_new_tokens - produced)
+            if self._graphs is None:
+                for _ in range(k):
+                    self._step_counted(state)
+            else:
+                self._graphs.replay("step", k)
+            produced, terminal = torch.stack(
+                [self._produced, state.terminal.long()]).tolist()  # one host read
+        return state.tokens[:plen + produced].cpu().numpy().astype(np.int32)
 
     def stream(self, prompt: np.ndarray, max_new_tokens: int = 128, seed: int = 0):
         """Yield one committed token (np int32 `[1]`) per decode step."""

@@ -5,11 +5,25 @@ Port of `sequoia_tpu/engine/engine.py::SpecEngine` (all four algorithms,
 `walk="node"`). One iteration = draft growth level by level into a tree
 scratch, one target forward over the whole tree, the accept walk, the
 commit of tokens and K/V rows, and a width-1 draft re-draft of the new
-root. Everything inside an iteration stays on the device (offsets are
-device tensors); the host reads two scalars per iteration, the emitted
-count and the terminal flag. JAX fuses the iteration into one jitted call;
-here it is a sequence of eager launches, and CUDA-graph capture of the
-iteration waits for a later slice.
+root. Nothing inside an iteration reads a value back to the host: offsets
+are device tensors, and every lookup at a device index is an
+`index_select` (a 0-d tensor index would be a host read). The state lives
+in buffers the engine allocates once (`prefill` resets and reuses them), so
+the three phases capture into CUDA graphs (`engine/graphs.py`).
+
+Two kinds of loop, as in JAX:
+- `generate`, `stream`, `generate_benchmark`: the host reads the emitted
+  count and the terminal flag after every iteration (`generate_benchmark`
+  through `iterate_phased`, which on the card replays the three phase
+  graphs with CUDA events between them);
+- `generate_fast`, `stream_fast`: JAX runs its `lax.while_loop` on the
+  device; here the host replays blocks of k iterations and reads
+  `(produced, steps, terminal)` once per block. k is chosen on the host so
+  that k iterations of `max_depth + 1` tokens each still fit the buffer and
+  cannot pass the budget; an iteration after a stop token, or past the
+  budget, is a predicated no-op on the device (nothing emitted, the counters
+  and `gtl` unchanged, writes only at slots >= `gtl`). On the CPU the same
+  blocks run eagerly.
 
 Slot/step invariants (identical to the reference):
 - committed tokens occupy slots `[0, gtl)`; tree node i sits at slot
@@ -43,8 +57,11 @@ from ..ops.sampling import (
     target_probs,
     wor_from_gumbel,
 )
+from ..quant.qtensor import w8a8_setting
 from ..trees.accept import (
     PathResult,
+    at_index,
+    ranks_per_trip,
     resolve_path,
     stochastic_path_walk_node,
     token_match_accept,
@@ -52,12 +69,20 @@ from ..trees.accept import (
 from ..trees.growmap import GrowMap
 from ..utils import make_generator, resolve_device
 from .baseline import prefill_chunks
+from .graphs import GraphSet
 
 ALGORITHMS = ("sequoia", "specinfer", "greedy", "greedys")
+# Most iterations a `*_fast` block replays before the host reads the
+# counters. A block that a stop token ends early replays the rest of its
+# iterations as no-ops, each as long as a live one; a host read costs about
+# 0.13 ms at 7B on an H100 (PERF.md, chip_smoke.py's `block_costs`).
+BLOCK_ITERATIONS = 2
 
 
 @dataclass
 class DecodeState:
+    """Views of the engine's buffers; `prefill` resets them, so a new
+    `prefill` ends the request of every earlier state."""
     tokens: torch.Tensor             # long [max_length] committed + live tree slots
     gtl: torch.Tensor                # long 0-d committed length (root = slot gtl-1)
     draft_kv: KVCache
@@ -74,8 +99,8 @@ class StepStats(NamedTuple):
 
 
 class _PhaseClock:
-    """Per-phase device time: CUDA events on the card (read after the
-    iteration's one host sync, so timing adds no sync), the host clock on
+    """Per-phase device time: CUDA events on the card (recorded between
+    launches or graph replays, never inside a capture), the host clock on
     the CPU."""
 
     def __init__(self, device: torch.device):
@@ -91,7 +116,10 @@ class _PhaseClock:
             self.marks.append((name, time.perf_counter()))
 
     def seconds(self) -> dict:
-        """{phase: seconds}; a phase runs from its mark to the next."""
+        """{phase: seconds}; a phase runs from its mark to the next. On the
+        card this waits for the last mark."""
+        if self.cuda and self.marks:
+            self.marks[-1][1].synchronize()
         out = {}
         for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
             out[name] = a.elapsed_time(b) / 1e3 if self.cuda else b - a
@@ -184,6 +212,24 @@ class SpecEngine:
         # row is read (draft scratch row 0 is never written and stays 0).
         self._dscratch = KVCache.init(draft_cfg, gm.size, draft_params.embed.dtype, dev)
         self._tscratch = KVCache.init(target_cfg, gm.size, target_params.embed.dtype, dev)
+        # The request's buffers, allocated once and reset by `prefill`; the
+        # target cache is made on the first prefill of each cache format.
+        self._gen = make_generator(0, dev)
+        self._tokens = torch.zeros(max_length, dtype=torch.long, device=dev)
+        self._gtl = torch.zeros((), dtype=torch.long, device=dev)
+        self._root_logits = torch.zeros(self.vocab, dtype=torch.float32, device=dev)
+        self._terminal = torch.zeros((), dtype=torch.bool, device=dev)
+        self._draft_kv = KVCache.init(draft_cfg, max_length, draft_params.embed.dtype, dev)
+        self._target_kv, self._target_format = None, None
+        # The device loop's counters (JAX `_generate_loop_impl`'s carry):
+        # tokens and iterations since the loop began, and its token budget.
+        self._produced = torch.zeros((), dtype=torch.long, device=dev)
+        self._steps = torch.zeros((), dtype=torch.long, device=dev)
+        self._budget = torch.zeros((), dtype=torch.long, device=dev)
+        self._always = torch.ones((), dtype=torch.bool, device=dev)
+        self._walk_ranks = ranks_per_trip(self._succ_np, self._md + 1)
+        # The phases' CUDA graphs; on the CPU the same phases run eagerly.
+        self._graphs = GraphSet(dev, self._gen) if dev.type == "cuda" else None
         # Counters (reference metric: tests/testbed.py:94).
         self.num_decoding_steps = 0
         self.num_large_model_steps = 0
@@ -192,33 +238,43 @@ class SpecEngine:
     # Prefill
     # ------------------------------------------------------------------
 
+    def _format(self):
+        return (self.kv_quant, self._kv4_packing if self.kv_quant == "int4" else None)
+
     def _target_cache(self):
-        if self.kv_quant == "int4":
-            return KVCache4.init(self.target_cfg, self.max_length,
-                                 packing=self._kv4_packing, device=self.device)
-        return KV_CACHES[self.kv_quant].init(
-            self.target_cfg, self.max_length, self.target_params.embed.dtype,
-            device=self.device)
+        """The target's main cache for the current format, made once per
+        format (`_kv4_packing` may change between requests)."""
+        if self._target_format != self._format():
+            self._target_kv = None   # free the old cache first
+            if self.kv_quant == "int4":
+                self._target_kv = KVCache4.init(self.target_cfg, self.max_length,
+                                                packing=self._kv4_packing, device=self.device)
+            else:
+                self._target_kv = KV_CACHES[self.kv_quant].init(
+                    self.target_cfg, self.max_length, self.target_params.embed.dtype,
+                    device=self.device)
+            self._target_format = self._format()
+        return self._target_kv.zero_()
 
     def prefill(self, prompt: np.ndarray, seed: int = 0) -> DecodeState:
         """Chunked prefill of both caches. The tail chunk shrinks so no
-        write passes `max_length` (`sequoia_tpu/engine/engine.py:279-284`)."""
+        write passes `max_length` (`sequoia_tpu/engine/engine.py:279-284`).
+        Resets and reuses the engine's buffers (and reseeds its generator
+        with `seed`): the returned state replaces every earlier one."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = len(prompt)
         if plen < 1 or plen + self.tree_size > self.max_length:
             raise ValueError(f"prompt length {plen} does not fit max_length "
                              f"{self.max_length} with a {self.tree_size}-node tree")
         dev = self.device
+        self._gen.manual_seed(int(seed))
         state = DecodeState(
-            tokens=torch.zeros(self.max_length, dtype=torch.long, device=dev),
-            gtl=torch.tensor(plen, dtype=torch.long, device=dev),
-            draft_kv=KVCache.init(self.draft_cfg, self.max_length,
-                                  self.draft_params.embed.dtype, dev),
-            target_kv=self._target_cache(),
-            root_draft_logits=torch.zeros(self.vocab, dtype=torch.float32, device=dev),
-            gen=make_generator(seed, dev),
-            terminal=torch.zeros((), dtype=torch.bool, device=dev),
+            tokens=self._tokens.zero_(), gtl=self._gtl.fill_(plen),
+            draft_kv=self._draft_kv.zero_(), target_kv=self._target_cache(),
+            root_draft_logits=self._root_logits.zero_(), gen=self._gen,
+            terminal=self._terminal.zero_(),
         )
+        self._arm(self.max_length)
         C = self.prefill_chunk
         padded = np.zeros(((plen + C - 1) // C) * C, np.int64)
         padded[:plen] = prompt
@@ -232,7 +288,7 @@ class SpecEngine:
             forward(self.target_params, self.target_cfg, chunk, positions,
                     state.target_kv, off, mask)
             if 0 <= plen - 1 - off < c:
-                state.root_draft_logits = d_logits[plen - 1 - off]
+                state.root_draft_logits.copy_(d_logits[plen - 1 - off])
             state.tokens[off:off + c] = chunk
         return state
 
@@ -263,7 +319,7 @@ class SpecEngine:
         draft_logits = torch.zeros(size, self.vocab, dtype=torch.float32, device=dev)
         draft_logits[0] = state.root_draft_logits
         tokens_tree = torch.zeros(size, dtype=torch.long, device=dev)
-        tokens_tree[0] = state.tokens[ts]
+        tokens_tree[:1] = state.tokens.index_select(0, ts.reshape(1))
         # One gumbel block for every level's race (sequoia).
         g_all = None
         if self.algorithm == "sequoia" and self.growmap.num_grow_steps > 0:
@@ -306,9 +362,12 @@ class SpecEngine:
         return logits
 
     def _finalize(self, state: DecodeState, tokens_tree, draft_logits,
-                  target_logits) -> StepStats:
+                  target_logits, live: torch.Tensor) -> StepStats:
         """Accept walk, bonus token, commit of tokens and scratch rows, and
-        the width-1 re-draft of the new root; updates `state` in place."""
+        the width-1 re-draft of the new root; updates `state` in place.
+        `live` (bool 0-d) false makes the iteration a no-op: nothing is
+        emitted, `gtl`, the root logits and `terminal` keep their values, and
+        every write lands at slots >= `gtl`."""
         dev, md = self.device, self._md
         gtl = state.gtl
         ts = gtl - 1
@@ -318,9 +377,9 @@ class SpecEngine:
             is_sequoia = self.algorithm == "sequoia"
             cut = nucleus_cutoff(target_logits, self.top_p, self.temperature)
             walk = stochastic_path_walk_node(
-                target_logits, draft_logits, tokens_tree, r, self._succ_np,
-                self.temperature, cut, self.stop_tokens, md,
-                strict=is_sequoia, mask_rejected_draft=is_sequoia,
+                target_logits, draft_logits, tokens_tree, r, self._succ,
+                self.temperature, cut, self._stop, md,
+                strict=is_sequoia, mask_rejected_draft=is_sequoia, ranks=self._walk_ranks,
             )
             path = PathResult(walk.path, walk.accept_count, walk.final_node,
                               walk.terminal)
@@ -334,14 +393,15 @@ class SpecEngine:
                 p = target_probs(target_logits, self.top_p, self.temperature)
                 verify_tok = sample_categorical_probs(state.gen, p)
             acc = token_match_accept(verify_tok, tokens_tree, self._succ)
-            path = resolve_path(acc.accepted_child, tokens_tree, self.stop_tokens, md)
-            bonus = acc.target_token[path.final_node]
+            path = resolve_path(acc.accepted_child, tokens_tree, self._stop, md)
+            bonus = at_index(acc.target_token, path.final_node)
             terminal = path.terminal
         has_bonus = ~terminal
         # A stop token emitted as the bonus also terminates.
         terminal = terminal | (has_bonus & (bonus == self._stop).any())
         count = path.accept_count
-        emitted = count + has_bonus.long()
+        emitted = (count + has_bonus.long()) * live.long()
+        dead = (~live).long()
 
         # Commit accepted tokens + bonus at [gtl, gtl + md + 1).
         path_c = path.path.clamp_min(0)
@@ -352,45 +412,155 @@ class SpecEngine:
         state.tokens.index_copy_(0, gtl + ar, block)
 
         # K/V commit, scratch rows -> main caches, in place. Target: fresh
-        # rows for the root and every accepted node go to [ts, ts+1+md).
+        # rows for the root and every accepted node go to [ts, ts+1+md)
+        # (a no-op iteration writes them one slot later, from gtl on).
         # Draft: the root is already in main (last re-draft); the accepted
         # path goes to [gtl, gtl+md). Padding rows land at slots >= the new
         # committed length and are rewritten before they are ever read.
         zero1 = torch.zeros(1, dtype=torch.long, device=dev)
-        state.target_kv.commit_rows(self._tscratch, torch.cat([zero1, path_c]), ts)
+        state.target_kv.commit_rows(self._tscratch, torch.cat([zero1, path_c]), ts + dead)
         state.draft_kv.commit_rows(self._dscratch, path_c, gtl)
 
         new_gtl = gtl + emitted
         new_ts = new_gtl - 1
+        # The re-draft writes the new root's K/V at new_ts; a no-op
+        # iteration writes at gtl instead and keeps the old root logits.
+        slot = new_ts + dead
         root_logits, _ = forward(
-            self.draft_params, self.draft_cfg, state.tokens[new_ts][None],
-            new_ts[None], state.draft_kv, new_ts, (self._k_idx <= new_ts)[None, :],
+            self.draft_params, self.draft_cfg, state.tokens.index_select(0, new_ts.reshape(1)),
+            new_ts.reshape(1), state.draft_kv, slot, (self._k_idx <= slot)[None, :],
         )
         first = path.path[0]
-        first_rank = torch.where(first >= 0, self._child_rank[first.clamp_min(0)],
+        first_rank = torch.where(first >= 0, at_index(self._child_rank, first.clamp_min(0)),
                                  torch.full_like(first, -1))
-        state.gtl = new_gtl
-        state.root_draft_logits = root_logits[0]
-        state.terminal = state.terminal | terminal
+        state.root_draft_logits.copy_(torch.where(live, root_logits[0], state.root_draft_logits))
+        state.terminal.copy_(state.terminal | (live & terminal))
+        state.gtl.copy_(new_gtl)
         return StepStats(emitted=emitted, terminal=state.terminal, first_rank=first_rank)
 
-    def iterate(self, state: DecodeState, clock: Optional[_PhaseClock] = None) -> StepStats:
-        """One speculative iteration, in place on `state`. With a clock,
-        marks the phases `draft_run` (growth incl. sampling), `target_run`
-        (verify forward) and `accept_kv` (walk, commit, re-draft), the
-        reference's `benchmark=True` split (`Tree/SpecTree.py:99-241`)."""
-        mark = clock.mark if clock is not None else (lambda name=None: None)
-        mark("draft_run")
-        tokens_tree, draft_logits = self._grow(state)
-        mark("target_run")
-        target_logits = self._verify(state, tokens_tree)
-        mark("accept_kv")
-        stats = self._finalize(state, tokens_tree, draft_logits, target_logits)
-        mark()
+    def _finalize_counted(self, state: DecodeState, tokens_tree, draft_logits,
+                          target_logits) -> StepStats:
+        """`_finalize` under the device loop's predicate (JAX's `cond`:
+        not terminal, under the budget, the next tree fits), counting the
+        tokens and iterations it makes."""
+        gtl, M = state.gtl, self.max_length
+        fits = (gtl - 1 + self.tree_size <= M) & (gtl + self.max_depth + 1 <= M)
+        live = ~state.terminal & (self._produced < self._budget) & fits
+        stats = self._finalize(state, tokens_tree, draft_logits, target_logits, live)
+        self._produced.add_(stats.emitted)
+        self._steps.add_(live.long())
         return stats
 
+    def iterate(self, state: DecodeState) -> StepStats:
+        """One speculative iteration, in place on `state`, launched eagerly."""
+        tokens_tree, draft_logits = self._grow(state)
+        target_logits = self._verify(state, tokens_tree)
+        return self._finalize(state, tokens_tree, draft_logits, target_logits, self._always)
+
     # ------------------------------------------------------------------
-    # Generation loops (the host reads emitted + terminal once per iteration)
+    # CUDA graphs of the three phases, and the device loop's blocks
+    # ------------------------------------------------------------------
+
+    def _graph_key(self):
+        return self._format() + w8a8_setting()
+
+    def _ensure_graphs(self, state: DecodeState) -> None:
+        """Capture grow, verify and finalize (the counted, predicated one)
+        for the current cache format and routes, after one warm-up
+        iteration that is a no-op (budget 0; its writes land at slots
+        [gtl, gtl + max_depth], so the next tree must fit). On the card
+        only."""
+        def capture(g):
+            budget = self._budget.clone()
+            self._budget.zero_()
+            try:
+                with g.warmup():
+                    tt, dl = self._grow(state)
+                    self._finalize_counted(state, tt, dl, self._verify(state, tt))
+            finally:
+                self._budget.copy_(budget)
+            tt, dl = g.capture("grow", lambda: self._grow(state))
+            tl = g.capture("verify", lambda: self._verify(state, tt))
+            g.capture("finalize", lambda: self._finalize_counted(state, tt, dl, tl))
+
+        self._graphs.ensure(self._graph_key(), capture)
+
+    def graph_report(self) -> dict:
+        """{phase: capture seconds, replays, launches per replay} of the
+        captured graphs (empty on the CPU or before the first capture)."""
+        return self._graphs.report() if self._graphs is not None else {}
+
+    def _arm(self, budget: int) -> None:
+        """Start the device loop's counters for a budget of `budget` tokens."""
+        self._produced.zero_()
+        self._steps.zero_()
+        self._budget.fill_(budget)
+
+    def _block(self, state: DecodeState, k: int) -> None:
+        """k predicated iterations: the captured phases replayed on the
+        card, the same phases launched eagerly on the CPU."""
+        for _ in range(k):
+            if self._graphs is None:
+                tt, dl = self._grow(state)
+                self._finalize_counted(state, tt, dl, self._verify(state, tt))
+            else:
+                for name in ("grow", "verify", "finalize"):
+                    self._graphs.replay(name)
+
+    def _block_size(self, gtl: int, remaining: int) -> int:
+        """Iterations in the next block: as many as still fit the buffer if
+        each commits `max_depth + 1` tokens, and no more than could be
+        needed for `remaining` tokens (so no iteration starts past the
+        budget), at most `BLOCK_ITERATIONS`."""
+        step = self.max_depth + 1
+        last_gtl = min(self.max_length + 1 - self.tree_size, self.max_length - step)
+        return max(1, min(1 + (last_gtl - gtl) // step, -(-remaining // step),
+                          BLOCK_ITERATIONS))
+
+    def _device_loop(self, state: DecodeState, gtl: int, budget: int):
+        """JAX's `_generate_loop`: iterations while not terminal, under the
+        budget and while the next tree fits, from committed length `gtl`.
+        One host read per block. Returns `(produced, steps, terminal)`."""
+        if self._graphs is not None and budget > 0 and self._fits(gtl):
+            self._ensure_graphs(state)
+        self._arm(budget)
+        produced, steps, terminal = 0, 0, False
+        while not terminal and produced < budget and self._fits(gtl + produced):
+            self._block(state, self._block_size(gtl + produced, budget - produced))
+            produced, steps, terminal = torch.stack(
+                [self._produced, self._steps, state.terminal.long()]).tolist()  # one host read
+        return produced, steps, bool(terminal)
+
+    def iterate_phased(self, state: DecodeState):
+        """One speculative iteration as its three phases, each timed (JAX
+        `iterate_phased`, the reference's `benchmark=True` split,
+        `Tree/SpecTree.py:99-241`): `draft_run` (growth incl. sampling),
+        `target_run` (verify forward), `accept_kv` (walk, commit, re-draft).
+        On the card the captured graphs, replayed with CUDA events between
+        them; on the CPU the same phases launched eagerly, on the host clock.
+        Returns `(stats, {phase: seconds})`; the stats are rewritten by the
+        next iteration. An iteration after a stop token is a no-op."""
+        clock = _PhaseClock(self.device)
+        if self._graphs is not None:
+            self._ensure_graphs(state)
+            for phase, name in (("draft_run", "grow"), ("target_run", "verify"),
+                                ("accept_kv", "finalize")):
+                clock.mark(phase)
+                self._graphs.replay(name)
+            clock.mark()
+            stats = self._graphs.outputs("finalize")
+        else:
+            clock.mark("draft_run")
+            tt, dl = self._grow(state)
+            clock.mark("target_run")
+            tl = self._verify(state, tt)
+            clock.mark("accept_kv")
+            stats = self._finalize_counted(state, tt, dl, tl)
+            clock.mark()
+        return stats, clock.seconds()
+
+    # ------------------------------------------------------------------
+    # Generation loops
     # ------------------------------------------------------------------
 
     def _fits(self, gtl: int) -> bool:
@@ -398,21 +568,25 @@ class SpecEngine:
                 and gtl + self.max_depth + 1 <= self.max_length)
 
     def _run(self, prompt, max_new_tokens: int, seed: int, phase_totals=None):
-        """Iterate until a stop token, the budget, or a full buffer; yields
-        `(state, gtl_before, emitted)` after each iteration."""
+        """Iterate until a stop token, the budget, or a full buffer, reading
+        the emitted count and the terminal flag after each iteration;
+        yields `(state, gtl_before, emitted)`. With `phase_totals` (a dict),
+        the iterations go through `iterate_phased` and add their phase
+        times to it."""
         state = self.prefill(prompt, seed=seed)
         gtl = int(np.asarray(prompt).size)
         produced = 0
         self.num_decoding_steps = 0
         self.num_large_model_steps = 0
         while produced < max_new_tokens and self._fits(gtl):
-            clock = _PhaseClock(self.device) if phase_totals is not None else None
-            stats = self.iterate(state, clock)
+            if phase_totals is None:
+                stats = self.iterate(state)
+            else:
+                stats, seconds = self.iterate_phased(state)
+                for k, v in seconds.items():
+                    phase_totals[k] = phase_totals.get(k, 0.0) + v
             emitted, terminal = torch.stack(
                 [stats.emitted, stats.terminal.long()]).tolist()  # one host read
-            if clock is not None:
-                for k, v in clock.seconds().items():
-                    phase_totals[k] = phase_totals.get(k, 0.0) + v
             yield state, gtl, emitted
             produced += emitted
             gtl += emitted
@@ -423,8 +597,9 @@ class SpecEngine:
 
     def generate(self, prompt: np.ndarray, max_new_tokens: int = 128,
                  seed: int = 0) -> np.ndarray:
-        """Generate until a stop token / the budget / a full buffer.
-        Returns the committed sequence (prompt + generated), int32."""
+        """Generate until a stop token / the budget / a full buffer, one
+        eager iteration and one host read at a time. Returns the committed
+        sequence (prompt + generated), int32."""
         state, gtl = None, int(np.asarray(prompt).size)
         for state, before, emitted in self._run(prompt, max_new_tokens, seed):
             gtl = before + emitted
@@ -434,14 +609,21 @@ class SpecEngine:
 
     def generate_fast(self, prompt: np.ndarray, max_new_tokens: int = 128,
                       seed: int = 0) -> np.ndarray:
-        """Same loop as `generate`: the JAX version runs the loop on the
-        device; here that waits for CUDA-graph capture of the iteration."""
-        return self.generate(prompt, max_new_tokens, seed)
+        """`generate` with the loop on the device (JAX `generate_fast`):
+        blocks of replayed iterations, one host read per block. The same
+        committed sequence as `generate` for one seed."""
+        state = self.prefill(prompt, seed=seed)
+        plen = int(np.asarray(prompt).size)
+        produced, steps, _ = self._device_loop(state, plen, max_new_tokens)
+        self.num_decoding_steps = produced
+        self.num_large_model_steps = steps
+        return state.tokens[:plen + produced].cpu().numpy().astype(np.int32)
 
     def generate_benchmark(self, prompt: np.ndarray, max_new_tokens: int = 128,
                            seed: int = 0):
-        """Generation with per-phase device times (CUDA events on the card);
-        returns `(tokens, {phase: total_seconds})`."""
+        """Generation through `iterate_phased`, with per-phase times (CUDA
+        events between graph replays on the card); returns
+        `(tokens, {phase: total_seconds})`."""
         totals = {"draft_run": 0.0, "target_run": 0.0, "accept_kv": 0.0}
         state, gtl = None, int(np.asarray(prompt).size)
         for state, before, emitted in self._run(prompt, max_new_tokens, seed, totals):
@@ -454,3 +636,30 @@ class SpecEngine:
         """Yield the newly committed tokens (np int32) after each iteration."""
         for state, before, emitted in self._run(prompt, max_new_tokens, seed):
             yield state.tokens[before:before + emitted].cpu().numpy().astype(np.int32)
+
+    def stream_fast(self, prompt: np.ndarray, max_new_tokens: int = 128,
+                    chunk_tokens: int = 16, seed: int = 0):
+        """Streaming with the loop on the device (JAX `stream_fast`): yields
+        the tokens (np int32) each device loop of up to `chunk_tokens`
+        tokens commits; stops when a chunk commits nothing or ends on a
+        stop token. Greedy decoding commits what `generate_fast` commits."""
+        if chunk_tokens < 1:
+            raise ValueError(f"chunk_tokens must be >= 1, got {chunk_tokens}")
+        state = self.prefill(prompt, seed=seed)
+        gtl = int(np.asarray(prompt).size)
+        produced = 0
+        self.num_decoding_steps = 0
+        self.num_large_model_steps = 0
+        while produced < max_new_tokens:
+            budget = min(chunk_tokens, max_new_tokens - produced)
+            chunk, steps, terminal = self._device_loop(state, gtl, budget)
+            if chunk == 0:   # terminal or a full buffer before any token
+                break
+            new = state.tokens[gtl:gtl + chunk].cpu().numpy().astype(np.int32)
+            produced += chunk
+            gtl += chunk
+            self.num_decoding_steps += chunk
+            self.num_large_model_steps += steps
+            yield new
+            if terminal:
+                break

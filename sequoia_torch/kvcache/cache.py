@@ -52,6 +52,13 @@ class KVCache:
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))
 
+    def zero_(self) -> "KVCache":
+        """Zero every row in place (an engine reusing its cache for a new
+        request). Returns self."""
+        for t in (self.k, self.v):
+            t.zero_()
+        return self
+
     def commit_rows(self, scratch: "KVCache", src_slots: torch.Tensor,
                     dest_offset) -> "KVCache":
         """Write scratch rows `src_slots` (`[P]`, may repeat as padding) to
@@ -79,6 +86,12 @@ class _QuantizedKVCache:
 
     def quantize_rows(self, x: torch.Tensor):
         raise NotImplementedError
+
+    def zero_(self):
+        """Zero every row and scale in place (see `KVCache.zero_`)."""
+        for t in (self.k, self.v, self.ks, self.vs):
+            t.zero_()
+        return self
 
     def write_rows(self, layer: int, rows: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> None:

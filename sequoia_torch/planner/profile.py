@@ -21,6 +21,7 @@ import torch
 
 from ..core.config import LlamaConfig
 from ..core.model import LlamaParams, forward
+from ..engine.graphs import GraphSet
 from ..kvcache.cache import KV_CACHES, KVCache
 
 
@@ -51,8 +52,9 @@ def time_forward_widths(
     the main cache of `kv_quant` (none, int8 or int4). Runs on the params'
     device.
 
-    On the card, one forward per width is captured into a CUDA graph and
-    the graph is replayed `reps` times between CUDA events; the result is
+    On the card, one forward per width is captured into a CUDA graph
+    (`engine/graphs.py`, so the launch counters count its replays) and the
+    graph is replayed `reps` times between CUDA events; the result is
     the median of 3 such samples over `reps`. That is the device time of
     the forward without the eager host loop's launch gaps (JAX ran the reps
     inside one jitted loop, and differenced two loop lengths to cancel a
@@ -81,20 +83,18 @@ def time_forward_widths(
         samples = []
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                step()
-            graph.replay()
+            graphs = GraphSet(dev)
+            graphs.capture("forward", step)
+            graphs.replay("forward")
             for _ in range(3):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
-                for _ in range(reps):
-                    graph.replay()
+                graphs.replay("forward", reps)
                 b.record()
                 b.synchronize()
                 samples.append(a.elapsed_time(b) / 1e3 / reps)
-            del graph
+            del graphs
         else:
             for _ in range(3):
                 t0 = time.perf_counter()

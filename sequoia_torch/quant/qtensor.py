@@ -126,6 +126,12 @@ def set_w8a8(mode: str, min_rows: int = None) -> None:
         _W8A8_MIN_ROWS = int(min_rows)
 
 
+def w8a8_setting() -> tuple:
+    """`(mode, min_rows)` of the w8a8 switch: a captured graph holds the
+    route it was captured with, so the engines key their graphs on it."""
+    return _W8A8, _W8A8_MIN_ROWS
+
+
 def _use_w8a8(x: torch.Tensor) -> bool:
     if _W8A8 == "off":
         return False

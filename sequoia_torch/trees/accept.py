@@ -7,8 +7,10 @@ Port of the production pieces of `sequoia_tpu/trees/accept.py`:
 the host, one device sync per edge (`Tree/SpecTree.py:203-213`); here the
 walk stays on the device: where JAX ran a `lax.while_loop`, the port runs a
 Python loop of a fixed `max_depth + 1` trips whose updates are predicated
-on a `done` flag, so nothing reads a value back to the host inside the
-walk and the decisions are identical.
+on a `done` flag, and the decisions are identical. Nothing reads a value
+back to the host inside the walk: a 0-d tensor index (`x[node]`) would, as
+PyTorch turns it into `.item()`, so every lookup at a device index is an
+`index_select` (`at_index`), and the walk captures into a CUDA graph.
 
 Verification rules (SURVEY.md §2.1):
 - sequoia   : accept iff p[tok] >  r * q[tok]; on reject p <- residual(p, q),
@@ -48,7 +50,12 @@ class PathResult(NamedTuple):
     terminal: torch.Tensor      # bool 0-d: stop token accepted on the path
 
 
-def _ranks_per_trip(successors: np.ndarray, trips: int) -> List[int]:
+def at_index(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """`x[i]` for a 0-d index tensor `i`, without a host read."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def ranks_per_trip(successors: np.ndarray, trips: int) -> List[int]:
     """Static rank-loop length for each walk trip. While the walk is live,
     trip t sits at a node of depth t, so it needs only as many rank tests
     as the widest node at that depth has children; ranks past a node's
@@ -68,13 +75,14 @@ def stochastic_path_walk_node(
     draft_logits: torch.Tensor,   # f32 [size, vocab]
     tokens_tree: torch.Tensor,    # long [size]
     r: torch.Tensor,              # f32 [size] uniform threshold per node
-    successors,                   # STATIC np.ndarray [size, max_branch], -1 pad
+    successors: torch.Tensor,     # long [size, max_branch], -1 pad
     temperature: float,
     top_p_cut: torch.Tensor,      # f32 [size] inclusive nucleus cutoff per row
-    stop_tokens,
+    stop_tokens: torch.Tensor,    # long [n_stop]
     max_depth: int,
     strict: bool,
     mask_rejected_draft: bool,
+    ranks: List[int],
 ) -> WalkResult:
     """Path-following walk, one trip per visited node: p/q rows are built
     lazily on node entry,
@@ -87,22 +95,24 @@ def stochastic_path_walk_node(
     node's running residual is the bonus distribution. Same decisions and
     outputs as `sequoia_tpu.trees.accept.stochastic_path_walk_node` on the
     same inputs. Division by T (not multiplication by 1/T), so the nucleus
-    membership matches the cutoff computed from the same logits."""
-    successors = np.asarray(successors)
+    membership matches the cutoff computed from the same logits.
+
+    `successors` and `stop_tokens` are tensors on the logits' device, built
+    once by the caller (a host copy here would run every iteration), and
+    `ranks = ranks_per_trip(successors, max_depth + 1)`, from the host's
+    copy of the successors."""
     dev = target_logits.device
-    succ = torch.as_tensor(successors, dtype=torch.long, device=dev)
-    stop = torch.as_tensor(list(stop_tokens), dtype=torch.long, device=dev)
     vocab_idx = torch.arange(target_logits.shape[-1], device=dev)
     depth_idx = torch.arange(max_depth, device=dev)
     zero = torch.zeros((), device=dev)
 
     def p_at(node):
-        sm = torch.softmax(target_logits[node].float() / temperature, dim=-1)
-        kept = torch.where(sm >= top_p_cut[node], sm, zero)
+        sm = torch.softmax(at_index(target_logits, node).float() / temperature, dim=-1)
+        kept = torch.where(sm >= at_index(top_p_cut, node), sm, zero)
         return kept / kept.sum()
 
     def q_at(node):
-        return torch.softmax(draft_logits[node].float() / temperature, dim=-1)
+        return torch.softmax(at_index(draft_logits, node).float() / temperature, dim=-1)
 
     cur = torch.zeros((), dtype=torch.long, device=dev)
     p_row, q_row = p_at(cur), q_at(cur)
@@ -111,8 +121,8 @@ def stochastic_path_walk_node(
     terminal = torch.zeros((), dtype=torch.bool, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
 
-    for n_ranks in _ranks_per_trip(successors, max_depth + 1):
-        children = succ[cur]                       # [max_branch]
+    for n_ranks in ranks:
+        children = at_index(successors, cur)             # [max_branch]
         child_c = children.clamp_min(0)
         tokens = tokens_tree[child_c]
         thresh_r = r[child_c]
@@ -124,7 +134,7 @@ def stochastic_path_walk_node(
         for j in range(n_ranks):
             open_ = open_ & (children[j] >= 0)    # the walk stops at the -1 pad
             token = tokens[j]
-            p_tok, q_tok = p_row[token], q_row[token]
+            p_tok, q_tok = at_index(p_row, token), at_index(q_row, token)
             thresh = thresh_r[j] * q_tok
             ok = (p_tok > thresh) if strict else (p_tok >= thresh)
             test = open_ & ~found
@@ -141,7 +151,7 @@ def stochastic_path_walk_node(
                     1.0 - q_tok, 1e-30)
                 q_row = torch.where(reject, q_new, q_row)
 
-        is_stop = found & (chosen_tok == stop).any()
+        is_stop = found & (chosen_tok == stop_tokens).any()
         path = torch.where(found & (depth_idx == count), chosen, path)
         count = count + found.long()
         descend = found & ~is_stop
@@ -188,12 +198,12 @@ def token_match_accept(target_token: torch.Tensor, tokens_tree: torch.Tensor,
 
 
 def resolve_path(accepted_child: torch.Tensor, tokens_tree: torch.Tensor,
-                 stop_tokens, max_depth: int) -> PathResult:
+                 stop_tokens: torch.Tensor, max_depth: int) -> PathResult:
     """Follow accepted_child pointers from the root; stop at the first
     rejection or at an accepted stop token (`Tree/SpecTree.py:203-213`).
-    A fixed `max_depth` trips of predicated updates (no host reads)."""
+    A fixed `max_depth` trips of predicated updates (no host reads).
+    `stop_tokens`: long [n_stop], on the device of `accepted_child`."""
     dev = accepted_child.device
-    stop = torch.as_tensor(list(stop_tokens), dtype=torch.long, device=dev)
     depth_idx = torch.arange(max_depth, device=dev)
     node = torch.zeros((), dtype=torch.long, device=dev)
     count = torch.zeros((), dtype=torch.long, device=dev)
@@ -201,10 +211,10 @@ def resolve_path(accepted_child: torch.Tensor, tokens_tree: torch.Tensor,
     stopped = torch.zeros((), dtype=torch.bool, device=dev)
     path = torch.full((max_depth,), -1, dtype=torch.long, device=dev)
     for _ in range(max_depth):
-        nxt = accepted_child[node]
+        nxt = at_index(accepted_child, node)
         step = (nxt >= 0) & ~stopped
         node = torch.where(step, nxt, node)
-        is_stop = step & (tokens_tree[node] == stop).any()
+        is_stop = step & (at_index(tokens_tree, node) == stop_tokens).any()
         path = torch.where(step & (depth_idx == count), node, path)
         count = count + step.long()
         terminal = terminal | is_stop

@@ -422,3 +422,143 @@ def test_cuda_tensor_never_takes_the_plain_version():
     x = torch.zeros(2, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tp.top_p_threshold_fused(x, 0.9)
+
+
+# The device loops as CUDA-graph replays (engine/graphs.py) ---------------------
+
+def _small_engines(algo, kv_quant=None, dtype=torch.float32):
+    """test-small draft and target (random, seeded) on the card, a Sequoia
+    engine and an AR baseline."""
+    from sequoia_torch.core.config import get_config
+    from sequoia_torch.core.init import random_params
+    from sequoia_torch.engine.baseline import ARBaseline
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.trees.growmap import uniform_tree
+
+    cfg = get_config("test-small")
+    draft = random_params(cfg, 7, dtype=dtype, device="cuda")
+    target = random_params(cfg, 8, dtype=dtype, device="cuda")
+    eng = SpecEngine(draft, cfg, target, cfg, uniform_tree(3, 2), algorithm=algo,
+                     max_length=128, temperature=0.7, top_p=0.9, prefill_chunk=16,
+                     kv_quant=kv_quant, device="cuda")
+    ar = ARBaseline(target, cfg, max_length=128, temperature=0.7, top_p=0.9,
+                    greedy=algo == "greedy", prefill_chunk=16, kv_quant=kv_quant, device="cuda")
+    return eng, ar
+
+
+PROMPT = np.arange(5, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["greedy", "sequoia"])
+def test_graph_replay_equals_eager(algo):
+    """Replayed and eager give the same tokens and counts; two seeds go
+    through one captured set of graphs, each equal to its eager run."""
+    _need_cuda()
+    eng, ar = _small_engines(algo)
+    for seed in (1, 2):
+        want = eng.generate(PROMPT, max_new_tokens=40, seed=seed)
+        steps = eng.num_large_model_steps
+        got = eng.generate_fast(PROMPT, max_new_tokens=40, seed=seed)
+        np.testing.assert_array_equal(got, want)
+        assert eng.num_large_model_steps == steps
+        np.testing.assert_array_equal(ar.generate_fast(PROMPT, 40, seed=seed),
+                                      ar.generate(PROMPT, 40, seed=seed))
+    assert set(eng.graph_report()) == {"grow", "verify", "finalize"}
+    assert ar.graph_report()["step"]["replays"] >= 2
+    if algo == "greedy":
+        exp = ar.generate(PROMPT, 40)
+        n = min(len(exp), len(got))
+        np.testing.assert_array_equal(got[:n], exp[:n])
+        streamed = np.concatenate([PROMPT] + list(eng.stream_fast(PROMPT, 40, chunk_tokens=5)))
+        np.testing.assert_array_equal(streamed, got)
+
+
+@pytest.mark.cuda
+def test_full_length_prompt_captures_nothing():
+    """A prompt of `max_length` tokens leaves no slot for the warm-up's
+    no-op step: with no budget, `generate_fast` captures nothing and
+    returns the prompt, and the card stays usable."""
+    _need_cuda()
+    from sequoia_torch.engine.baseline import ARBaseline
+
+    eng, ar = _small_engines("greedy")
+    full = ARBaseline(ar.params, ar.cfg, max_length=len(PROMPT), greedy=True,
+                      prefill_chunk=16, device="cuda")
+    np.testing.assert_array_equal(full.generate_fast(PROMPT, max_new_tokens=0), PROMPT)
+    np.testing.assert_array_equal(eng.generate_fast(PROMPT, max_new_tokens=0), PROMPT)
+    torch.cuda.synchronize()
+    assert full.graph_report() == {} and eng.graph_report() == {}
+    np.testing.assert_array_equal(ar.generate_fast(PROMPT, 8), ar.generate(PROMPT, 8))
+
+
+@pytest.mark.cuda
+def test_graphs_recapture_on_a_cache_change():
+    """A new packing or kv_quant on a live engine makes a new cache, and
+    the next replay recaptures on it."""
+    _need_cuda()
+    from sequoia_torch.kernels import build
+
+    eng, _ = _small_engines("greedy", kv_quant="int4")
+    first = eng.generate_fast(PROMPT, max_new_tokens=24)
+    graphs = dict(eng._graphs.graphs)
+    for attr, value, counter in (("_kv4_packing", "dsplit", "tree_attention_kv4_dsplit_f32"),
+                                 ("kv_quant", "int8", "tree_attention_kv8_f32")):
+        setattr(eng, attr, value)
+        before = build.launches[counter]
+        got = eng.generate_fast(PROMPT, max_new_tokens=24)
+        assert build.launches[counter] > before
+        assert all(eng._graphs.graphs[n] is not graphs[n] for n in graphs)
+        graphs = dict(eng._graphs.graphs)
+        np.testing.assert_array_equal(got, eng.generate(PROMPT, max_new_tokens=24))
+    assert len(first) > len(PROMPT)
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_replays():
+    """A capture counts nothing; each replay adds its graph's launches."""
+    _need_cuda()
+    from sequoia_torch.kernels import build
+
+    eng, ar = _small_engines("sequoia")
+    eng.generate_fast(PROMPT, max_new_tokens=8)            # captures
+    ar.generate_fast(PROMPT, max_new_tokens=8)
+    before = dict(build.launches)
+    eng.prefill(PROMPT)
+    ar.prefill(PROMPT)
+    eager = {k: v - before[k] for k, v in build.launches.items()}
+    reports = (eng.graph_report(), ar.graph_report())
+    before = dict(build.launches)
+    eng.generate_fast(PROMPT, max_new_tokens=30, seed=3)
+    ar.generate_fast(PROMPT, max_new_tokens=30, seed=3)
+    after = (eng.graph_report(), ar.graph_report())
+    want = dict(eager)
+    for old, new in zip(reports, after):
+        for name, g in new.items():
+            for k, v in g["launches"].items():
+                want[k] += v * (g["replays"] - old[name]["replays"])
+    assert {k: v - before[k] for k, v in build.launches.items()} == want
+    assert want["top_p_threshold_from_logits"] == after[0]["finalize"]["replays"] \
+        - reports[0]["finalize"]["replays"] > 0
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises():
+    """A host read inside a captured phase aborts the capture, and
+    `generate_fast` raises instead of falling back to the eager loop."""
+    _need_cuda()
+    eng, _ = _small_engines("greedy")
+    grow = eng._grow
+
+    def reads_back(state):
+        out = grow(state)
+        out[0].sum().item()
+        return out
+
+    eng._grow = reads_back
+    with pytest.raises(RuntimeError):
+        eng.generate_fast(PROMPT, max_new_tokens=8)
+    assert not eng._graphs.graphs
+    eng._grow = grow
+    np.testing.assert_array_equal(eng.generate_fast(PROMPT, max_new_tokens=8),
+                                  eng.generate(PROMPT, max_new_tokens=8))

@@ -79,8 +79,9 @@ def test_node_walk_same_decisions(seed, strict, mask):
         jnp.asarray(cut), stop, max(max_depth, 1), strict=strict, mask_rejected_draft=mask)
     t = ta.stochastic_path_walk_node(
         torch.as_tensor(tl), torch.as_tensor(dl), torch.as_tensor(tokens).long(),
-        torch.as_tensor(r), succ, T, torch.as_tensor(cut), stop, max(max_depth, 1),
-        strict=strict, mask_rejected_draft=mask)
+        torch.as_tensor(r), torch.as_tensor(succ).long(), T, torch.as_tensor(cut),
+        torch.as_tensor(stop).long(), max(max_depth, 1), strict=strict,
+        mask_rejected_draft=mask, ranks=ta.ranks_per_trip(succ, max(max_depth, 1) + 1))
     np.testing.assert_array_equal(t.path.numpy(), np.asarray(j.path))
     assert int(t.accept_count) == int(j.accept_count)
     assert int(t.final_node) == int(j.final_node)
@@ -102,8 +103,8 @@ def test_token_match_and_resolve_path_exact(seed):
     np.testing.assert_array_equal(t_acc.accepted_child.numpy(), np.asarray(j_acc.accepted_child))
     for stop in [(), (int(vocab - 1),)]:
         jp = ja.resolve_path(j_acc.accepted_child, jnp.asarray(tokens), stop, max(max_depth, 1))
-        tp = ta.resolve_path(t_acc.accepted_child, torch.as_tensor(tokens).long(), stop,
-                             max(max_depth, 1))
+        tp = ta.resolve_path(t_acc.accepted_child, torch.as_tensor(tokens).long(),
+                             torch.as_tensor(stop, dtype=torch.long), max(max_depth, 1))
         np.testing.assert_array_equal(tp.path.numpy(), np.asarray(jp.path))
         assert int(tp.accept_count) == int(jp.accept_count)
         assert int(tp.final_node) == int(jp.final_node)
@@ -141,10 +142,13 @@ def test_emitted_marginal_equals_target(strict, mask_rejected, k_children):
     dl[0] = torch.as_tensor(draft_logits)
     r = torch.rand(N, size, generator=gen)
 
+    succ_t, stop_t = torch.as_tensor(succ).long(), torch.tensor([255])
+    ranks = ta.ranks_per_trip(succ, 2)
+
     def walk(tok, rr):
-        res = ta.stochastic_path_walk_node(tl, dl, tok, rr, succ, T, torch.zeros(size),
-                                           (255,), 1, strict=strict,
-                                           mask_rejected_draft=mask_rejected)
+        res = ta.stochastic_path_walk_node(tl, dl, tok, rr, succ_t, T, torch.zeros(size),
+                                           stop_t, 1, strict=strict,
+                                           mask_rejected_draft=mask_rejected, ranks=ranks)
         return res.path, res.accept_count, res.p_final_row
 
     path, count, p_final = torch.func.vmap(walk)(tokens, r)
