@@ -5,6 +5,7 @@
     python3 chip_smoke.py --attention   # phases 1, 2 and phase 3's tree attention
     python3 chip_smoke.py --qmm         # phases 1, 2 and phase 3's top-p and matmuls
     python3 chip_smoke.py --loops       # phases 1, 2, 4 and phase 5's bf16 path
+    python3 chip_smoke.py --plan        # phases 1, 2 and 8 (its own short bf16 curve)
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -1751,6 +1752,193 @@ def llama3_vocab(torch, gm):
     return launches
 
 
+C4_SMALL = os.path.join(ROOT, "sequoia_tpu", "data", "bundled", "c4_small.json")
+PHASE8_CURVE_WIDTHS = [1, 4, 16, 64, 128]   # --plan: its own short bf16 curve
+
+
+def measure_plan_serve(torch, curve=None, draft_time=None):
+    """Phase 8: the measure -> plan -> serve loop on llama-68m -> llama-2-7b,
+    bf16, random seeded weights, through the entry points a user calls.
+
+    1. Checkpoint: the full-width 68m draft exported as `pytorch_model.bin`
+       (HF naming), loaded back on the card bit for bit, then built through
+       the testbed's `--draft-weights DIR` path (`build_params`).
+    2. Acceptance: `cli/accept.py`, static and dynamic (W = 8, dynamic at
+       most 16 steps a prompt), on 2 rows of the bundled c4_small.json,
+       with the draft from that directory; rates in [0, 1], the dynamic
+       vector summing to at most 1.
+    3. Plan: `cli/tree_search.py` on the dynamic vector and the bf16 curve
+       (`curve`, seconds at PLAN_WIDTHS, and `draft_time`; None: measure a
+       short one at PHASE8_CURVE_WIDTHS), on the native DP table, whose
+       plan must equal numpy's.
+    4. Serve: Sequoia on the planned tree through `generate_fast` under
+       each walk, 2 synthetic 128-token prompts at the same seeds: every
+       walk's tokens equal the node walk's; one eager iteration of each
+       walk under `set_sync_debug_mode("error")`; each walk's finalize
+       replay ms from `iterate_phased` (`generate_benchmark`). The staged
+       walk must launch the fused top-p kernel, the path and unrolled walks
+       the from-logits one.
+    Returns the launches of the serving runs (graph replays counted)."""
+    import tempfile
+
+    import numpy as np
+
+    from sequoia_torch.cli import accept, tree_search
+    from sequoia_torch.cli.testbed import build_params, load_prompts
+    from sequoia_torch.core.init import export_hf_checkpoint, load_hf_checkpoint
+    from sequoia_torch.data.datasets import load_pretokenized_jsonl
+    from sequoia_torch.engine.engine import WALKS, SpecEngine
+    from sequoia_torch.kernels import build
+    from sequoia_torch.native import planner_dp_lib
+    from sequoia_torch.planner.dp import plan
+    from sequoia_torch.planner.profile import time_forward_widths
+    from sequoia_torch.quant.quantize import tensors
+    from sequoia_torch.trees.growmap import GrowMap
+    from sequoia_torch.utils import hard_sync
+
+    t_phase = time.perf_counter()
+    M, gen, T, P = FULL["max_length"], FULL["gen"], FULL["T"], FULL["P"]
+    target, tcfg = build_params(FULL["target"], "random", "bf16", SEED, "cuda")
+    widths = PLAN_WIDTHS
+    if curve is None:
+        widths = PHASE8_CURVE_WIDTHS
+        t0 = time.perf_counter()
+        curve = time_forward_widths(target, tcfg, widths, max_length=M, kv_len=128, reps=10,
+                                    dtype=torch.bfloat16)
+        log(f"  bf16 target forward (CUDA graph replays): " + ", ".join(
+            f"w{w} {t * 1e3:.3f} ms" for w, t in zip(widths, curve))
+            + f" ({time.perf_counter() - t0:.1f} s)")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        log("  [8.1] checkpoint")
+        t0 = time.perf_counter()
+        draft0, dcfg = build_params(FULL["draft"], "random", "bf16", SEED + 1, "cuda")
+        if draft_time is None:
+            draft_time = time_forward_widths(draft0, dcfg, [8], max_length=M, kv_len=128,
+                                             reps=20)[0]
+        ckpt = os.path.join(tmp, "draft")
+        export_hf_checkpoint(draft0, dcfg, ckpt, weights="bin")
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, back_cfg = load_hf_checkpoint(ckpt, dtype=torch.bfloat16, device="cuda")
+        hard_sync("cuda")
+        t_load = time.perf_counter() - t0
+        draft, _ = build_params(FULL["draft"], ckpt, "bf16", SEED + 1, "cuda")
+        pairs = list(zip(tensors(draft0), tensors(back))) + list(zip(tensors(draft0),
+                                                                     tensors(draft)))
+        same = [a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                for a, b in pairs]
+        if not all(same) or back_cfg.hidden_size != dcfg.hidden_size:
+            fail(f"checkpoint round trip: {same.count(False)} of {len(same)} tensors differ")
+        n_bytes = os.path.getsize(os.path.join(ckpt, "pytorch_model.bin"))
+        log(f"  llama-68m exported as pytorch_model.bin ({n_bytes / 1e6:.1f} MB, f32) in "
+            f"{t_export:.2f} s, loaded back on the card in {t_load:.2f} s: {len(pairs) // 2} "
+            "tensors equal bit for bit, and again through build_params(--draft-weights DIR)")
+        del draft0, back
+
+        log("  [8.2] acceptance (cli/accept.py)")
+        rows = [np.minimum(r, tcfg.vocab_size - 1).tolist()
+                for r in load_pretokenized_jsonl(C4_SMALL, limit=2)]
+        via_loader = load_prompts(f"jsonl:{C4_SMALL}", tcfg.vocab_size, SEED)[:2]
+        if [r.tolist() for r in via_loader] != rows:
+            fail("jsonl: prompts differ from the data layer's rows")
+        prompts_path = os.path.join(tmp, "c4_2rows.json")
+        with open(prompts_path, "w") as f:
+            json.dump(rows, f)
+        common = ["--draft", FULL["draft"], "--draft-weights", ckpt, "--target", FULL["target"],
+                  "--W", "8", "--T", str(T), "--P", str(P), "--prompts", prompts_path,
+                  "--M", str(M), "--seed", str(SEED)]
+        vectors, seconds = {}, {}
+        for method in ("static", "dynamic"):
+            dst = os.path.join(tmp, f"{method}.json")
+            hard_sync("cuda")
+            t0 = time.perf_counter()
+            accept.main(common + ["--method", method, "--steps", "16", "--dst", dst])
+            hard_sync("cuda")
+            seconds[method] = time.perf_counter() - t0
+            with open(dst) as f:
+                vec = np.asarray(json.load(f)["vector"])
+            if (vec.shape != (9,) or vec[0] != 0.0 or not np.isfinite(vec).all()
+                    or (vec < 0).any() or (vec > 1).any() or vec.sum() > 1 + 1e-6):
+                fail(f"{method} acceptance: not a vector of rates in [0, 1] summing to <= 1: "
+                     f"{vec}")
+            vectors[method] = dst
+            log(f"  {method}: {np.round(vec, 4).tolist()} (sum {vec.sum():.4f}) in "
+                f"{seconds[method]:.2f} s, 2 rows of {[len(r) for r in rows]} tokens "
+                "(the 7B target built from the seed inside the CLI)")
+
+        log("  [8.3] plan (cli/tree_search.py, native DP)")
+        if planner_dp_lib() is None:
+            fail("the native planner DP did not build (g++)")
+        n = len(widths)
+        config = {"acceptance_rate_vector": vectors["dynamic"], "max_depth": 8,
+                  "max_budget": max(widths), "draft_time": draft_time,
+                  "valid_budget": widths, "target_time": list(curve[:n]),
+                  "dst": os.path.join(tmp, "growmap.json")}
+        with open(os.path.join(tmp, "plan.json"), "w") as f:
+            json.dump(config, f)
+        t0 = time.perf_counter()
+        tree_search.main(["--config", os.path.join(tmp, "plan.json")])
+        t_plan = time.perf_counter() - t0
+        gm = GrowMap.load(config["dst"])
+        p_vec = tree_search.load_acceptance_vector(vectors["dynamic"])
+        ref, info = plan(p_vec, widths, config["target_time"], draft_time, max_depth=8,
+                         backend="numpy")
+        if ref.successors != gm.successors:
+            fail("the native DP's plan differs from the numpy DP's")
+        log(f"  planned tree: {gm.size} nodes, depth {int(gm.depth.max()) if gm.size > 1 else 0}"
+            f", max branch {gm.max_branch}, level widths {gm.level_widths}, predicted E "
+            f"{info['expected_accepted']:.3f} tokens a step, {info['dec_time'] * 1e3:.3f} "
+            f"ms/token (device); tree_search {t_plan:.2f} s (native table)")
+
+    log("  [8.4] serve the plan under each walk (generate_fast)")
+    prompts = load_prompts(FULL["prompts"], tcfg.vocab_size, SEED)
+    outs, launches, report = {}, {}, []
+    for walk in WALKS:
+        eng = SpecEngine(draft, dcfg, target, tcfg, gm, algorithm="sequoia", max_length=M,
+                         temperature=T, top_p=P, walk=walk, device="cuda")
+        state = eng.prefill(prompts[0], seed=SEED)
+        no_sync(torch, lambda: eng.iterate(state), f"walk {walk}")
+        eng.generate_fast(prompts[0], max_new_tokens=4)   # warm up and capture
+        hard_sync("cuda")
+        build.reset_launches()
+        t0 = time.perf_counter()
+        outs[walk] = [eng.generate_fast(p, max_new_tokens=gen, seed=SEED + i)
+                      for i, p in enumerate(prompts)]
+        hard_sync("cuda")
+        wall = time.perf_counter() - t0
+        launches[walk] = dict(build.launches)
+        tokens = sum(len(o) - len(p) for o, p in zip(outs[walk], prompts))
+        for o, p in zip(outs[walk], prompts):
+            if len(o) <= len(p) or o.min() < 0 or o.max() >= tcfg.vocab_size:
+                fail(f"walk {walk}: no or out-of-range tokens")
+        if any(not np.array_equal(a, b) for a, b in zip(outs[walk], outs["node"])):
+            fail(f"walk {walk} emitted other tokens than the node walk at the same seeds")
+        _, phases = eng.generate_benchmark(prompts[0], max_new_tokens=gen, seed=SEED)
+        steps = eng.num_large_model_steps
+        report.append(
+            f"{walk}: finalize {phases['accept_kv'] / steps * 1e3:.3f} ms (grow "
+            f"{phases['draft_run'] / steps * 1e3:.3f}, verify {phases['target_run'] / steps * 1e3:.3f}"
+            f"), {wall / tokens * 1e3:.3f} ms/token over {tokens} tokens, graphs "
+            f"{graph_lines(torch, eng, walk)}")
+        del eng, state
+    for walk in WALKS:
+        shown = {k: v for k, v in launches[walk].items() if v}
+        log(f"  {report.pop(0)}; launches {shown}")
+    need = {"staged": "top_p_threshold_fused", "path": "top_p_threshold_from_logits",
+            "unrolled": "top_p_threshold_from_logits", "node": "top_p_threshold_from_logits"}
+    for walk, k in need.items():
+        if launches[walk][k] == 0 or launches[walk]["tree_attention"] == 0:
+            fail(f"walk {walk}: {k} or tree_attention never launched: {launches[walk]}")
+    log(f"  tokens equal across the walks ({', '.join(WALKS)}); phase 8 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -1792,6 +1980,12 @@ def main() -> None:
         f"max branch {gm.max_branch}, level widths {gm.level_widths}")
 
     kernels = []
+    if "--plan" in sys.argv[1:]:
+        log("[8] measure -> plan -> serve: llama-68m -> llama-2-7b bf16")
+        measure_plan_serve(torch)
+        log(f"  --plan: phase 8 only, {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return
     if "--loops" in sys.argv[1:]:
         log("[4] small parity on the card")
         small_parity(torch)
@@ -1914,13 +2108,16 @@ def main() -> None:
     del models
     torch.cuda.empty_cache()
 
+    log("[7] latency curves (H100, device time of one split-mode forward at kv_len 128)")
+    plan_from_curves(curves, draft_time)
+
+    log("[8] measure -> plan -> serve: llama-68m -> llama-2-7b bf16")
+    add(measure_plan_serve(torch, curves["bf16"][:len(PLAN_WIDTHS)], draft_time))
+
     for e in kernels:
         e["launches"] = launches.get(e["name"], 0)
         if e["launches"] == 0:
             fail(f"{e['name']} never launched on any main path")
-
-    log("[7] latency curves (H100, device time of one split-mode forward at kv_len 128)")
-    plan_from_curves(curves, draft_time)
 
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

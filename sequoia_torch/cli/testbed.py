@@ -10,7 +10,10 @@ JAX's testbed does, `--mode spec` and `--mode baseline` time `generate_fast`
 `iterate_phased` (the phase graphs with CUDA events between them).
 
 Runs on the CUDA card (`--device cpu` only for small checks). Weights are
-random, from `--seed`; prompts are `synthetic:N,LEN`. `--quant int8|int4`
+random, from `--seed`, or a HF checkpoint directory (`--target-weights
+DIR`, `--draft-weights DIR`, or the directory as the model name with
+`auto`); prompts are `synthetic:N,LEN`, a pre-tokenized `jsonl:PATH` /
+`arrow:PATH`, or a JSON file of token-id lists. `--quant int8|int4`
 quantizes the target's weights (random init straight into quantized
 layers); `--kv-quant int8|int4` gives the target an int8 / int4 KV cache.
 Offloading is not ported yet: its flag takes only its "off" value.
@@ -18,45 +21,88 @@ Offloading is not ported yet: its flag takes only its "off" value.
     python -m sequoia_torch.cli.testbed --mode spec
     python -m sequoia_torch.cli.testbed --mode spec --quant int8
     python -m sequoia_torch.cli.testbed --mode spec --kv-quant int4
+    python -m sequoia_torch.cli.testbed --draft-weights CKPT_DIR --end 4 --prompts jsonl:sequoia_tpu/data/bundled/c4_small.json
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 import torch
 
 
-def build_params(name: str, weights: str, dtype_str: str, seed: int, device=None,
+def build_params(name_or_path: str, weights: str, dtype_str: str, seed: int, device=None,
                  quant_bits=None):
-    """`(params, cfg)` for a preset with random weights. `quant_bits` (8 or
-    4) gives an int-quantized model, initialized straight into quantized
-    layers (`random_quantized_model`): a bf16 7B tree first would need both
-    copies in memory at once."""
+    """`(params, cfg)` from a preset name or a HF checkpoint directory.
+
+    `weights`: "random" (random init from `seed`, on the device), "auto"
+    (the checkpoint's weights when `name_or_path` is a checkpoint
+    directory, else random), a checkpoint directory, or a torch state-dict
+    file. `quant_bits` (8 or 4) gives an int-quantized model; random init
+    goes straight into quantized layers (`random_quantized_model`): a bf16
+    7B tree first would need both copies in memory at once."""
+    import os
+
     from ..core import init as pinit
-    from ..core.config import get_config
+    from ..core.config import PRESETS, LlamaConfig, get_config
 
-    if weights != "random":
-        raise NotImplementedError("checkpoint loading is not ported yet; use random")
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_str]
-    cfg = get_config(name)
+    is_ckpt_dir = os.path.isdir(name_or_path) and os.path.exists(
+        os.path.join(name_or_path, "config.json"))
+    if name_or_path in PRESETS:
+        cfg = get_config(name_or_path)
+    elif is_ckpt_dir:
+        cfg = LlamaConfig.from_json(os.path.join(name_or_path, "config.json"))
+    else:
+        raise ValueError(f"{name_or_path!r} is neither a preset nor a checkpoint dir")
+    if weights == "random" or (weights == "auto" and not is_ckpt_dir):
+        if quant_bits is not None:
+            from ..quant.quantize import random_quantized_model
+
+            return random_quantized_model(cfg, seed, bits=quant_bits, dtype=dtype,
+                                          device=device), cfg
+        return pinit.random_params(cfg, seed, dtype=dtype, device=device), cfg
+    if weights == "auto":
+        params, cfg = pinit.load_hf_checkpoint(name_or_path, dtype=dtype, device=device)
+    elif os.path.isdir(weights):
+        params, cfg = pinit.load_hf_checkpoint(weights, dtype=dtype, device=device)
+    else:
+        sd = torch.load(weights, map_location="cpu", weights_only=True)
+        params = pinit.params_from_hf_state_dict(cfg, sd, dtype=dtype, device=device)
     if quant_bits is not None:
-        from ..quant.quantize import random_quantized_model
+        from ..quant.quantize import quantize_model
 
-        return random_quantized_model(cfg, seed, bits=quant_bits, dtype=dtype,
-                                      device=device), cfg
-    return pinit.random_params(cfg, seed, dtype=dtype, device=device), cfg
+        params = quantize_model(params, bits=quant_bits)
+    return params, cfg
 
 
-def load_prompts(spec: str, vocab: int, seed: int):
-    """`synthetic:N,LEN`: N prompts of LEN token ids drawn from `seed`."""
-    if not spec.startswith("synthetic:"):
-        raise NotImplementedError("only synthetic:N,LEN prompts are ported yet")
-    n, ln = (int(x) for x in spec.split(":")[1].split(","))
-    rng = np.random.default_rng(seed)
-    return [rng.integers(10, vocab, size=ln) for _ in range(n)]
+def load_prompts(spec: str, vocab: int, seed: int, prefill_len: int = 0):
+    """`synthetic:N,LEN` (N prompts of LEN ids drawn from `seed`) |
+    `jsonl:<path>` / `arrow:<path>` (pre-tokenized, the data layer) | a
+    JSON file of token-id lists. `prefill_len` > 0 pads or truncates every
+    prompt to exactly that length (the reference greedy testbed's `--S`
+    long-prefill knob, `tests/testbed_greedy.py:240-245`)."""
+    if spec.startswith("synthetic:"):
+        n, ln = (int(x) for x in spec.split(":")[1].split(","))
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(10, vocab, size=ln) for _ in range(n)]
+    elif spec.startswith(("jsonl:", "arrow:")):
+        from ..data.datasets import load_dataset_by_name
+
+        ds = load_dataset_by_name(spec, seq_len=max(prefill_len, 256))
+        prompts = [np.minimum(p, vocab - 1) for p in ds]
+    else:
+        with open(spec) as f:
+            prompts = [np.asarray(p, np.int32) for p in json.load(f)]
+    if prefill_len > 0:
+        from ..data.datasets import TokenDataset
+
+        ds = TokenDataset.from_sequences(prompts, seq_len=prefill_len)
+        prompts = [ds.ids[i] for i in range(len(ds))]  # exact-length rows
+    return prompts
 
 
 def load_growmap(spec: str):
@@ -85,7 +131,7 @@ def load_growmap(spec: str):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--draft", default="llama-68m", help="preset name")
+    ap.add_argument("--draft", default="llama-68m", help="preset name or config dir")
     ap.add_argument("--target", default="llama-2-7b")
     ap.add_argument("--draft-weights", default="random")
     ap.add_argument("--target-weights", default="random")
@@ -98,7 +144,14 @@ def main(argv=None) -> None:
     ap.add_argument("--P", type=float, default=0.9)
     ap.add_argument("--M", type=int, default=256, help="max buffer length")
     ap.add_argument("--gen", type=int, default=128, help="max new tokens/prompt")
-    ap.add_argument("--prompts", default="synthetic:4,128", help="synthetic:N,LEN")
+    ap.add_argument("--prompts", default="synthetic:4,128",
+                    help="synthetic:N,LEN | jsonl:<path> | arrow:<path> | token-id JSON")
+    ap.add_argument("--S", type=int, default=0,
+                    help="force prefill length (pad/truncate prompts; "
+                         "long-prefill runs, testbed_greedy --S)")
+    ap.add_argument("--start", type=int, default=0,
+                    help="dataset window start (tests/testbed.py:27)")
+    ap.add_argument("--end", type=int, default=None, help="dataset window end")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     ap.add_argument("--quant", default="none", choices=["none", "int8", "int4"],
                     help="target weight quantization (random init goes "
@@ -122,7 +175,8 @@ def main(argv=None) -> None:
     target_params, target_cfg = build_params(
         args.target, args.target_weights, args.dtype, args.seed, device,
         quant_bits=None if args.quant == "none" else int(args.quant[3:]))
-    prompts = load_prompts(args.prompts, target_cfg.vocab_size, args.seed)
+    prompts = load_prompts(args.prompts, target_cfg.vocab_size, args.seed,
+                           prefill_len=args.S)[args.start:args.end]
 
     total_tokens = 0
     total_steps = 0

@@ -2,10 +2,10 @@
 verification, and the device-side accept walk.
 
 Port of `sequoia_tpu/engine/engine.py::SpecEngine` (all four algorithms,
-`walk="node"`). One iteration = draft growth level by level into a tree
-scratch, one target forward over the whole tree, the accept walk, the
-commit of tokens and K/V rows, and a width-1 draft re-draft of the new
-root. Nothing inside an iteration reads a value back to the host: offsets
+and the four accept walks of the stochastic ones). One iteration = draft
+growth level by level into a tree scratch, one target forward over the
+whole tree, the accept walk, the commit of tokens and K/V rows, and a
+width-1 draft re-draft of the new root. Nothing inside an iteration reads a value back to the host: offsets
 are device tensors, and every lookup at a device index is an
 `index_select` (a 0-d tensor index would be a host read). The state lives
 in buffers the engine allocates once (`prefill` resets and reuses them), so
@@ -49,6 +49,7 @@ from ..core.model import LlamaParams, forward
 from ..kvcache.cache import KV_CACHES, KVCache, KVCache4
 from ..ops import masks
 from ..ops.sampling import (
+    draft_probs,
     gumbel,
     nucleus_cutoff,
     sample_argmax,
@@ -61,9 +62,15 @@ from ..quant.qtensor import w8a8_setting
 from ..trees.accept import (
     PathResult,
     at_index,
+    edge_trips,
+    node_residual,
     ranks_per_trip,
     resolve_path,
+    staged_plan,
+    stochastic_accept_decisions,
+    stochastic_path_walk,
     stochastic_path_walk_node,
+    stochastic_path_walk_unrolled,
     token_match_accept,
 )
 from ..trees.growmap import GrowMap
@@ -72,6 +79,12 @@ from .baseline import prefill_chunks
 from .graphs import GraphSet
 
 ALGORITHMS = ("sequoia", "specinfer", "greedy", "greedys")
+# The stochastic algorithms' accept walks (JAX `SpecEngine(walk=...)`); all
+# four take the same decisions on the same draws, and differ in the work:
+# "node" one trip per visited node (the default), "path" one per tested
+# edge, "unrolled" every trip testing all ranks, "staged" a decision for
+# every parent at once.
+WALKS = ("node", "path", "unrolled", "staged")
 # Most iterations a `*_fast` block replays before the host reads the
 # counters. A block that a stop token ends early replays the rest of its
 # iterations as no-ops, each as long as a live one; a host read costs about
@@ -150,8 +163,8 @@ class SpecEngine:
     ) -> None:
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}; known: {ALGORITHMS}")
-        if walk != "node":
-            raise NotImplementedError(f"walk={walk!r} is not ported yet (only 'node')")
+        if walk not in WALKS:
+            raise ValueError(f"unknown walk {walk!r}; known: {WALKS}")
         if mesh is not None or shard_draft:
             raise NotImplementedError("tensor parallelism is not ported yet")
         if kv_quant not in KV_CACHES:
@@ -227,7 +240,11 @@ class SpecEngine:
         self._steps = torch.zeros((), dtype=torch.long, device=dev)
         self._budget = torch.zeros((), dtype=torch.long, device=dev)
         self._always = torch.ones((), dtype=torch.bool, device=dev)
+        # The walks' static trip plans, built once (a host copy inside an
+        # iteration would run every iteration).
         self._walk_ranks = ranks_per_trip(self._succ_np, self._md + 1)
+        self._edge_trips = edge_trips(self._succ_np, self._md)
+        self._staged = staged_plan(self._succ_np, dev) if walk == "staged" else None
         # The phases' CUDA graphs; on the CPU the same phases run eagerly.
         self._graphs = GraphSet(dev, self._gen) if dev.type == "cuda" else None
         # Counters (reference metric: tests/testbed.py:94).
@@ -374,16 +391,7 @@ class SpecEngine:
         stochastic = self.algorithm in ("sequoia", "specinfer")
         if stochastic:
             r = torch.rand(self.tree_size, generator=state.gen, device=dev)
-            is_sequoia = self.algorithm == "sequoia"
-            cut = nucleus_cutoff(target_logits, self.top_p, self.temperature)
-            walk = stochastic_path_walk_node(
-                target_logits, draft_logits, tokens_tree, r, self._succ,
-                self.temperature, cut, self._stop, md,
-                strict=is_sequoia, mask_rejected_draft=is_sequoia, ranks=self._walk_ranks,
-            )
-            path = PathResult(walk.path, walk.accept_count, walk.final_node,
-                              walk.terminal)
-            res = walk.p_final_row
+            path, res = self._walk(tokens_tree, draft_logits, target_logits, r)
             bonus = sample_categorical_probs(state.gen, res)
             terminal = path.terminal | torch.isnan(res).any()
         else:
@@ -437,6 +445,40 @@ class SpecEngine:
         state.terminal.copy_(state.terminal | (live & terminal))
         state.gtl.copy_(new_gtl)
         return StepStats(emitted=emitted, terminal=state.terminal, first_rank=first_rank)
+
+    def _walk(self, tokens_tree, draft_logits, target_logits, r):
+        """The stochastic accept walk of `self.walk` (JAX `_finalize_impl`):
+        returns the path and the bonus distribution at its final node."""
+        T, md = self.temperature, self._md
+        is_sequoia = self.algorithm == "sequoia"
+        if self.walk == "staged":
+            # Decisions for every parent, the path, then the residual
+            # replayed at the path's final node for the bonus.
+            p = target_probs(target_logits, self.top_p, T)
+            accepted = stochastic_accept_decisions(
+                p, draft_logits, tokens_tree, r, self._staged, T,
+                strict=is_sequoia, mask_rejected_draft=is_sequoia)
+            path = resolve_path(accepted, tokens_tree, self._stop, md)
+            fn = path.final_node
+            children = at_index(self._succ, fn)
+            res = node_residual(at_index(p, fn), draft_probs(at_index(draft_logits, fn), T),
+                                tokens_tree[children.clamp_min(0)], children >= 0,
+                                mask_rejected_draft=is_sequoia)
+            return path, res
+        # The path walks: p/q rows built lazily at the visited nodes from
+        # the nucleus cutoff; the final residual row is the bonus
+        # distribution.
+        cut = nucleus_cutoff(target_logits, self.top_p, T)
+        args = (target_logits, draft_logits, tokens_tree, r, self._succ, T, cut,
+                self._stop, md, is_sequoia, is_sequoia)
+        if self.walk == "node":
+            walk = stochastic_path_walk_node(*args, ranks=self._walk_ranks)
+        elif self.walk == "path":
+            walk = stochastic_path_walk(*args, trips=self._edge_trips)
+        else:
+            walk = stochastic_path_walk_unrolled(*args)
+        return PathResult(walk.path, walk.accept_count, walk.final_node,
+                          walk.terminal), walk.p_final_row
 
     def _finalize_counted(self, state: DecodeState, tokens_tree, draft_logits,
                           target_logits) -> StepStats:

@@ -33,6 +33,21 @@ def residual(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return r / r.sum(dim=-1, keepdim=True)
 
 
+def top_p_filter(logits: torch.Tensor, top_p: float, temperature: float) -> torch.Tensor:
+    """Mask (to -inf) the tokens outside the nucleus, by a sort
+    (`get_sampling_logits`, `utils.py:65-77`): keep a token while the
+    probability mass sorted before it is <= top_p (the first token always
+    stays). JAX computes it in XLA, with no kernel; static acceptance
+    measurement uses it, no engine path does."""
+    if top_p >= 1.0:
+        return logits
+    sort_idx = torch.argsort(-logits, dim=-1, stable=True)
+    probs = torch.softmax(logits.gather(-1, sort_idx) / temperature, dim=-1)
+    remove_sorted = (probs.cumsum(dim=-1) - probs) > top_p
+    remove = torch.empty_like(remove_sorted).scatter_(-1, sort_idx, remove_sorted)
+    return logits.masked_fill(remove, float("-inf"))
+
+
 def top_p_threshold(probs: torch.Tensor, top_p: float, iters: int = 32) -> torch.Tensor:
     """Per-row nucleus cutoff by bisection, the plain version on any device
     (see `kernels/top_p.py::top_p_threshold_plain`)."""

@@ -1,7 +1,8 @@
-"""Hardware-aware offline tree planner (numpy backend).
+"""Hardware-aware offline tree planner.
 
-The port's own copy of `sequoia_tpu/planner/dp.py` without the native C++
-backend.
+The port's own copy of `sequoia_tpu/planner/dp.py`, with its two backends
+of the table fill: C++ over ctypes (`native/planner_dp.cpp`) and numpy,
+bit-identical.
 
 Dynamic program over (acceptance-rate vector, measured latency curve) that
 emits the optimal static speculation-tree topology — the growmap. Same
@@ -66,12 +67,46 @@ class PlannerTable:
         return self.children(y, l, b - 1) + [rest]
 
 
-def fill_table(p: np.ndarray, max_budget: int, max_depth: int) -> PlannerTable:
+def _fill_table_native(p: np.ndarray, max_budget: int, max_depth: int):
+    """The table from `native/planner_dp.cpp`, or None without a compiler."""
+    import ctypes
+
+    from ..native import planner_dp_lib
+
+    lib = planner_dp_lib()
+    if lib is None:
+        return None
+    W = len(p) - 1
+    T = np.empty((max_budget + 1, max_depth + 1, W + 1), np.float64)
+    Y = np.empty((max_budget + 1, max_depth + 1, W + 1), np.int32)
+    pc = np.ascontiguousarray(p, np.float64)
+    rc = lib.sequoia_fill_table(
+        pc.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), W, max_budget, max_depth,
+        T.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        Y.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if rc != 0:
+        raise RuntimeError(f"sequoia_fill_table returned {rc}")
+    return PlannerTable(T=T, Y=Y, p=p)
+
+
+def fill_table(p: np.ndarray, max_budget: int, max_depth: int,
+               backend: str = "auto") -> PlannerTable:
     """p[0] must be 0; p[b] = acceptance probability of the rank-b child
-    (the acceptance-rate vector artifact, SURVEY.md §2.2). numpy only: the
-    C++ DP of `sequoia_tpu/native/` is not ported yet."""
+    (the acceptance-rate vector artifact, SURVEY.md §2.2).
+
+    `backend`: "native" (C++ over ctypes, ~100x the numpy path at
+    offloading budgets; raises without a compiler), "numpy", or "auto"
+    (native when `g++` can build it, else numpy)."""
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"backend must be auto, native or numpy; got {backend!r}")
     p = np.asarray(p, np.float64)
     assert p[0] == 0.0
+    if backend in ("auto", "native"):
+        table = _fill_table_native(p, max_budget, max_depth)
+        if table is not None:
+            return table
+        if backend == "native":
+            raise RuntimeError("native planner DP unavailable (no g++?)")
     max_branch = len(p) - 1
     T = np.full((max_budget + 1, max_depth + 1, max_branch + 1), NEG)
     Y = np.full((max_budget + 1, max_depth + 1, max_branch + 1), -1, np.int32)
@@ -191,6 +226,7 @@ def plan(
     draft_time: float,
     max_depth: int = 10,
     max_budget: Optional[int] = None,
+    backend: str = "auto",
     max_branch: Optional[int] = None,
 ) -> Tuple[GrowMap, dict]:
     """End-to-end planning: fill table, choose serving tree, materialize.
@@ -207,7 +243,7 @@ def plan(
         p = p[: max_branch + 1]
     if max_budget is None:
         max_budget = int(max(valid_budget))
-    table = fill_table(p, max_budget, max_depth)
+    table = fill_table(p, max_budget, max_depth, backend=backend)
     budget, depth, dec_time, exp_acc = choose_tree(
         table, valid_budget, target_time, draft_time
     )

@@ -31,16 +31,17 @@ def quantize_model(params: LlamaParams, bits: int = 8) -> LlamaParams:
     )
 
 
-def _tensors(tree):
+def tensors(tree):
+    """Every tensor of a params tree (quantized leaves: `q` and `scale`)."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, tuple):   # LlamaParams, LayerParams, QuantizedTensor
         for x in tree:
-            yield from _tensors(x)
+            yield from tensors(x)
 
 
 def model_bytes(params: LlamaParams) -> int:
-    return sum(x.numel() * x.element_size() for x in _tensors(params))
+    return sum(x.numel() * x.element_size() for x in tensors(params))
 
 
 def random_quantized_model(cfg, seed: int, bits: int = 8, dtype=torch.bfloat16,

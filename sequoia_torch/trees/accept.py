@@ -1,16 +1,28 @@
-"""Device-side tree verification: the node walk for the stochastic
+"""Device-side tree verification: the four accept walks of the stochastic
 algorithms, token matching for greedy/greedyS, and path resolution.
 
-Port of the production pieces of `sequoia_tpu/trees/accept.py`:
-`stochastic_path_walk_node` (the engine's `walk="node"`), `node_residual`,
-`token_match_accept` and `resolve_path`. The reference walked the tree on
-the host, one device sync per edge (`Tree/SpecTree.py:203-213`); here the
-walk stays on the device: where JAX ran a `lax.while_loop`, the port runs a
-Python loop of a fixed `max_depth + 1` trips whose updates are predicated
-on a `done` flag, and the decisions are identical. Nothing reads a value
-back to the host inside the walk: a 0-d tensor index (`x[node]`) would, as
-PyTorch turns it into `.item()`, so every lookup at a device index is an
-`index_select` (`at_index`), and the walk captures into a CUDA graph.
+Port of `sequoia_tpu/trees/accept.py`, every walk an engine configuration
+reaches:
+- `stochastic_path_walk_node` (`walk="node"`, the default): one trip per
+  visited node, the node's ranks tested inside the trip;
+- `stochastic_path_walk` (`walk="path"`): one trip per tested edge;
+- `stochastic_path_walk_unrolled` (`walk="unrolled"`): the node walk with
+  every trip testing all `max_branch` ranks;
+- `stochastic_accept_decisions` + `resolve_path` + `node_residual`
+  (`walk="staged"`): a decision for every parent at once, then the path,
+  then the bonus residual at its final node;
+plus `token_match_accept` (greedy / greedyS). JAX's frozen test oracles
+(`stochastic_accept`, `stochastic_accept_dense`) are not ported.
+
+The reference walked the tree on the host, one device sync per edge
+(`Tree/SpecTree.py:203-213`); here every walk stays on the device: where
+JAX ran a `lax.while_loop`, the port runs a Python loop of a fixed number of
+trips (enough for the longest walk the tree allows) whose updates are
+predicated on a `done` flag, and the decisions are identical. Nothing reads
+a value back to the host inside a walk: a 0-d tensor index (`x[node]`)
+would, as PyTorch turns it into `.item()`, so every lookup at a device
+index is an `index_select` (`at_index`), and each walk captures into a CUDA
+graph.
 
 Verification rules (SURVEY.md §2.1):
 - sequoia   : accept iff p[tok] >  r * q[tok]; on reject p <- residual(p, q),
@@ -27,7 +39,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.sampling import residual
+from ..ops.sampling import draft_probs, residual
 
 
 class AcceptResult(NamedTuple):
@@ -70,6 +82,25 @@ def ranks_per_trip(successors: np.ndarray, trips: int) -> List[int]:
     return [int(n_children[depth == t].max(initial=0)) for t in range(trips)]
 
 
+def _row_dists(target_logits, draft_logits, top_p_cut, temperature):
+    """The path walks' lazily built rows at a node (a 0-d index tensor):
+    `p_at`, the nucleus-filtered target distribution, and `q_at`, the draft
+    distribution. Division by T (not multiplication by 1/T), as in
+    `target_probs` / `draft_probs`, so that nucleus membership agrees with
+    the staged walk's (JAX `stochastic_path_walk`, the note at its p_at)."""
+    zero = torch.zeros((), device=target_logits.device)
+
+    def p_at(node):
+        sm = torch.softmax(at_index(target_logits, node).float() / temperature, dim=-1)
+        kept = torch.where(sm >= at_index(top_p_cut, node), sm, zero)
+        return kept / kept.sum()
+
+    def q_at(node):
+        return torch.softmax(at_index(draft_logits, node).float() / temperature, dim=-1)
+
+    return p_at, q_at
+
+
 def stochastic_path_walk_node(
     target_logits: torch.Tensor,  # f32 [size, vocab]
     draft_logits: torch.Tensor,   # f32 [size, vocab]
@@ -105,14 +136,7 @@ def stochastic_path_walk_node(
     vocab_idx = torch.arange(target_logits.shape[-1], device=dev)
     depth_idx = torch.arange(max_depth, device=dev)
     zero = torch.zeros((), device=dev)
-
-    def p_at(node):
-        sm = torch.softmax(at_index(target_logits, node).float() / temperature, dim=-1)
-        kept = torch.where(sm >= at_index(top_p_cut, node), sm, zero)
-        return kept / kept.sum()
-
-    def q_at(node):
-        return torch.softmax(at_index(draft_logits, node).float() / temperature, dim=-1)
+    p_at, q_at = _row_dists(target_logits, draft_logits, top_p_cut, temperature)
 
     cur = torch.zeros((), dtype=torch.long, device=dev)
     p_row, q_row = p_at(cur), q_at(cur)
@@ -165,16 +189,192 @@ def stochastic_path_walk_node(
                       terminal=terminal, p_final_row=p_row)
 
 
+def stochastic_path_walk_unrolled(
+    target_logits, draft_logits, tokens_tree, r, successors, temperature,
+    top_p_cut, stop_tokens, max_depth: int, strict: bool,
+    mask_rejected_draft: bool,
+) -> WalkResult:
+    """JAX `stochastic_path_walk_unrolled`: the node walk's `max_depth + 1`
+    trips with every trip testing all `max_branch` ranks, predicated, where
+    the node walk tests only as many ranks as the widest node at the trip's
+    depth has children (`ranks_per_trip`). Ranks past a node's children are
+    no-ops, so decisions and outputs are the node walk's, bit for bit;
+    only the work differs (JAX measured it the slower walk on a TPU)."""
+    ranks = [successors.shape[1]] * (max_depth + 1)
+    return stochastic_path_walk_node(
+        target_logits, draft_logits, tokens_tree, r, successors, temperature,
+        top_p_cut, stop_tokens, max_depth, strict, mask_rejected_draft, ranks)
+
+
+def edge_trips(successors: np.ndarray, max_depth: int) -> int:
+    """Trips `stochastic_path_walk` needs to finish on any input: at a node
+    of depth t the walk tests at most its children and then finds no
+    further rank, so `ranks_per_trip(...)[t] + 1` trips a depth suffice."""
+    return sum(n + 1 for n in ranks_per_trip(successors, max_depth + 1))
+
+
+def stochastic_path_walk(
+    target_logits: torch.Tensor,  # f32 [size, vocab]
+    draft_logits: torch.Tensor,   # f32 [size, vocab]
+    tokens_tree: torch.Tensor,    # long [size]
+    r: torch.Tensor,              # f32 [size] uniform threshold per node
+    successors: torch.Tensor,     # long [size, max_branch], -1 pad
+    temperature: float,
+    top_p_cut: torch.Tensor,      # f32 [size] inclusive nucleus cutoff per row
+    stop_tokens: torch.Tensor,    # long [n_stop]
+    max_depth: int,
+    strict: bool,
+    mask_rejected_draft: bool,
+    trips: int,
+) -> WalkResult:
+    """The path-following walk one tested edge at a time (JAX
+    `stochastic_path_walk`, the reference's control flow): a trip tests
+    rank `j` of the current node; an accept descends (p/q rows rebuilt
+    lazily at the child) and restarts at rank 0, a reject applies the
+    residual (and, for sequoia, the draft mask) at the current node and
+    moves to rank `j + 1`, and a missing rank ends the walk. Decisions and
+    outputs equal the node walk's on the same inputs. `trips =
+    edge_trips(successors_host, max_depth)`: JAX's `lax.while_loop` ends
+    when the walk does, here the later trips are predicated no-ops."""
+    dev = target_logits.device
+    max_branch = successors.shape[1]
+    succ_flat = successors.reshape(-1)
+    vocab_idx = torch.arange(target_logits.shape[-1], device=dev)
+    depth_idx = torch.arange(max_depth, device=dev)
+    zero = torch.zeros((), device=dev)
+    p_at, q_at = _row_dists(target_logits, draft_logits, top_p_cut, temperature)
+
+    cur = torch.zeros((), dtype=torch.long, device=dev)
+    j = torch.zeros((), dtype=torch.long, device=dev)
+    p_row, q_row = p_at(cur), q_at(cur)
+    path = torch.full((max_depth,), -1, dtype=torch.long, device=dev)
+    count = torch.zeros((), dtype=torch.long, device=dev)
+    terminal = torch.zeros((), dtype=torch.bool, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+
+    for _ in range(trips):
+        child = torch.where(j < max_branch,
+                            at_index(succ_flat, cur * max_branch + j.clamp_max(max_branch - 1)),
+                            torch.full_like(j, -1))
+        has_child = ~done & (child >= 0)
+        child_c = child.clamp_min(0)
+        token = at_index(tokens_tree, child_c)
+        p_tok, q_tok = at_index(p_row, token), at_index(q_row, token)
+        thresh = at_index(r, child_c) * q_tok
+        ok = (p_tok > thresh) if strict else (p_tok >= thresh)
+        can_descend = count < max_depth
+        accept = has_child & ok & can_descend
+        reject = has_child & ~ok
+
+        # Accept: descend (or stop on a stop token).
+        is_stop = accept & (token == stop_tokens).any()
+        path = torch.where(accept & (depth_idx == count), child_c, path)
+        count = count + accept.long()
+        descend = accept & ~is_stop
+        cur = torch.where(accept, child_c, cur)
+        p_row = torch.where(descend, p_at(cur), p_row)
+        q_row = torch.where(descend, q_at(cur), q_row)
+
+        # Reject: residual and draft mask at the current node.
+        p_row = torch.where(reject, residual(p_row, q_row), p_row)
+        if mask_rejected_draft:
+            q_new = torch.where(vocab_idx == token, zero, q_row) / torch.clamp_min(
+                1.0 - q_tok, 1e-30)
+            q_row = torch.where(reject, q_new, q_row)
+
+        j = torch.where(accept, torch.zeros_like(j), j + 1)
+        terminal = terminal | is_stop
+        # Done: a stop token accepted, or no (further) child at this rank.
+        done = done | is_stop | ~has_child
+
+    return WalkResult(path=path, accept_count=count, final_node=cur,
+                      terminal=terminal, p_final_row=p_row)
+
+
+class StagedPlan(NamedTuple):
+    """The staged walk's static row sets (JAX computes them while tracing
+    `stochastic_accept_decisions`), built once per growmap: the parents
+    (nodes with a child) sorted by child count, descending, and for each
+    rank j the rank-j children of the first `n_j` of them."""
+    parents: torch.Tensor              # long [P]
+    rank_children: List[torch.Tensor]  # long [n_j] per rank, n_j > 0 non-increasing
+
+
+def staged_plan(successors: np.ndarray, device) -> StagedPlan:
+    successors = np.asarray(successors)
+    child_count = (successors >= 0).sum(axis=1)
+    order = np.argsort(-child_count, kind="stable")
+    parents = order[child_count[order] > 0]
+    succ_sorted = successors[parents]
+    rank_children = []
+    for j in range(successors.shape[1]):
+        nj = int((child_count[parents] > j).sum())
+        if nj == 0:
+            break
+        rank_children.append(torch.as_tensor(succ_sorted[:nj, j], dtype=torch.long,
+                                             device=device))
+    return StagedPlan(torch.as_tensor(parents, dtype=torch.long, device=device),
+                      rank_children)
+
+
+def stochastic_accept_decisions(
+    p: torch.Tensor,              # f32 [size, vocab] target verification dist
+    draft_logits: torch.Tensor,   # f32 [size, vocab]
+    tokens_tree: torch.Tensor,    # long [size]
+    r: torch.Tensor,              # f32 [size] uniform threshold per node
+    plan: StagedPlan,             # staged_plan(successors)
+    temperature: float,
+    strict: bool,
+    mask_rejected_draft: bool,
+) -> torch.Tensor:
+    """Accept decisions for every parent at once (JAX
+    `stochastic_accept_decisions`, `walk="staged"`): `accepted_child`
+    long [size], the first accepted child of each node or -1. The parent
+    rows are gathered once; at rank j the first n_j sorted parents are
+    tested, a static prefix `[:n_j]`, with the residual (and, for sequoia,
+    the renormalized draft mask) on each rejection. No residual is kept
+    for the bonus: `node_residual` replays it at the path's final node."""
+    size = p.shape[0]
+    accepted_child = torch.full((size,), -1, dtype=torch.long, device=p.device)
+    if plan.parents.numel() == 0:
+        return accepted_child
+    p_par = p.index_select(0, plan.parents)                     # [P, V]
+    q_par = draft_probs(draft_logits.index_select(0, plan.parents), temperature)
+    accepted = torch.full((plan.parents.numel(),), -1, dtype=torch.long, device=p.device)
+    for child in plan.rank_children:
+        nj = child.numel()
+        token = tokens_tree[child]                               # [nj]
+        p_sub, q_sub = p_par[:nj], q_par[:nj]
+        p_tok = p_sub.gather(1, token[:, None])[:, 0]
+        q_tok = q_sub.gather(1, token[:, None])[:, 0]
+        thresh = r[child] * q_tok
+        ok = (p_tok > thresh) if strict else (p_tok >= thresh)
+        acc_sub = accepted[:nj]
+        active = acc_sub < 0
+        rej = (active & ~ok)[:, None]
+        # Out of place (`cat` of the updated prefix and the rest), so the
+        # walk also runs under `torch.func.vmap`.
+        accepted = torch.cat([torch.where(active & ok, child, acc_sub), accepted[nj:]])
+        p_par = torch.cat([torch.where(rej, residual(p_sub, q_sub), p_sub), p_par[nj:]])
+        if mask_rejected_draft:
+            q_masked = q_sub.scatter(1, token[:, None], 0.0)
+            q_new = q_masked / torch.clamp_min(1.0 - q_tok, 1e-30)[:, None]
+            q_par = torch.cat([torch.where(rej, q_new, q_sub), q_par[nj:]])
+    return accepted_child.index_copy(0, plan.parents, accepted)
+
+
 def node_residual(p_row: torch.Tensor, q_row: torch.Tensor,
                   child_tokens: torch.Tensor, child_valid: torch.Tensor,
                   mask_rejected_draft: bool) -> torch.Tensor:
     """Residual at a node all of whose valid children were rejected: replay
-    the sibling scan on one row, in rank order."""
+    the sibling scan on one row, in rank order (the staged walk's bonus
+    distribution). `child_tokens` must hold valid token ids everywhere
+    (clamp the -1 pads first)."""
     vocab_idx = torch.arange(p_row.shape[-1], device=p_row.device)
     zero = torch.zeros((), device=p_row.device)
     for j in range(child_tokens.shape[0]):
         v, tok = child_valid[j], child_tokens[j]
-        q_tok = q_row[tok]
+        q_tok = at_index(q_row, tok)
         p_row = torch.where(v, residual(p_row, q_row), p_row)
         if mask_rejected_draft:
             q_new = torch.where(vocab_idx == tok, zero, q_row) / torch.clamp_min(
