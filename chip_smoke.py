@@ -6,6 +6,7 @@
     python3 chip_smoke.py --qmm         # phases 1, 2 and phase 3's top-p and matmuls
     python3 chip_smoke.py --loops       # phases 1, 2, 4 and phase 5's bf16 path
     python3 chip_smoke.py --plan        # phases 1, 2 and 8 (its own short bf16 curve)
+    python3 chip_smoke.py --batched     # phases 1, 2 and 9
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -80,7 +81,25 @@ Phases, each fatal on failure:
      tree the planner DP picks from each curve (widths 1..128); beside them,
      the host time to issue one eager forward at widths 1 and 64. Each curve
      is measured right after its path's launches are read, before that
-     target is freed.
+     target is freed;
+  8. measure -> plan -> serve (bf16): an HF checkpoint of the draft, both
+     acceptance methods, the plan on the native DP table, the four walks;
+  9. batched serving (`engine/batched.py`): test-small on the card (f32
+     greedy `serve_fast` equal to its CPU run; every cache format, f32 and
+     bf16, replayed equal to eager `serve`); then llama-68m -> llama-2-7b
+     bf16 at B = 8 slots over a queue of 16 synthetic requests of 32-256
+     tokens (64 new tokens each, max_length 512, prefill_chunk 64): Sequoia
+     through `serve_fast` and `serve_device` (admit_width 4) and batched AR
+     through `serve_fast`, with the bf16 and the int8 KV cache (each
+     engine's graphs captured by an untimed warm-up run first), then
+     `serve_auto` on the measured costs (it must pick the device loop),
+     each with tokens/s, iterations and admission steps, the graphs'
+     replay device ms and the prefill's wall ms; greedy
+     `serve_device` equal to `serve_fast`, replayed equal to eager
+     `generate_batch`, each slot of `generate_batch_fast` equal to the
+     single-request `generate_fast`; last, the batched tree-attention
+     kernel at B = 8 against its plain version, every format and dtype,
+     timed beside B single launches and SDPA with a [B, ...] mask.
 
 Prints the kernels JSON line and the card line before the last line, and
 ends with one JSON line {"ok": true, "device": {...}}. Exits non-zero,
@@ -251,6 +270,12 @@ KV_FORMATS = {   # main-cache format -> bytes per stored K/V element (None: q's)
 
 
 def attention_bound(q, main, scr, D, H, Hkv, itemsize, kv_item=None):
+    """The larger of `attention_times`' two times, and which it is."""
+    t_bytes, t_ops = attention_times(q, main, scr, D, H, Hkv, itemsize, kv_item)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_times(q, main, scr, D, H, Hkv, itemsize, kv_item=None):
     """Least time for the data: the K/V rows some query attends, q, the
     masks and the output move once; 4*D flops per live (query head, key).
     A quantized main cache (`kv_item` bytes per element) also moves two f32
@@ -267,8 +292,7 @@ def attention_bound(q, main, scr, D, H, Hkv, itemsize, kv_item=None):
     flops = 4 * D * H * (int(main.sum()) + int(scr.sum()))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     ops = flops / PEAK_FLOPS["bf16"] if itemsize == 2 else 3 * flops / PEAK_FLOPS["tf32"]
-    t_ops = ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return t_bytes, ops * 1e3
 
 
 def check_tree_attention(torch, gm, results):
@@ -1939,6 +1963,374 @@ def measure_plan_serve(torch, curve=None, draft_time=None):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: batched serving
+# ---------------------------------------------------------------------------
+
+BATCHED = dict(B=8, requests=16, lengths=(32, 256), gen=64, max_length=512, chunk=64,
+               admit_width=4)
+
+
+def batched_prompts(vocab, n, seed=SEED):
+    """`n` synthetic prompts of mixed lengths in BATCHED["lengths"], from
+    `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = BATCHED["lengths"]
+    return [rng.integers(3, vocab, size=int(rng.integers(lo, hi + 1))) for _ in range(n)]
+
+
+def check_batched_attention(torch, gm, results):
+    """The slot-axis launch of tree attention at B = 8 (the verify of 8
+    requests of mixed lengths: Q = 64 tree rows over M = 512, each slot its
+    own prefix), every cache format and both dtypes, against
+    `tree_attention_batched_plain`; timed beside B launches of the single
+    kernel, the plain version and SDPA with a [B, 1, Q, M + S] mask (on the
+    dequantized rows for an integer cache), with the byte bound of the
+    batched read."""
+    from sequoia_torch.kernels.tree_attention import (
+        counter, split_count, tree_attention, tree_attention_batched,
+        tree_attention_batched_plain)
+    from sequoia_torch.kvcache.cache import quantize_kv_rows, quantize_kv_rows4, unpack_kv_rows4
+
+    B, M, H, D, L = BATCHED["B"], BATCHED["max_length"], 32, 128, 2
+    Q = S = gm.size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    anc = torch.as_tensor(gm.ancestors, device="cuda")
+    ts = torch.tensor([40, 95, 150, 200, 260, 300, 330, 380], device="cuda")[:B]
+    main = (torch.arange(M, device="cuda")[None, None, :] < ts[:, None, None]).expand(
+        B, Q, M).contiguous()
+    scr = anc.expand(B, Q, S).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        itemsize = 2 if dtype == torch.bfloat16 else 4
+        q = torch.randn(B, Q, H, D, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(L, B, M, H, D, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(L, B, M, H, D, generator=gen, device="cuda").to(dtype)
+        sk = torch.randn(L, B, S, H, D, generator=gen, device="cuda").to(dtype)
+        sv = torch.randn(L, B, S, H, D, generator=gen, device="cuda").to(dtype)
+        for fmt, kv_item in KV_FORMATS.items():
+            if fmt == "float":
+                km, vm, ks, vs, kd, vd = k, v, [None] * L, [None] * L, k, v
+            else:
+                quant = quantize_kv_rows if fmt == "int8" else (
+                    lambda x, f=fmt: quantize_kv_rows4(x, packing=f[5:]))
+                (km, ks), (vm, vs) = quant(k), quant(v)
+                ints = (lambda x: x) if fmt == "int8" else (
+                    lambda x, f=fmt: unpack_kv_rows4(x, packing=f[5:]))
+                kd = (ints(km).float() * ks[..., None]).to(dtype)
+                vd = (ints(vm).float() * vs[..., None]).to(dtype)
+            call = lambda fn, i: fn(q, km[i], vm[i], main, sk[i], sv[i], scr,  # noqa: E731
+                                    scale=D ** -0.5, ks=ks[i], vs=vs[i])
+            got, want = call(tree_attention_batched, 0), call(tree_attention_batched_plain, 0)
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol) \
+                    or not torch.isfinite(got).all():
+                fail(f"{counter(fmt, dtype, True)} disagrees with its plain version at B={B}: "
+                     f"max |err| {err} (tol {tol})")
+            ms = device_ms([lambda i=i: call(tree_attention_batched, i) for i in range(L)])
+            plain_ms = device_ms([lambda i=i: call(tree_attention_batched_plain, i)
+                                  for i in range(L)])
+            single_ms = B * device_ms([
+                lambda i=i, b=b: tree_attention(
+                    q[b], km[i][b], vm[i][b], main[b], sk[i][b], sv[i][b], scr[b],
+                    scale=D ** -0.5, ks=None if ks[i] is None else ks[i][b],
+                    vs=None if vs[i] is None else vs[i][b])
+                for i in range(L) for b in range(B)])
+            qb = q.transpose(1, 2)                                        # [B, H, Q, D]
+            kk = [torch.cat([kd[i], sk[i]], dim=1).transpose(1, 2) for i in range(L)]
+            vv = [torch.cat([vd[i], sv[i]], dim=1).transpose(1, 2) for i in range(L)]
+            full_mask = torch.cat([main, scr], dim=2)[:, None]            # [B, 1, Q, M + S]
+            lib_ms = device_ms([lambda i=i: sdpa(qb, kk[i], vv[i], attn_mask=full_mask,
+                                                 scale=D ** -0.5) for i in range(L)])
+            del kk, vv
+            t_bytes = t_ops = 0.0
+            for b in range(B):
+                tb, to = attention_times(q[b], main[b], scr[b], D, H, H, itemsize, kv_item)
+                t_bytes, t_ops = t_bytes + tb, t_ops + to
+            bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+            name = counter(fmt, dtype, batched=True)
+            log(f"  {name} B={B} Q={Q} H={H} D={D} M={M} S={S} {str(dtype)[6:]}: max|err| "
+                f"{err:.3g} (tol {tol}) kernel {ms:.4f} ms  {B} single launches "
+                f"{single_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa [B] mask {lib_ms:.4f} ms  "
+                f"bound {bound:.5f} ms ({by}); splits "
+                f"{split_count(Q, H, M, S, sms, dtype, batch=B)}")
+            results.append(dict(
+                name=name, route="cuda", source="sequoia_torch/csrc/tree_attention.cu",
+                replaces="sequoia_tpu/kernels/tree_attention.py:111",
+                shape=f"batched verify B={B} Q={Q} H={H} D={D} M={M} S={S} "
+                      f"{'bf16' if itemsize == 2 else 'f32'}, main cache {fmt}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, single_launches_ms=single_ms))
+            del km, vm, kd, vd
+        del q, k, v, sk, sv
+        torch.cuda.empty_cache()
+
+
+def batched_small(torch):
+    """test-small on the card through the batched engine: f32 greedy
+    `serve_fast` equal to its CPU run (float cache), replayed equal to eager
+    `serve`; with an int8, an int4 head-paired and an int4 dsplit cache
+    (f32 and bf16) a valid run, replayed equal to eager."""
+    import numpy as np
+
+    from sequoia_torch.core.config import get_config
+    from sequoia_torch.core.init import random_params
+    from sequoia_torch.engine.batched import BatchedSpecEngine
+    from sequoia_torch.trees.growmap import uniform_tree
+
+    cfg = get_config("test-small")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)) for n in (5, 11, 17, 3, 9, 14)]
+    kw = dict(algorithm="greedy", max_length=96, prefill_chunk=16, batch_size=4)
+    outs = {}
+    for dtype in ("f32", "bf16"):
+        tdtype = torch.float32 if dtype == "f32" else torch.bfloat16
+        card = (random_params(cfg, 7, dtype=tdtype, device="cuda"),
+                random_params(cfg, 8, dtype=tdtype, device="cuda"))
+        params = {"cuda": card, "cpu": tuple(tree_to(p, "cpu") for p in card)}
+        for kv_quant, packing in ((None, None), ("int8", None), ("int4", "head"),
+                                  ("int4", "dsplit")):
+            if dtype == "bf16" and kv_quant != "int4":
+                continue
+            devs = ("cuda", "cpu") if kv_quant is None else ("cuda",)
+            for dev in devs:
+                eng = BatchedSpecEngine(params[dev][0], cfg, params[dev][1], cfg,
+                                        uniform_tree(3, 2), kv_quant=kv_quant, device=dev, **kw)
+                if packing is not None:
+                    eng._kv4_packing = packing
+                outs[dev] = eng.serve_fast(prompts, max_new_tokens=24, seed=SEED)
+                if dev == "cuda":
+                    eager = eng.serve(prompts, max_new_tokens=24, seed=SEED)
+                    label = f"test-small {dtype}, KV {kv_quant or 'float'} {packing or ''}"
+                    for a, b, p in zip(outs[dev], eager, prompts):
+                        if not np.array_equal(a, b):
+                            fail(f"{label}: batched replays differ from eager:\n{a}\n{b}")
+                        if len(a) <= len(p) or not np.array_equal(a[:len(p)], p) \
+                                or a.max() >= cfg.vocab_size:
+                            fail(f"{label}: invalid batched output {a}")
+            if kv_quant is None:
+                for a, b in zip(outs["cuda"], outs["cpu"]):
+                    if not np.array_equal(a, b):
+                        fail(f"test-small f32 batched serve_fast: card differs from CPU:\n{a}\n{b}")
+                log("  test-small f32 batched serve_fast (B=4, 6 requests): card == CPU, "
+                    "replayed == eager")
+    log("  test-small batched runs with int8 / int4-head / int4-dsplit caches (f32; int4 also "
+        "bf16): valid, replayed == eager")
+    # A quantized batched target, small: int8 weights (bf16 activations), the
+    # B x tree rows of a batched verify through the int8 wgmma kernel.
+    from sequoia_torch.kernels import build
+    from sequoia_torch.quant.quantize import quantize_model
+
+    draft = random_params(cfg, 7, dtype=torch.bfloat16, device="cuda")
+    target = quantize_model(random_params(cfg, 8, dtype=torch.bfloat16, device="cuda"), bits=8)
+    eng = BatchedSpecEngine(draft, cfg, target, cfg, uniform_tree(3, 2), device="cuda", **kw)
+    before = build.launches["quant_matmul_int8_wgmma"]
+    fast = eng.serve_fast(prompts, max_new_tokens=24, seed=SEED)
+    if build.launches["quant_matmul_int8_wgmma"] == before:
+        fail("the int8 batched target never reached quant_matmul_int8_wgmma")
+    for a, b, p in zip(fast, eng.serve(prompts, max_new_tokens=24, seed=SEED), prompts):
+        if not np.array_equal(a, b) or len(a) <= len(p) or not np.array_equal(a[:len(p)], p):
+            fail(f"test-small int8-weight batched target: replays differ from eager or "
+                 f"invalid output:\n{a}\n{b}")
+    log("  test-small int8-weight target (bf16 activations), batched: valid, replayed == eager")
+
+
+# Two greedy runs whose target forwards differ in shape (a batch of slots, a
+# single request) may round bf16 differently, and then part where two
+# tokens' logits tie within that rounding. TIE bounds the tie, as a share
+# of the logits' standard deviation.
+TIE = 0.05
+
+
+def near_tie(torch, target, tcfg, want, got, M):
+    """Where two greedy sequences first differ: the position, and from the
+    target's logits after their common prefix (one bf16 prefill forward),
+    the gap between the two tokens' logits, how far the higher one lies
+    below the top logit, and the logits' standard deviation."""
+    from sequoia_torch.core.model import forward
+    from sequoia_torch.kvcache.cache import KVCache
+    from sequoia_torch.ops import masks
+
+    j = next(i for i in range(min(len(want), len(got))) if want[i] != got[i])
+    toks = torch.as_tensor(want[:j], device="cuda")
+    kv = KVCache.init(tcfg, M, torch.bfloat16, "cuda")
+    logits, _ = forward(target, tcfg, toks, torch.arange(j, device="cuda"), kv, 0,
+                        masks.causal_mask(j, M, 0, "cuda"))
+    row = logits[-1].float()
+    a, b = row[int(want[j])].item(), row[int(got[j])].item()
+    return j, abs(a - b), row.max().item() - max(a, b), row.std().item()
+
+
+def replay_ms(torch, graphs, names, reps=10):
+    """Device ms of one replay of each graph in `names`, in order (CUDA
+    events between them, `reps` rounds)."""
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    for ev in events:
+        ev[0].record()
+        for i, n in enumerate(names):
+            graphs.replay(n)
+            ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [statistics.median(ev[i].elapsed_time(ev[i + 1]) for ev in events)
+            for i in range(len(names))]
+
+
+def batched_serving(torch, gm):
+    """Phase 9: the bf16 llama-68m -> llama-2-7b pair through the batched
+    engines at B = 8, a queue of 16 mixed-length requests: Sequoia through
+    `serve_fast` and `serve_device` (admit_width 4) and batched AR through
+    `serve_fast`, with the bf16 and the int8 KV cache, then `serve_auto`
+    (which must pick the device loop); the greedy checks; the batched
+    kernel; test-small on the card. Returns the launches of the runs."""
+    import numpy as np
+
+    from sequoia_torch.engine.batched import BatchedAREngine, BatchedSpecEngine
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.kernels import build
+    from sequoia_torch.planner.dp import expected_accepted
+    from sequoia_torch.planner.profile import default_acceptance_vector
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    build.reset_launches()
+    batched_small(torch)
+    add(build.launches)
+    target, tcfg, draft, dcfg = load_models(torch)
+    B, gen, M, C = BATCHED["B"], BATCHED["gen"], BATCHED["max_length"], BATCHED["chunk"]
+    prompts = batched_prompts(tcfg.vocab_size, BATCHED["requests"])
+    n_prompt = sum(len(p) for p in prompts)
+    common = dict(max_length=M, prefill_chunk=C, temperature=FULL["T"], top_p=FULL["P"])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def valid(outs, label):
+        for o, p in zip(outs, prompts):
+            if len(o) <= len(p) or not np.array_equal(o[:len(p)], p) or o.min() < 0 \
+                    or o.max() >= tcfg.vocab_size or len(o) > len(p) + gen:
+                fail(f"{label}: invalid output (prompt {len(p)}, output {len(o)})")
+
+    costs = {}
+    for kv_quant in (None, "int8"):
+        kv_label = f"{kv_quant or 'bf16'} KV"
+        eng = BatchedSpecEngine(draft, dcfg, target, tcfg, gm, algorithm="sequoia",
+                                batch_size=B, admit_width=BATCHED["admit_width"],
+                                kv_quant=kv_quant, device="cuda", **common)
+        # Untimed: capture the four graphs (a server does it once, at start).
+        eng.serve_device(prompts[:B], max_new_tokens=2, seed=SEED)
+        for name in ("serve_fast", "serve_device"):
+            build.reset_launches()
+            outs, wall = timed(lambda: getattr(eng, name)(prompts, max_new_tokens=gen, seed=SEED))
+            add(build.launches)
+            valid(outs, f"{name}, {kv_label}")
+            toks, iters = eng.num_decoding_steps, eng.num_large_model_steps
+            extra = (f", admission steps {eng.num_prefill_steps} (width {eng.admit_width})"
+                     if name == "serve_device" else "")
+            log(f"  Sequoia {name}, {kv_label}: {toks} tokens of {len(prompts)} requests "
+                f"({n_prompt} prompt tokens) in {wall:.3f} s = {toks / wall:.1f} tokens/s; "
+                f"{iters} batched iterations ({toks / max(iters, 1) / B:.3f} tokens per slot "
+                f"and iteration){extra}")
+            if name == "serve_device":
+                costs[kv_quant] = (wall / max(iters, 1), toks / max(iters, 1) / B)
+        rep = eng.graph_report()
+        eng._arm_slots(0, M, [False] * B)   # no live slot: the same kernels, nothing kept
+        grow, verify, finalize = replay_ms(torch, eng._bgraphs, ("grow", "verify", "finalize"))
+        _, fill = timed(lambda: eng.prefill_batch(prompts[:B], seed=SEED))
+        _, insert = timed(lambda: eng.insert_slot(eng._bstate, prompts[B], 0, seed=SEED))
+        log(f"  replay device ms at B={B}: grow {grow:.3f}, verify {verify:.3f}, finalize "
+            f"{finalize:.3f} (iteration {grow + verify + finalize:.3f}); wall ms of the fused "
+            f"prefill of {B} prompts {fill * 1e3:.1f}, of one insert_slot {insert * 1e3:.1f}")
+        log("  graphs: " + ", ".join(
+            f"{n} {graph_kernels(eng._bgraphs.graphs[n].graph)} kernels, captured in "
+            f"{g['capture_s']:.2f} s" for n, g in rep.items()))
+        ar = BatchedAREngine(target, tcfg, batch_size=B, kv_quant=kv_quant, device="cuda",
+                             **common)
+        ar.serve_fast(prompts[:B], max_new_tokens=2, seed=SEED)   # untimed: the capture
+        build.reset_launches()
+        outs, wall = timed(lambda: ar.serve_fast(prompts, max_new_tokens=gen, seed=SEED))
+        add(build.launches)
+        valid(outs, f"batched AR, {kv_label}")
+        toks, steps = ar.num_decoding_steps, ar.num_large_model_steps
+        ar._arm_slots(0, M, [False] * B)
+        step_ms = replay_ms(torch, ar._bgraphs, ("step",))[0]
+        log(f"  batched AR serve_fast, {kv_label}: {toks} tokens in {wall:.3f} s = "
+            f"{toks / wall:.1f} tokens/s; {steps} batched steps; step replay {step_ms:.3f} "
+            f"device ms, {graph_kernels(ar._bgraphs.graphs['step'].graph)} kernels")
+        if kv_quant is None:
+            costs["ar"] = wall / max(steps, 1)
+            # serve_auto on the measured iteration and step costs and the
+            # planned tree's expected acceptance (the bundled vector).
+            e_plan = expected_accepted(gm, default_acceptance_vector())
+            build.reset_launches()
+            outs, wall = timed(lambda: eng.serve_auto(
+                prompts, spec_iter_s=costs[None][0], ar_step_s=costs["ar"],
+                expected_accepted=e_plan, ar_engine=ar, max_new_tokens=gen, seed=SEED))
+            add(build.launches)
+            valid(outs, "serve_auto")
+            if eng.serving_mode != "spec" or eng.num_prefill_steps == 0:
+                fail(f"serve_auto did not route to the device loop (mode {eng.serving_mode})")
+            log(f"  serve_auto: spec iteration {costs[None][0] * 1e3:.3f} ms, AR step "
+                f"{costs['ar'] * 1e3:.3f} ms, planned E {e_plan:.3f} -> {eng.serving_mode}, "
+                f"serve_device ({eng.num_decoding_steps / wall:.1f} tokens/s)")
+        del eng, ar
+        torch.cuda.empty_cache()
+
+    # Greedy checks, bf16 KV: 8 requests (one wave, so every chunk forward
+    # has the same rows in both loops).
+    first = prompts[:B]
+    eng = BatchedSpecEngine(draft, dcfg, target, tcfg, gm, algorithm="greedy", batch_size=B,
+                            admit_width=B, device="cuda", **common)
+    fast = eng.serve_fast(first, max_new_tokens=gen, seed=SEED)
+    dev = eng.serve_device(first, max_new_tokens=gen, seed=SEED)
+    for i, (a, b) in enumerate(zip(fast, dev)):
+        if not np.array_equal(a, b):
+            fail(f"greedy serve_device differs from serve_fast on request {i}:\n{a}\n{b}")
+    short = eng.generate_batch(first, max_new_tokens=8, seed=SEED)
+    replayed = eng.generate_batch_fast(first, max_new_tokens=8, seed=SEED)
+    for a, b in zip(short, replayed):
+        if not np.array_equal(a, b):
+            fail(f"batched replays differ from eager generate_batch:\n{a}\n{b}")
+    outs = eng.generate_batch_fast(first, max_new_tokens=gen, seed=SEED)
+    single = SpecEngine(draft, dcfg, target, tcfg, gm, algorithm="greedy", device="cuda",
+                        **common)
+    same, ties = 0, []
+    for s, (p, o) in enumerate(zip(first, outs)):
+        want = single.generate_fast(p, max_new_tokens=gen, seed=SEED)
+        if np.array_equal(o, want[:len(o)]):
+            same += 1
+            continue
+        j, gap, below, spread = near_tie(torch, target, tcfg, want, o, M)
+        ties.append(f"slot {s} at position {j} ({j - len(p)} generated): logit gap "
+                    f"{gap:.4f}, {below:.4f} below the top, logits' std {spread:.3f}")
+        if j < len(p) or gap > TIE * spread or below > TIE * spread:
+            fail(f"greedy slot {s} differs from the single-request engine: {ties[-1]}")
+    log(f"  greedy (bf16): serve_device == serve_fast ({B} requests), replayed == eager "
+        f"generate_batch; generate_batch_fast == SpecEngine.generate_fast on {same} of {B} "
+        f"slots" + "".join(f"; {t}" for t in ties))
+    del eng, single, target, draft
+    torch.cuda.empty_cache()
+
+    log("[9] the batched kernel against its plain version")
+    kernels = []
+    check_batched_attention(torch, gm, kernels)
+    log(f"  phase 9 {time.perf_counter() - t_phase:.1f} s")
+    return launches, kernels
+
+
 def main() -> None:
     import torch
 
@@ -1980,6 +2372,16 @@ def main() -> None:
         f"max branch {gm.max_branch}, level widths {gm.level_widths}")
 
     kernels = []
+    if "--batched" in sys.argv[1:]:
+        log("[9] batched serving: llama-68m -> llama-2-7b bf16, B = 8")
+        counts, batched_kernels = batched_serving(torch, gm)
+        for e in batched_kernels:
+            e["launches"] = counts.get(e["name"], 0)
+            if e["launches"] == 0:
+                fail(f"{e['name']} never launched in phase 9")
+        log(f"  --batched: phase 9 only, {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": batched_kernels}), flush=True)
+        return
     if "--plan" in sys.argv[1:]:
         log("[8] measure -> plan -> serve: llama-68m -> llama-2-7b bf16")
         measure_plan_serve(torch)
@@ -2113,6 +2515,11 @@ def main() -> None:
 
     log("[8] measure -> plan -> serve: llama-68m -> llama-2-7b bf16")
     add(measure_plan_serve(torch, curves["bf16"][:len(PLAN_WIDTHS)], draft_time))
+
+    log("[9] batched serving: llama-68m -> llama-2-7b bf16, B = 8")
+    counts, batched_kernels = batched_serving(torch, gm)
+    add(counts)
+    kernels += batched_kernels
 
     for e in kernels:
         e["launches"] = launches.get(e["name"], 0)

@@ -20,6 +20,13 @@ and target models.
   through the fused dequant-matmul kernel (`kernels.quant_matmul`).
 - The caches are updated IN PLACE (JAX returned new buffers); `forward`
   still returns the cache it wrote, for the same call shape as JAX.
+
+`forward_batched` is the same forward over a slot axis (JAX vmaps
+`forward` in `sequoia_tpu/engine/batched.py`): B independent requests,
+each with its own cache (the batched caches of `kvcache/cache.py`), its
+own offsets and masks. The projections and the head run once on the B x Q
+rows, one weight stream for every slot; attention is one launch of the
+batched tree-attention kernel.
 """
 
 from __future__ import annotations
@@ -30,9 +37,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .config import LlamaConfig
-from ..kernels.tree_attention import tree_attention
+from ..kernels.tree_attention import tree_attention, tree_attention_batched
 from ..quant.qtensor import WeightLike, layer, matmul
-from ..kvcache.cache import KVCache, KVCache4, KVCache8
+from ..kvcache.cache import KVCache, KVCache4, KVCache8, slot_rows
 
 
 class LayerParams(NamedTuple):
@@ -187,3 +194,81 @@ def forward(
     hidden = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
     logits = matmul(hidden, params.lm_head, out_dtype=torch.float32)
     return logits, (scratch if split else kv)
+
+
+def forward_batched(
+    params: LlamaParams,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,         # int [B, Q]
+    position_ids: torch.Tensor,   # int [B, Q]
+    kv,                           # batched cache [L, B, M, ...]
+    cache_offset: torch.Tensor,   # int [B]: slot b writes [offset_b, offset_b + Q)
+    attn_mask: torch.Tensor,      # bool [B, Q, M]
+    scratch: Optional[KVCache] = None,      # batched [L, B, S, Hkv, D]
+    scratch_offset: Optional[int] = None,   # queries' rows within each slot's scratch
+    scratch_mask: Optional[torch.Tensor] = None,  # bool [B, Q, S]
+):
+    """`forward` of B slots at once: returns (`logits` f32 `[B, Q, vocab]`,
+    the cache-or-scratch written). The two write modes of `forward`, per
+    slot; a write-mode window past a slot's end is cut to its last row
+    (`kvcache.cache.slot_rows`: a predicated no-op slot of the batched
+    engine may sit at the end of its buffer)."""
+    if not isinstance(kv, (KVCache, KVCache8, KVCache4)) or kv.batch is None:
+        raise TypeError("forward_batched: needs a batched KV cache")
+    if not isinstance(params.layers, LayerParams):
+        raise NotImplementedError("only device-resident LayerParams are ported")
+    quantized_kv = not isinstance(kv, KVCache)
+    B, Q = tokens.shape
+    R = B * Q
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    scale = D ** -0.5
+    split = scratch is not None
+    dev = tokens.device
+    lp = params.layers
+
+    hidden = params.embed[tokens.reshape(-1)]  # [B*Q, E]
+    cos, sin = rope_cos_sin(position_ids.reshape(-1), cfg)
+    attn_mask = attn_mask.contiguous()
+    window = torch.arange(Q, device=dev)
+    if split:
+        scr_mask = scratch_mask.contiguous()
+        rows = slot_rows((scratch_offset + window).expand(B, Q), scratch.max_length)
+    else:
+        rows = slot_rows(cache_offset[:, None] + window, kv.max_length)
+        empty = hidden.new_zeros((B, 0, Hkv, D))
+        scr_mask = torch.zeros((B, Q, 0), dtype=torch.bool, device=dev)
+
+    for i in range(cfg.num_layers):
+        x = rms_norm(hidden, lp.attn_norm[i], cfg.rms_norm_eps)
+        q = matmul(x, layer(lp.wq, i)).reshape(R, H, D)
+        k = matmul(x, layer(lp.wk, i)).reshape(R, Hkv, D)
+        v = matmul(x, layer(lp.wv, i)).reshape(R, Hkv, D)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+        k_cache, v_cache = kv.k[i], kv.v[i]  # [B, M, ...] views
+        if split:
+            sk, sv = scratch.k[i], scratch.v[i]
+            sk.flatten(0, 1).index_copy_(0, rows, k.to(sk.dtype))  # in place
+            sv.flatten(0, 1).index_copy_(0, rows, v.to(sv.dtype))
+        else:
+            if quantized_kv:
+                kv.write_rows(i, rows, k, v)
+            else:
+                k_cache.flatten(0, 1).index_copy_(0, rows, k.to(k_cache.dtype))
+                v_cache.flatten(0, 1).index_copy_(0, rows, v.to(v_cache.dtype))
+            sk = sv = empty
+        attn = tree_attention_batched(q.reshape(B, Q, H, D), k_cache, v_cache, attn_mask,
+                                      sk, sv, scr_mask, scale=scale,
+                                      ks=kv.ks[i] if quantized_kv else None,
+                                      vs=kv.vs[i] if quantized_kv else None)
+        hidden = hidden + matmul(attn.reshape(R, H * D), layer(lp.wo, i))
+
+        y = rms_norm(hidden, lp.mlp_norm[i], cfg.rms_norm_eps)
+        gate = torch.nn.functional.silu(matmul(y, layer(lp.w_gate, i)))
+        mlp = matmul(gate * matmul(y, layer(lp.w_up, i)), layer(lp.w_down, i))
+        hidden = hidden + mlp
+
+    hidden = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
+    logits = matmul(hidden, params.lm_head, out_dtype=torch.float32)
+    return logits.reshape(B, Q, -1), (scratch if split else kv)

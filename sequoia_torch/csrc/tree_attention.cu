@@ -47,6 +47,15 @@
 //   the output, otherwise an f32 workspace (the wrapper's) takes each
 //   block's partial and tree_attention_merge_kernel combines them:
 //   out = sum_z e^(m_z - m*) acc_z / max(sum_z e^(m_z - m*) l_z, 1e-30).
+// - Slots (the batched engine's, sequoia_tpu/engine/batched.py, where the
+//   Pallas call gains a grid axis under jax.vmap): B independent problems,
+//   each operand a contiguous [B, ...] block of the single shapes above
+//   (q [B, Q, H, D], main rows [B, M, ...], scales [B, M, Hkv], masks
+//   [B, Q, M] and [B, Q, S], scratch [B, S, Hkv, D]). The grid's y axis is
+//   b * H + h: a block offsets its slot's operands and otherwise runs the
+//   single problem, its own prefix skip included. The output and the split
+//   partials are laid out over the B * Q query rows. B = 1 is the single
+//   call.
 //
 // bf16 (tree_attention_tc_kernel): a stage is 16 keys; S = Q K^T and P V on
 // mma.sync m16n8k16 (bf16 in, f32 accumulate; q's A fragments from the
@@ -200,7 +209,7 @@ __device__ __forceinline__ void merge_block(const float (&acc)[D / 8][4], float 
                                             float l_0, float l_1, unsigned char* smem,
                                             BlockShared<W>& sh, T* __restrict__ out,
                                             float* __restrict__ part, int q0, int Q, int H,
-                                            int h) {
+                                            int h, int b) {
   constexpr int kThreads = W * 32;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, c = (lane & 3) * 2;
@@ -249,13 +258,13 @@ __device__ __forceinline__ void merge_block(const float (&acc)[D / 8][4], float 
       a0 += x.x;
       a1 += x.y;
     }
-    const int64_t qh = static_cast<int64_t>(qq) * H + h;
+    const int64_t qh = (static_cast<int64_t>(b) * Q + qq) * H + h;   // over all slots
     if (Z == 1) {
       const float inv = 1.f / fmaxf(lsum, 1e-30f);
       store_pair(out + qh * D + d, a0 * inv, a1 * inv);
     } else {
-      // part: acc [Z, Q*H, D], then (m, l) [Z, Q*H, 2].
-      const int64_t QH = static_cast<int64_t>(Q) * H;
+      // part: acc [Z, B*Q*H, D], then (m, l) [Z, B*Q*H, 2] (gridDim.y = B*H).
+      const int64_t QH = static_cast<int64_t>(gridDim.y) * Q;
       *reinterpret_cast<float2*>(part + (z * QH + qh) * D + d) = make_float2(a0, a1);
       if (d == 0)
         *reinterpret_cast<float2*>(part + Z * QH * D + (z * QH + qh) * 2) = make_float2(ms, lsum);
@@ -343,6 +352,22 @@ __device__ __forceinline__ void online_softmax(float (&x)[N][4], uint32_t bits0,
   }
   l_0 = l_0 * alpha0 + psum0;
   l_1 = l_1 * alpha1 + psum1;
+}
+
+// This block's slot b = blockIdx.y / H and query head h = blockIdx.y % H,
+// and the element offsets of the slot's operands (`row_bytes`: bytes per
+// main-cache key over its stored heads).
+struct Slot {
+  int b, h;
+  int64_t q, kv, scales, mask, scr, smask;
+};
+
+__device__ __forceinline__ Slot slot_of_block(int Q, int H, int Hkv, int D, int M, int S,
+                                              int row_bytes) {
+  const int b = blockIdx.y / H;
+  const int64_t s = b;
+  return {b, static_cast<int>(blockIdx.y % H), s * Q * H * D, s * M * row_bytes, s * M * Hkv,
+          s * Q * M, s * S * Hkv * D, s * Q * S};
 }
 
 // ---------------------------------------------------------------------------
@@ -449,7 +474,21 @@ tree_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ BlockShared<kWarps> sh;
 
-  const int q0 = blockIdx.x * kQT, h = blockIdx.y, kh = h / (H / Hkv);
+  const Slot slot = slot_of_block(Q, H, Hkv, D, M, S,
+                                  (KV == kInt4Head ? Hkv / 2 : Hkv) * L::kRowBytes);
+  const int b = slot.b, h = slot.h;
+  q += slot.q;
+  k = static_cast<const unsigned char*>(k) + slot.kv;
+  v = static_cast<const unsigned char*>(v) + slot.kv;
+  if (KV != kFloat) {
+    ks += slot.scales;
+    vs += slot.scales;
+  }
+  mask += slot.mask;
+  sk += slot.scr;
+  sv += slot.scr;
+  smask += slot.smask;
+  const int q0 = blockIdx.x * kQT, kh = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int mw = (M + 31) / 32, bw = mw + (S + 31) / 32;
   bf16* qs = reinterpret_cast<bf16*>(smem + kWarps * L::kWarpBytes);
@@ -604,7 +643,7 @@ tree_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ k,
   }
 
   // 3. Merge the 4 warps, then the output or the block's partial.
-  merge_block<D>(acc, m_0, m_1, l_0, l_1, smem, sh, out, part, q0, Q, H, h);
+  merge_block<D>(acc, m_0, m_1, l_0, l_1, smem, sh, out, part, q0, Q, H, h, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -717,7 +756,21 @@ tree_attention_f32_kernel(const float* __restrict__ q, const void* __restrict__ 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ BlockShared<W> sh;
 
-  const int q0 = blockIdx.x * kQT, h = blockIdx.y, kh = h / (H / Hkv);
+  const Slot slot = slot_of_block(Q, H, Hkv, D, M, S,
+                                  (KV == kInt4Head ? Hkv / 2 : Hkv) * L::kRowBytes);
+  const int b = slot.b, h = slot.h;
+  q += slot.q;
+  k = static_cast<const unsigned char*>(k) + slot.kv;
+  v = static_cast<const unsigned char*>(v) + slot.kv;
+  if (KV != kFloat) {
+    ks += slot.scales;
+    vs += slot.scales;
+  }
+  mask += slot.mask;
+  sk += slot.scr;
+  sv += slot.scr;
+  smask += slot.smask;
+  const int q0 = blockIdx.x * kQT, kh = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int mw = (M + 31) / 32, bw = mw + (S + 31) / 32;
   float* qhi = reinterpret_cast<float*>(smem + W * L::kWarpBytes);
@@ -920,23 +973,23 @@ tree_attention_f32_kernel(const float* __restrict__ q, const void* __restrict__ 
     __syncwarp();   // stage s is free for the next issue
   }
 
-  // 3. Merge the 4 warps, then the output or the block's partial.
-  merge_block<D>(acc, m_0, m_1, l_0, l_1, smem, sh, out, part, q0, Q, H, h);
+  // 3. Merge the 8 warps, then the output or the block's partial.
+  merge_block<D>(acc, m_0, m_1, l_0, l_1, smem, sh, out, part, q0, Q, H, h, b);
 }
 
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
-// The kernel over a (query tile, head, split) grid with `bytes` of dynamic
+// The kernel over a (query tile, slot x head, split) grid with `bytes` of dynamic
 // shared memory (`allowed`: what the kernel may already take), then, with
 // more than one split, the merge of the partials.
 template <typename T, int W, typename Kernel>
 cudaError_t launch_split(Kernel kern, int bytes, int& allowed, const void* q, const void* k,
                          const void* v, const void* ks, const void* vs, const void* mask,
                          const void* sk, const void* sv, const void* smask, void* out,
-                         void* part, int Q, int H, int Hkv, int D, int M, int S, int splits,
-                         float scale, cudaStream_t stream) {
+                         void* part, int B, int Q, int H, int Hkv, int D, int M, int S,
+                         int splits, float scale, cudaStream_t stream) {
   // 227 KB per block, less the kernel's static shared memory (under 1 KB).
   constexpr int kMaxBytes = 226 * 1024;
   if (bytes > kMaxBytes || splits < 1 || (splits > 1 && part == nullptr))
@@ -947,7 +1000,7 @@ cudaError_t launch_split(Kernel kern, int bytes, int& allowed, const void* q, co
     if (e != cudaSuccess) return e;
     allowed = bytes;
   }
-  const dim3 grid((Q + kQT - 1) / kQT, H, splits);
+  const dim3 grid((Q + kQT - 1) / kQT, B * H, splits);
   kern<<<grid, W * 32, bytes, stream>>>(
       static_cast<const T*>(q), k, v, static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const uint8_t*>(mask),
@@ -955,7 +1008,7 @@ cudaError_t launch_split(Kernel kern, int bytes, int& allowed, const void* q, co
       static_cast<T*>(out), static_cast<float*>(part), Q, H, Hkv, M, S, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  const int64_t QH = static_cast<int64_t>(Q) * H;
+  const int64_t QH = static_cast<int64_t>(B) * Q * H;
   const int64_t n = QH * (D / 2);
   const int blocks = static_cast<int>(n < 256 * 1024 ? (n + 255) / 256 : 1024);
   tree_attention_merge_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
@@ -966,42 +1019,42 @@ cudaError_t launch_split(Kernel kern, int bytes, int& allowed, const void* q, co
 template <int D, int KV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* ks,
                       const void* vs, const void* mask, const void* sk, const void* sv,
-                      const void* smask, void* out, void* part, int Q, int H, int Hkv, int M,
-                      int S, int splits, float scale, cudaStream_t stream) {
+                      const void* smask, void* out, void* part, int B, int Q, int H, int Hkv,
+                      int M, int S, int splits, float scale, cudaStream_t stream) {
   using L = TcLayout<D, KV>;
   const int bytes =
       kWarps * L::kWarpBytes + L::kTileBytes + kQT * ((M + 31) / 32 + (S + 31) / 32) * 4;
   static int allowed = 48 * 1024;   // dynamic shared memory the kernel may take
   return launch_split<bf16, kWarps>(tree_attention_tc_kernel<D, KV>, bytes, allowed, q, k, v,
-                                    ks, vs, mask, sk, sv, smask, out, part, Q, H, Hkv, D, M, S,
-                                    splits, scale, stream);
+                                    ks, vs, mask, sk, sv, smask, out, part, B, Q, H, Hkv, D, M,
+                                    S, splits, scale, stream);
 }
 
 template <int D, int KV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* ks,
                        const void* vs, const void* mask, const void* sk, const void* sv,
-                       const void* smask, void* out, void* part, int Q, int H, int Hkv, int M,
-                       int S, int splits, float scale, cudaStream_t stream) {
+                       const void* smask, void* out, void* part, int B, int Q, int H, int Hkv,
+                       int M, int S, int splits, float scale, cudaStream_t stream) {
   using L = F32Layout<D, KV>;
   const int bytes =
       kF32Warps * L::kWarpBytes + 2 * L::kQBytes + kQT * ((M + 31) / 32 + (S + 31) / 32) * 4;
   static int allowed = 48 * 1024;
   return launch_split<float, kF32Warps>(tree_attention_f32_kernel<D, KV>, bytes, allowed, q, k,
-                                        v, ks, vs, mask, sk, sv, smask, out, part, Q, H, Hkv, D,
-                                        M, S, splits, scale, stream);
+                                        v, ks, vs, mask, sk, sv, smask, out, part, B, Q, H, Hkv,
+                                        D, M, S, splits, scale, stream);
 }
 
 template <int KV>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const void* mask, const void* sk, const void* sv,
-                   const void* smask, void* out, void* part, int Q, int H, int Hkv, int D, int M,
-                   int S, int splits, float scale, cudaStream_t stream) {
+                   const void* smask, void* out, void* part, int B, int Q, int H, int Hkv, int D,
+                   int M, int S, int splits, float scale, cudaStream_t stream) {
 #define SEQ_TA_CASE(DD)                                                                        \
   if (D == DD)                                                                                 \
-    return dtype == 0 ? launch_f32<DD, KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, part, Q, \
-                                           H, Hkv, M, S, splits, scale, stream)                \
-                      : launch_tc<DD, KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, part, Q,  \
-                                          H, Hkv, M, S, splits, scale, stream);
+    return dtype == 0 ? launch_f32<DD, KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, part, B, \
+                                           Q, H, Hkv, M, S, splits, scale, stream)             \
+                      : launch_tc<DD, KV>(q, k, v, ks, vs, mask, sk, sv, smask, out, part, B,  \
+                                          Q, H, Hkv, M, S, splits, scale, stream);
   SEQ_TA_CASE(16)
   SEQ_TA_CASE(32)
   SEQ_TA_CASE(64)
@@ -1022,21 +1075,25 @@ extern "C" {
 // S may be 0 (then sk, sv and smask are not read). Head dim D must be one of
 // 16, 32, 64, 128; the wrapper checks it. `splits` blocks share each
 // (16-query tile, head); with more than one, `part` is an f32 workspace of
-// splits * Q * H * (D + 2) floats.
+// splits * B * Q * H * (D + 2) floats. B >= 1 slots: every operand is B
+// contiguous blocks of the shapes above (q [B, Q, H, D], k [B, M, ...],
+// ks [B, M, Hkv], masks [B, Q, M] and [B, Q, S], sk [B, S, Hkv, D], out
+// [B, Q, H, D]), each slot its own problem.
 int sequoia_tree_attention(const void* q, const void* k, const void* v, const void* ks,
                            const void* vs, const void* mask, const void* sk,
-                           const void* sv, const void* smask, void* out, void* part, int Q,
-                           int H, int Hkv, int D, int M, int S, int splits, float scale,
+                           const void* sv, const void* smask, void* out, void* part, int B,
+                           int Q, int H, int Hkv, int D, int M, int S, int splits, float scale,
                            int dtype, int kv_format, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_format == kInt4Head && Hkv % 2) return static_cast<int>(cudaErrorInvalidValue);
   if (kv_format != kFloat && (ks == nullptr || vs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || static_cast<int64_t>(B) * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
 #define SEQ_TA_FORMAT(KV)                                                                     \
   if (kv_format == KV)                                                                        \
     return static_cast<int>(launch<KV>(dtype, q, k, v, ks, vs, mask, sk, sv, smask, out, part, \
-                                       Q, H, Hkv, D, M, S, splits, scale, st));
+                                       B, Q, H, Hkv, D, M, S, splits, scale, st));
   SEQ_TA_FORMAT(kFloat)
   SEQ_TA_FORMAT(kInt8)
   SEQ_TA_FORMAT(kInt4Head)

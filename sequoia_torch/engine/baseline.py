@@ -118,7 +118,7 @@ class ARBaseline:
         self._budget = torch.zeros((), dtype=torch.long, device=dev)
         self._always = torch.ones((), dtype=torch.bool, device=dev)
         # The step's CUDA graph; on the CPU the same step runs eagerly.
-        self._graphs = GraphSet(dev, self._gen) if dev.type == "cuda" else None
+        self._graphs = GraphSet(dev, [self._gen]) if dev.type == "cuda" else None
 
     def _prefill_chunk(self, state: ARState, chunk: torch.Tensor, offset: int,
                        prompt_len: int) -> None:

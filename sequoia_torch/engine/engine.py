@@ -246,7 +246,7 @@ class SpecEngine:
         self._edge_trips = edge_trips(self._succ_np, self._md)
         self._staged = staged_plan(self._succ_np, dev) if walk == "staged" else None
         # The phases' CUDA graphs; on the CPU the same phases run eagerly.
-        self._graphs = GraphSet(dev, self._gen) if dev.type == "cuda" else None
+        self._graphs = GraphSet(dev, [self._gen]) if dev.type == "cuda" else None
         # Counters (reference metric: tests/testbed.py:94).
         self.num_decoding_steps = 0
         self.num_large_model_steps = 0

@@ -13,10 +13,13 @@ hundreds of kernels.
   order, which the engines do);
 - a key (the engine's cache format and matmul routes): a new key drops every
   graph and the next `capture` makes them anew;
-- the engine's generator (if any), registered with every graph: a replay
-  draws from the generator's seed and offset at that moment and advances
-  the offset by the graph's draws, so one seed gives the same numbers
-  eager and replayed, and `manual_seed` between replays reseeds the graph;
+- the engine's generators (none, one, or one per slot of a batched
+  engine), each registered with every graph: a replay draws from each
+  generator's seed and offset at that moment and advances the offset by
+  the graph's draws from it, so one seed gives the same numbers eager and
+  replayed, and `manual_seed` of one generator between replays reseeds
+  that generator's draws alone (a batched engine's new request in one
+  slot);
 - the launch counters: a wrapper's counter ticks when its Python code runs,
   which for a captured kernel is once, at capture, when nothing launches.
   `capture` records each counter's delta and takes it back out;
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -54,11 +57,11 @@ class _Captured:
 class GraphSet:
     """The captured phases of one engine on one CUDA device."""
 
-    def __init__(self, device: torch.device, generator: Optional[torch.Generator] = None):
+    def __init__(self, device: torch.device, generators: Sequence[torch.Generator] = ()):
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
         self.device = device
-        self.generator = generator
+        self.generators = list(generators)
         self.key = None
         self.pool = None
         self.graphs: Dict[str, _Captured] = {}
@@ -84,9 +87,9 @@ class GraphSet:
     @contextmanager
     def warmup(self):
         """Run the body on a side stream (eager launches, counted as such),
-        then restore the generator's state: the warm-up draws nothing that
+        then restore the generators' states: the warm-up draws nothing that
         a later run sees."""
-        state = self.generator.get_state() if self.generator is not None else None
+        states = [g.get_state() for g in self.generators]
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
@@ -94,8 +97,8 @@ class GraphSet:
             yield
         main.wait_stream(side)
         torch.cuda.synchronize(self.device)
-        if state is not None:
-            self.generator.set_state(state)
+        for g, state in zip(self.generators, states):
+            g.set_state(state)
 
     def capture(self, name: str, fn: Callable):
         """Capture `fn()` as graph `name`; returns its outputs, whose memory
@@ -104,8 +107,8 @@ class GraphSet:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
+        for g in self.generators:
+            graph.register_generator_state(g)
         before = dict(build.launches)
         t0 = time.perf_counter()
         try:

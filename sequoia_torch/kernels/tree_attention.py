@@ -30,6 +30,13 @@ products of split operands (3xTF32: x = hi + lo, both TF32), which keeps
 f32's accuracy. `tree_attention_split_plain` models the bf16 kernel and
 `tree_attention_f32_model` the f32 one, arithmetic included (both on no
 path; the tests hold them against the JAX kernel).
+
+`tree_attention_batched` is the same kernel over a slot axis (the batched
+engine's; in JAX the Pallas call gains a grid axis under `jax.vmap`):
+every operand gains a leading `[B]` axis, each slot its own problem with
+its own prefix skip, in one launch whose grid's y axis is slot x head. Its
+launches tick counters of their own (`tree_attention_batched...`).
+`tree_attention_batched_plain` runs the plain version slot by slot.
 """
 
 from __future__ import annotations
@@ -61,21 +68,24 @@ F32_STEP = 8
 BLOCKS_PER_SM = 2
 
 
-def counter(fmt: str, dtype: torch.dtype) -> str:
+def counter(fmt: str, dtype: torch.dtype, batched: bool = False) -> str:
     """The launch counter of the kernel for a main cache in format `fmt`
-    and queries of `dtype`."""
-    return _COUNTER[fmt] + ("_f32" if dtype == torch.float32 else "")
+    and queries of `dtype` (the slot-axis launch: `batched`)."""
+    name = _COUNTER[fmt].replace("tree_attention", "tree_attention_batched") if batched \
+        else _COUNTER[fmt]
+    return name + ("_f32" if dtype == torch.float32 else "")
 
 
 def split_count(Q: int, H: int, M: int, S: int, sms: int,
-                dtype: torch.dtype = torch.bfloat16) -> int:
+                dtype: torch.dtype = torch.bfloat16, batch: int = 1) -> int:
     """Blocks that share one (16-query tile, head) in the kernel, no more
     than leave each warp one 16-key tile of the whole main cache and
     scratch: bf16 (WARPS warps a block), enough for about BLOCKS_PER_SM
     blocks on each of `sms` SMs; f32 (F32_WARPS warps, one block fills an
     SM's shared memory), as many as one wave of one block per SM holds (a
-    second wave or the merge costs more than shorter runs save)."""
-    pairs = -(-Q // TILE_Q) * H
+    second wave or the merge costs more than shorter runs save). With
+    `batch` slots every slot's (tile, head) pairs count."""
+    pairs = batch * -(-Q // TILE_Q) * H
     tiles = -(-M // TILE_K) + -(-S // TILE_K)
     if dtype == torch.float32:
         return max(1, min(sms // pairs, -(-tiles // F32_WARPS)))
@@ -91,7 +101,11 @@ def tile_extents(main_mask: torch.Tensor, scr_mask: torch.Tensor) -> torch.Tenso
     """`[ceil(Q / 16), 2]` int64: for each 16-query tile, the keys of the main
     region and of the scratch that the kernel reads, as it finds them
     in the mask: one past the last key any row of the tile attends, or the
-    whole region when some row of the tile attends no key at all."""
+    whole region when some row of the tile attends no key at all. Masks
+    with a slot axis (`[B, Q, M]`, `[B, Q, S]`) give `[B, ceil(Q / 16), 2]`:
+    each slot its own prefix skip."""
+    if main_mask.dim() == 3:
+        return torch.stack([tile_extents(m, s) for m, s in zip(main_mask, scr_mask)])
     Q, M = main_mask.shape
     S = scr_mask.shape[1]
     pad = -Q % TILE_Q
@@ -369,19 +383,67 @@ def tree_attention(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
     Q, H, D = q.shape
     M = k.shape[0]
     S, Hkv = sk.shape[0], sk.shape[1]
+    return _launch(q, k, v, main_mask, sk, sv, scr_mask, ks, vs, fmt, scale,
+                   1, Q, H, Hkv, D, M, S, counter(fmt, q.dtype))
+
+
+def _launch(q, k, v, main_mask, sk, sv, scr_mask, ks, vs, fmt, scale, B, Q, H, Hkv, D, M, S,
+            name):
+    """One launch over B slots (B = 1: the single call), counted as `name`."""
     out = torch.empty_like(q)
-    splits, part = split_count(Q, H, M, S, _sm_count(q.device.index or 0), q.dtype), None
+    splits = split_count(Q, H, M, S, _sm_count(q.device.index or 0), q.dtype, batch=B)
+    part = None
     if splits > 1:   # the blocks' partials: acc, then (m, l)
-        part = torch.empty(splits * Q * H * (D + 2), dtype=torch.float32, device=q.device)
+        part = torch.empty(splits * B * Q * H * (D + 2), dtype=torch.float32, device=q.device)
     lib = build.load()
     rc = lib.sequoia_tree_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
         main_mask.data_ptr(), sk.data_ptr(), sv.data_ptr(), scr_mask.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(), Q, H, Hkv, D, M, S,
+        out.data_ptr(), None if part is None else part.data_ptr(), B, Q, H, Hkv, D, M, S,
         splits, float(scale), _DTYPE_CODE[q.dtype], _FORMAT_CODE[fmt],
         torch.cuda.current_stream(q.device).cuda_stream)
-    name = counter(fmt, q.dtype)
     build.check(rc, name)
     build.launches[name] += 1
     return out
+
+
+def tree_attention_batched_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
+                                 ks=None, vs=None):
+    """`tree_attention_plain` of each slot: q `[B, Q, H, D]`, main rows
+    `[B, M, ...]` (scales `[B, M, Hkv]`), masks `[B, Q, M]` and `[B, Q, S]`,
+    scratch `[B, S, Hkv, D]` -> `[B, Q, H, D]`. Slot by slot, so each slot's
+    numbers are the single call's."""
+    return torch.stack([
+        tree_attention_plain(q[b], k[b], v[b], main_mask[b], sk[b], sv[b], scr_mask[b],
+                             scale=scale, ks=None if ks is None else ks[b],
+                             vs=None if vs is None else vs[b])
+        for b in range(q.shape[0])])
+
+
+def tree_attention_batched(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
+                           ks=None, vs=None):
+    """attn `[B, Q, H, D]` of B independent slots (see module doc) in one
+    launch of the kernel on the card; `tree_attention_batched_plain` on the
+    CPU."""
+    if q.device.type == "cpu":
+        return tree_attention_batched_plain(q, k, v, main_mask, sk, sv, scr_mask,
+                                            scale=scale, ks=ks, vs=vs)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B = q.shape[0]
+    tensors = [q, k, v, main_mask, sk, sv, scr_mask] + [t for t in (ks, vs) if t is not None]
+    if q.dim() != 4 or any(t.shape[0] != B for t in tensors):
+        raise ValueError("tree_attention_batched: every operand needs the slot axis "
+                         f"[B={B}, ...]")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("tree_attention_batched: operands must be contiguous")
+    # Slot 0's views carry every per-slot check (shapes, dtypes, alignment).
+    fmt = _check(q[0], k[0], v[0], main_mask[0], sk[0], sv[0], scr_mask[0],
+                 None if ks is None else ks[0], None if vs is None else vs[0])
+    _, Q, H, D = q.shape
+    M = k.shape[1]
+    S, Hkv = sk.shape[1], sk.shape[2]
+    return _launch(q, k, v, main_mask, sk, sv, scr_mask, ks, vs, fmt, scale,
+                   B, Q, H, Hkv, D, M, S, counter(fmt, q.dtype, batched=True))

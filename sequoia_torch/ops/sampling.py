@@ -96,6 +96,12 @@ def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard Gumbel noise `-log(-log U)`, U in [tiny, 1)."""
     u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return gumbel_from_uniform(u)
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """`gumbel`'s transform of uniform draws `u` (f32), for callers that
+    draw the uniforms themselves (one generator per slot)."""
     return -torch.log(-torch.log(u.clamp_min(_TINY)))
 
 
@@ -122,10 +128,17 @@ def sample_with_replacement(generator: torch.Generator, logits: torch.Tensor,
                             temperature: float, num_samples: int) -> torch.Tensor:
     """i.i.d. categorical draws (SpecInfer growth,
     `Tree/SpecInferTree.py:108`): `[..., num_samples]`, by Gumbel-max."""
-    log_q = torch.log_softmax(logits.float() / temperature, dim=-1)
     shape = (*logits.shape[:-1], num_samples, logits.shape[-1])
-    g = gumbel(shape, generator, logits.device)
-    return (log_q[..., None, :] + g).argmax(dim=-1)
+    return with_replacement_from_gumbel(logits, gumbel(shape, generator, logits.device),
+                                        temperature)
+
+
+def with_replacement_from_gumbel(logits: torch.Tensor, gumbel_noise: torch.Tensor,
+                                 temperature: float) -> torch.Tensor:
+    """`sample_with_replacement` with caller-supplied gumbel noise
+    `[..., num_samples, vocab]`."""
+    log_q = torch.log_softmax(logits.float() / temperature, dim=-1)
+    return (log_q[..., None, :] + gumbel_noise).argmax(dim=-1)
 
 
 def sample_argmax(logits: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -140,6 +153,12 @@ def sample_categorical_probs(generator: torch.Generator,
     `categorical` does: a NaN or all-zero row gives an arbitrary token and
     never a device assert (callers check NaN separately), and nothing
     syncs with the host."""
+    return categorical_from_gumbel(probs, gumbel(probs.shape, generator, probs.device))
+
+
+def categorical_from_gumbel(probs: torch.Tensor, gumbel_noise: torch.Tensor) -> torch.Tensor:
+    """`sample_categorical_probs` with caller-supplied gumbel noise of
+    `probs`' shape."""
     safe = torch.where(torch.isnan(probs), torch.zeros((), device=probs.device), probs)
     logp = torch.log(torch.clamp_min(safe, 1e-30))
-    return (logp + gumbel(probs.shape, generator, probs.device)).argmax(dim=-1)
+    return (logp + gumbel_noise).argmax(dim=-1)

@@ -12,6 +12,8 @@ import torch
 from sequoia_torch.kernels import quant_matmul as qmm
 from sequoia_torch.kernels import top_p as tp
 from sequoia_torch.kernels.tree_attention import (counter, split_count, tree_attention,
+                                                  tree_attention_batched,
+                                                  tree_attention_batched_plain,
                                                   tree_attention_plain)
 from sequoia_torch.kvcache.cache import quantize_kv_rows, quantize_kv_rows4
 from sequoia_torch.quant.qtensor import QuantizedTensor, tile_int4
@@ -163,6 +165,43 @@ def test_tree_attention_split_count_on_the_card(Q, S, want, dtype, tol):
     assert qmm.build.launches[name] == before + 1
     want_out = tree_attention_plain(*args, scale=128 ** -0.5)
     torch.testing.assert_close(got.float(), want_out.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4_head", "int4_dsplit"])
+@pytest.mark.parametrize("B,Q,M,S,Hkv,g,D", [
+    (8, 64, 512, 64, 32, 1, 128),   # 8 slots of the 7B verify
+    (3, 9, 48, 11, 2, 2, 16),       # test-tiny GQA, ragged; a dsplit row has 8 bytes
+    (2, 1, 256, 1, 32, 1, 128),     # 2 slots of the 7B AR step
+    (4, 20, 200, 0, 4, 2, 32),      # a prefill chunk, empty scratch
+])
+def test_tree_attention_batched_kernel_matches_plain(B, Q, M, S, Hkv, g, D, fmt, dtype, tol):
+    """The slot-axis launch against the plain version slot by slot: each
+    slot its own prefix (one slot with a row that attends nothing), every
+    cache format, one launch counted on the batched counter."""
+    _need_cuda()
+    rng = np.random.default_rng(B + Q + M)
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+    q, k, v, sk, sv = t(B, Q, Hkv * g, D), t(B, M, Hkv, D), t(B, M, Hkv, D), \
+        t(B, S, Hkv, D), t(B, S, Hkv, D)
+    ts = torch.from_numpy(rng.integers(1, M, size=B)).cuda()
+    mask = (torch.arange(M, device="cuda")[None, None, :] < ts[:, None, None]).expand(
+        B, Q, M).contiguous()
+    smask = torch.tril(torch.ones(Q, S, dtype=torch.bool, device="cuda")).expand(
+        B, Q, S).contiguous()
+    mask[B - 1, Q // 2] = False
+    smask[B - 1, Q // 2] = False
+    kc, vc, ks, vs = _cache(k, v, fmt)
+    args = (q, kc, vc, mask, sk, sv, smask)
+    name = counter(fmt, dtype, batched=True)
+    before = qmm.build.launches[name]
+    got = tree_attention_batched(*args, scale=D ** -0.5, ks=ks, vs=vs)
+    assert qmm.build.launches[name] == before + 1
+    want = tree_attention_batched_plain(*args, scale=D ** -0.5, ks=ks, vs=vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -562,3 +601,71 @@ def test_capture_failure_raises():
     eng._grow = grow
     np.testing.assert_array_equal(eng.generate_fast(PROMPT, max_new_tokens=8),
                                   eng.generate(PROMPT, max_new_tokens=8))
+
+
+def _small_batched(algo, batch_size=3, **kw):
+    from sequoia_torch.core.config import get_config
+    from sequoia_torch.core.init import random_params
+    from sequoia_torch.engine.batched import BatchedSpecEngine
+    from sequoia_torch.trees.growmap import uniform_tree
+
+    cfg = get_config("test-small")
+    draft = random_params(cfg, 7, dtype=torch.float32, device="cuda")
+    target = random_params(cfg, 8, dtype=torch.float32, device="cuda")
+    eng = BatchedSpecEngine(draft, cfg, target, cfg, uniform_tree(3, 2), algorithm=algo,
+                            batch_size=batch_size, max_length=128, temperature=0.7, top_p=0.9,
+                            prefill_chunk=16, device="cuda", **kw)
+    return eng, draft, target, cfg
+
+
+BATCH_PROMPTS = [np.arange(5, 16), np.arange(40, 43), np.arange(7, 30), np.arange(90, 95)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["greedy", "sequoia"])
+def test_batched_graphs_equal_eager(algo):
+    """Batched replays (one generator a slot, registered with every graph)
+    give the eager loops' tokens: `generate_batch_fast` == `generate_batch`,
+    `serve_fast` == `serve`, and `serve_device` (admission graph, a slot's
+    generator reseeded between replays) == `serve_fast`; each slot equals
+    the single-request engine with its request's seed."""
+    _need_cuda()
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.trees.growmap import uniform_tree
+
+    eng, draft, target, cfg = _small_batched(algo, admit_width=2)
+    want = eng.generate_batch(BATCH_PROMPTS[:3], max_new_tokens=30, seed=4)
+    steps = eng.num_large_model_steps
+    got = eng.generate_batch_fast(BATCH_PROMPTS[:3], max_new_tokens=30, seed=4)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    assert eng.num_large_model_steps == steps
+    fast = eng.serve_fast(BATCH_PROMPTS, max_new_tokens=20, seed=4)
+    for a, b in zip(eng.serve(BATCH_PROMPTS, max_new_tokens=20, seed=4), fast):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(eng.serve_device(BATCH_PROMPTS, max_new_tokens=20, seed=4), fast):
+        np.testing.assert_array_equal(a, b)
+    assert set(eng.graph_report()) >= {"grow", "verify", "finalize", "admit"}
+    single = SpecEngine(draft, cfg, target, cfg, uniform_tree(3, 2), algorithm=algo,
+                        max_length=128, temperature=0.7, top_p=0.9, prefill_chunk=16,
+                        device="cuda")
+    for i, (p, out) in enumerate(zip(BATCH_PROMPTS, fast)):
+        np.testing.assert_array_equal(out, single.generate(p, 20, seed=4 + i)[:len(out)])
+
+
+@pytest.mark.cuda
+def test_batched_ar_graphs_equal_single_requests():
+    """The batched AR step graph: each request of `serve_fast` equals the
+    single-request baseline with its seed (stochastic, T 0.7)."""
+    _need_cuda()
+    from sequoia_torch.engine.baseline import ARBaseline
+    from sequoia_torch.engine.batched import BatchedAREngine
+
+    _, _, target, cfg = _small_batched("greedy")
+    kw = dict(max_length=128, temperature=0.7, top_p=0.9, prefill_chunk=16, device="cuda")
+    ar = BatchedAREngine(target, cfg, batch_size=2, **kw)
+    outs = ar.serve_fast(BATCH_PROMPTS, max_new_tokens=20, seed=6)
+    single = ARBaseline(target, cfg, **kw)
+    for i, (p, out) in enumerate(zip(BATCH_PROMPTS, outs)):
+        np.testing.assert_array_equal(out, single.generate(p, 20, seed=6 + i))
+    assert ar.graph_report()["step"]["replays"] > 0

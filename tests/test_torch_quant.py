@@ -303,8 +303,12 @@ def test_time_forward_widths_on_cpu():
     times = time_forward_widths(p, CFG, [1, 4], max_length=32, kv_len=8,
                                 dtype=torch.float32, reps=2)
     assert len(times) == 2 and all(t > 0 for t in times)
-    with pytest.raises(NotImplementedError):
-        time_forward_widths(p, CFG, [1], batch=2)
+    # batch > 1 times the batched forward (one cache per slot).
+    batched = time_forward_widths(p, CFG, [1, 4], max_length=32, kv_len=8, dtype=torch.float32,
+                                  reps=1, batch=2)
+    assert len(batched) == 2 and all(t > 0 for t in batched)
+    with pytest.raises(ValueError):
+        time_forward_widths(p, CFG, [1], batch=0)
     with pytest.raises(ValueError):
         time_forward_widths(p, CFG, [1], kv_quant="int2")
     for kv_quant in ("int8", "int4"):
