@@ -7,6 +7,7 @@
     python3 chip_smoke.py --loops       # phases 1, 2, 4 and phase 5's bf16 path
     python3 chip_smoke.py --plan        # phases 1, 2 and 8 (its own short bf16 curve)
     python3 chip_smoke.py --batched     # phases 1, 2 and 9
+    python3 chip_smoke.py --offload     # phases 1, 2 and 10
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -99,7 +100,25 @@ Phases, each fatal on failure:
      `generate_batch`, each slot of `generate_batch_fast` equal to the
      single-request `generate_fast`; last, the batched tree-attention
      kernel at B = 8 against its plain version, every format and dtype,
-     timed beside B single launches and SDPA with a [B, ...] mask.
+     timed beside B single launches and SDPA with a [B, ...] mask;
+ 10. host offload (`engine/offload.py`): the host link's rate for one
+     llama-2-7b and one llama-2-70b layer, a copy alone and a run of 8
+     back to back (the link bound's rate); llama-2-7b bf16 (seeded random
+     weights) offloaded with 0 and 16 layers kept on the card, the rest
+     streamed from pinned memory: the forward at widths 1 and 64 equal to
+     the resident forward bit for bit (logits and scratch K/V), eager,
+     eager with the staging buffers poisoned, replayed and replayed
+     poisoned, with no synchronizing call in the eager forward, its graph's
+     nodes (kernels and copies) beside the resident graph's, and its replay
+     device ms against the link bound; stochastic Sequoia and AR
+     (`generate_fast`, 2 prompts x 32 tokens) equal to the resident
+     engines' tokens, with ms/token; the offloaded curve at widths 1..1024
+     and the tree the planner picks from it; int8 weight-only 7B at stay 0
+     equal to its resident forward (kernel 4 on two alternating staging
+     addresses); llama-2-70b at full width cut to 8 layers, all streamed
+     (built in pinned memory): device ms at widths 1, 64 and 512 and a
+     layer, beside the same 8 layers resident, and the reckoned 80-layer
+     forward with 36 layers resident.
 
 Prints the kernels JSON line and the card line before the last line, and
 ends with one JSON line {"ok": true, "device": {...}}. Exits non-zero,
@@ -165,9 +184,9 @@ def kernel_name(mangled: str) -> str:
     return parts[-1] + (f"<{','.join(args)}>" if args else "") if parts else mangled
 
 
-def graph_kernels(graph) -> int:
-    """Kernel nodes of a captured CUDA graph (made with keep_graph=True),
-    counted with libcuda's cuGraphGetNodes."""
+def graph_nodes(graph) -> dict:
+    """Node counts of a captured CUDA graph (made with keep_graph=True) by
+    kind, kernel, memcpy or other, counted with libcuda's cuGraphGetNodes."""
     import ctypes
 
     cuda = ctypes.CDLL("libcuda.so.1")
@@ -177,12 +196,18 @@ def graph_kernels(graph) -> int:
     nodes = (ctypes.c_void_p * n.value)()
     if n.value and cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
         fail("cuGraphGetNodes failed")
-    kind, count = ctypes.c_int(), 0
+    kind, counts = ctypes.c_int(), {"kernel": 0, "memcpy": 0, "other": 0}
     for node in nodes:
         if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
             fail("cuGraphNodeGetType failed")
-        count += kind.value == 0   # CU_GRAPH_NODE_TYPE_KERNEL
-    return count
+        # CU_GRAPH_NODE_TYPE_KERNEL, CU_GRAPH_NODE_TYPE_MEMCPY
+        counts[{0: "kernel", 1: "memcpy"}.get(kind.value, "other")] += 1
+    return counts
+
+
+def graph_kernels(graph) -> int:
+    """Kernel nodes of a captured CUDA graph (made with keep_graph=True)."""
+    return graph_nodes(graph)["kernel"]
 
 
 def device_ms(fns, replays: int = 25, outs=None) -> float:
@@ -2331,6 +2356,336 @@ def batched_serving(torch, gm):
     return launches, kernels
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: host offload
+# ---------------------------------------------------------------------------
+
+OFFLOAD = dict(stays=(0, 16), widths=(1, 64), gen=32, prompts="synthetic:2,128",
+               curve=(1, 16, 64, 128, 256, 512, 1024), big="llama-2-70b", big_layers=8,
+               big_widths=(1, 64, 512), big_stay=36)
+
+
+def meminfo() -> str:
+    """MemTotal and MemAvailable of the host, in GB (/proc/meminfo)."""
+    fields = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            name, rest = line.split(":", 1)
+            fields[name] = int(rest.split()[0]) * 1024
+    return (f"host MemTotal {fields['MemTotal'] / 1e9:.1f} GB, "
+            f"MemAvailable {fields['MemAvailable'] / 1e9:.1f} GB")
+
+
+def layer_bytes(cfg, itemsize=2) -> int:
+    """Bytes of one layer's seven projection matrices (what a streamed
+    layer copies; the norms stay on the card)."""
+    E, F, H, Hkv, D = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim_)
+    return (2 * E * H * D + 2 * E * Hkv * D + 3 * E * F) * itemsize
+
+
+def host_link(torch, nbytes, reps=5, run=8):
+    """Host-to-device GB/s of copies of `nbytes` from pinned memory, CUDA
+    events around them: one copy alone, and `run` copies back to back (the
+    rate a streamed forward's copies see); each the median of `reps`."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    if not host.is_pinned():
+        fail("could not pin host memory")
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    rates = []
+    for n in (1, run):
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n):
+                dev.copy_(host, non_blocking=True)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        rates.append(n * nbytes / (statistics.median(times) / 1e3) / 1e9)
+    return rates
+
+
+def poison(torch, bufs) -> None:
+    """NaN into every float staging buffer, -128 (no int8 or int4 weight
+    value) into every integer one, on the current (compute) stream."""
+    for b in bufs:
+        b.fill_(float("nan") if b.is_floating_point() else -128)
+
+
+def split_forward(torch, cfg, width, dtype, kv_len=128, M=256):
+    """A split-mode forward at `width` (the verify's shape: the main cache,
+    random rows, read-only at `kv_len`; the new rows into a scratch) as a
+    function of the params that returns (logits, scratch K, scratch V)."""
+    from sequoia_torch.core.model import forward
+    from sequoia_torch.kvcache.cache import KVCache
+    from sequoia_torch.ops.masks import causal_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    kv = KVCache.init(cfg, M, dtype, "cuda")
+    for t in (kv.k, kv.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (width,), generator=gen, device="cuda")
+    pos = kv_len + torch.arange(width, device="cuda")
+    mask = (torch.arange(M, device="cuda") < kv_len)[None, :].expand(width, M).contiguous()
+    smask = torch.tril(torch.ones(width, width, dtype=torch.bool, device="cuda"))
+    wmask = causal_mask(width, M, kv_len, "cuda")
+
+    def run(params):
+        scratch = KVCache.init(cfg, width, dtype, "cuda")
+        logits, _ = forward(params, cfg, tokens, pos, kv, kv_len, mask, scratch=scratch,
+                            scratch_offset=0, scratch_mask=smask)
+        return logits, scratch.k, scratch.v
+
+    def write(params):
+        """The same rows in write mode (a prefill chunk): into a copy of
+        the main cache at `kv_len`; returns (logits, its K, its V)."""
+        main = KVCache(kv.k.clone(), kv.v.clone())
+        logits, _ = forward(params, cfg, tokens, pos, main, kv_len, wmask)
+        return logits, main.k, main.v
+
+    run.write = write
+    return run
+
+
+def graph_of(torch, fn):
+    """`fn` captured into a CUDA graph after an eager warm-up (GraphSet):
+    (GraphSet, captured outputs, device ms of one replay: median of 3)."""
+    from sequoia_torch.engine.graphs import GraphSet
+
+    graphs = GraphSet(torch.device("cuda"))
+    with graphs.warmup():
+        fn()
+    outs = graphs.capture("forward", fn)
+    graphs.replay("forward")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graphs.replay("forward")
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return graphs, outs, statistics.median(times)
+
+
+def offload_forward_checks(torch, resident, off, cfg, label, widths, rate):
+    """The offloaded forward against the resident one, bit for bit (logits
+    and the scratch K/V it writes), at each width: eager; in write mode
+    (logits and the main cache); eager with the
+    staging buffers poisoned first; an eager forward under
+    `set_sync_debug_mode("error")` (a pageable copy would synchronize);
+    replayed from a graph; replayed with the buffers poisoned before the
+    replay. Prints each graph's nodes by kind beside the resident graph's,
+    and the offloaded replay's device ms against the link bound (streamed
+    bytes over `rate`)."""
+    from sequoia_torch.engine.offload import offloaded_bytes, staging_buffers
+
+    host_bytes = offloaded_bytes(off)[0]
+    bound_ms = host_bytes / (rate * 1e9) * 1e3
+    times = {}
+    for w in widths:
+        run = split_forward(torch, cfg, w, resident.embed.dtype)
+        want = [t.clone() for t in run(resident)]
+
+        def same(got, how):
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"{label} w{w}, {how}: the offloaded forward differs from the resident one")
+
+        same(run(off), "eager")
+        wwant = [t.clone() for t in run.write(resident)]
+        if not all(torch.equal(a, b) for a, b in zip(run.write(off), wwant)):
+            fail(f"{label} w{w}, write mode: the offloaded forward differs from the resident one")
+        bufs = staging_buffers(off)
+        poison(torch, bufs)
+        same(run(off), "eager, staging poisoned")
+        no_sync(torch, lambda: run(off), f"{label} w{w} eager offloaded forward")
+        graphs, outs, ms = graph_of(torch, lambda: run(off))
+        same(outs, "replayed")
+        poison(torch, bufs)
+        graphs.replay("forward")
+        same(outs, "replayed, staging poisoned")
+        kinds = graph_nodes(graphs.graphs["forward"].graph)
+        del graphs, outs
+        rgraphs, _, rms = graph_of(torch, lambda: run(resident))
+        rkinds = graph_nodes(rgraphs.graphs["forward"].graph)
+        del rgraphs
+        times[w] = ms
+        log(f"  [10] {label} w{w}: offloaded == resident bit for bit (eager, write mode, "
+            f"poisoned, replayed, replayed poisoned); replay {ms:.3f} ms against a link bound of "
+            f"{bound_ms:.3f} ms ({host_bytes / 1e9:.3f} GB at {rate:.2f} GB/s: "
+            f"{ms / bound_ms:.3f}x), resident {rms:.3f} ms; graph nodes {kinds} "
+            f"(resident {rkinds})")
+    return times
+
+
+def offload_engines(torch, gm, draft, dcfg, target, tcfg, prompts, label, want=None):
+    """Stochastic Sequoia (T 0.6, P 0.9) and AR through `generate_fast`
+    on `target`, `OFFLOAD["gen"]` new tokens a prompt, seeds SEED + i,
+    after an untimed warm-up that captures the graphs. Returns
+    {kind: outputs}; with `want`, each output must equal it. Prints
+    ms/token."""
+    import numpy as np
+
+    from sequoia_torch.engine.baseline import ARBaseline
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.utils import hard_sync
+
+    common = dict(max_length=FULL["max_length"], temperature=FULL["T"], top_p=FULL["P"],
+                  device="cuda")
+    engines = {"Sequoia": SpecEngine(draft, dcfg, target, tcfg, gm, algorithm="sequoia",
+                                     **common),
+               "AR": ARBaseline(target, tcfg, **common)}
+    outs = {}
+    for kind, eng in engines.items():
+        eng.generate_fast(prompts[0], max_new_tokens=2, seed=SEED)   # capture
+        hard_sync("cuda")
+        t0 = time.perf_counter()
+        outs[kind] = [eng.generate_fast(p, max_new_tokens=OFFLOAD["gen"], seed=SEED + i)
+                      for i, p in enumerate(prompts)]
+        hard_sync("cuda")
+        wall = time.perf_counter() - t0
+        tokens = sum(len(o) - len(p) for o, p in zip(outs[kind], prompts))
+        if want is not None and not all(np.array_equal(a, b)
+                                        for a, b in zip(outs[kind], want[kind])):
+            fail(f"{label}: {kind} tokens differ from the resident target's")
+        log(f"  [10] {label} {kind} generate_fast: {tokens} tokens in {wall:.3f} s, "
+            f"{wall / tokens * 1e3:.3f} ms/token" + (", tokens equal the resident run's"
+                                                     if want is not None else "")
+            + "; graph nodes " + ", ".join(f"{n} {graph_nodes(g.graph)}"
+                                           for n, g in eng._graphs.graphs.items()))
+    return outs
+
+
+def host_offload(torch, gm, draft_time=None):
+    """Phase 10: llama-2-7b (bf16, then int8 weight-only) with its layers
+    streamed from pinned host memory, held bit for bit against the
+    resident forward and engines; the offloaded curve and its plan; then
+    llama-2-70b at full width, 8 layers, all streamed. Returns the
+    launches of the offloaded runs."""
+    import dataclasses
+
+    from sequoia_torch.cli.testbed import build_params, load_prompts
+    from sequoia_torch.core.config import get_config
+    from sequoia_torch.engine.offload import (offload_params, offloaded_bytes,
+                                              random_offloaded_params, resident_params)
+    from sequoia_torch.kernels import build
+    from sequoia_torch.planner.dp import plan
+    from sequoia_torch.planner.profile import default_acceptance_vector, time_forward_widths
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def free_host():
+        torch.cuda.empty_cache()
+        if hasattr(torch._C, "_host_emptyCache"):   # the pinned blocks back to the host
+            torch._C._host_emptyCache()
+
+    cfg7, cfg_big = get_config(FULL["target"]), get_config(OFFLOAD["big"])
+    rates = {}
+    for name, cfg in ((FULL["target"], cfg7), (OFFLOAD["big"], cfg_big)):
+        alone, rates[name] = host_link(torch, layer_bytes(cfg))
+        log(f"  [10] host link: one {name} bf16 layer ({layer_bytes(cfg) / 1e9:.3f} GB) "
+            f"pinned -> card at {alone:.2f} GB/s alone, {rates[name]:.2f} GB/s in a run of 8 "
+            f"(the rate each link bound below uses)")
+    rate = rates[FULL["target"]]
+
+    target, tcfg, draft, dcfg = load_models(torch)
+    prompts = load_prompts(OFFLOAD["prompts"], tcfg.vocab_size, SEED)
+    build.reset_launches()
+    want = offload_engines(torch, gm, draft, dcfg, target, tcfg, prompts, "bf16 resident")
+    curve = None
+    for stay in OFFLOAD["stays"]:
+        label = f"7B bf16, stay {stay}"
+        streamed = (tcfg.num_layers - stay) * layer_bytes(tcfg)
+        log(f"  [10] {label}: {meminfo()}; pinning {streamed / 1e9:.2f} GB")
+        t0 = time.perf_counter()
+        off = offload_params(target, stay_layers=stay)
+        torch.cuda.synchronize()
+        host_bytes, dev_bytes = offloaded_bytes(off)
+        log(f"  [10] {label}: pinned and filled in {time.perf_counter() - t0:.1f} s, "
+            f"{host_bytes / 1e9:.3f} GB on the host, {dev_bytes / 1e9:.3f} GB on the card")
+        offload_forward_checks(torch, target, off, tcfg, label, OFFLOAD["widths"], rate)
+        build.reset_launches()
+        offload_engines(torch, gm, draft, dcfg, off, tcfg, prompts, label, want)
+        add(build.launches)
+        if stay == 0:
+            t0 = time.perf_counter()
+            build.reset_launches()
+            curve = time_forward_widths(off, tcfg, OFFLOAD["curve"],
+                                        max_length=FULL["max_length"], kv_len=128)
+            if build.launches["tree_attention"] == 0:
+                fail("tree attention never launched in the offloaded curve")
+            add(build.launches)
+            log(f"  [10] {label} curve (device ms of one split-mode forward, graph replays, "
+                f"reps 2): " + ", ".join(f"w{w} {t * 1e3:.3f}" for w, t in
+                                          zip(OFFLOAD["curve"], curve))
+                + f" ({time.perf_counter() - t0:.1f} s)")
+        del off
+        free_host()
+    if draft_time is None:
+        draft_time = time_forward_widths(draft, dcfg, [8], max_length=FULL["max_length"],
+                                         kv_len=128, reps=20)[0]
+    pgm, info = plan(default_acceptance_vector(), list(OFFLOAD["curve"]), curve, draft_time,
+                     max_depth=8)
+    log(f"  [10] plan on the offloaded curve (widths {OFFLOAD['curve'][0]}.."
+        f"{OFFLOAD['curve'][-1]}, draft w8 {draft_time * 1e3:.4f} ms): size {pgm.size}, "
+        f"depth {info['depth']}, expected accepted {info['expected_accepted']:.3f}, "
+        f"predicted {info['dec_time'] * 1e3:.3f} ms/token")
+    del target, draft
+    free_host()
+
+    label = "7B int8 weight-only, stay 0"
+    target, tcfg = build_params(FULL["target"], "random", "bf16", SEED, "cuda", quant_bits=8)
+    off = offload_params(target, stay_layers=0)
+    build.reset_launches()
+    offload_forward_checks(torch, target, off, tcfg, label, OFFLOAD["widths"], rate)
+    if build.launches["quant_matmul_int8_wgmma"] == 0:
+        fail(f"{label}: the int8 wgmma kernel never launched")
+    add(build.launches)
+    del target, off
+    free_host()
+
+    cfg = dataclasses.replace(cfg_big, num_layers=OFFLOAD["big_layers"])
+    label = f"{OFFLOAD['big']} bf16, {cfg.num_layers} layers, all streamed"
+    streamed = cfg.num_layers * layer_bytes(cfg)
+    log(f"  [10] {label}: {meminfo()}; pinning {streamed / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    off = random_offloaded_params(cfg, SEED, dtype=torch.bfloat16, stay_layers=0,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    log(f"  [10] {label}: built in pinned memory in {time.perf_counter() - t0:.1f} s, "
+        f"{offloaded_bytes(off)[0] / 1e9:.3f} GB on the host")
+    build.reset_launches()
+    big = time_forward_widths(off, cfg, OFFLOAD["big_widths"], max_length=FULL["max_length"],
+                              kv_len=128)
+    add(build.launches)
+    resident = resident_params(off)
+    big_res = time_forward_widths(resident, cfg, OFFLOAD["big_widths"],
+                                  max_length=FULL["max_length"], kv_len=128, reps=10)
+    big_rate = rates[OFFLOAD["big"]]
+    for w, t, r in zip(OFFLOAD["big_widths"], big, big_res):
+        per, per_res = t / cfg.num_layers * 1e3, r / cfg.num_layers * 1e3
+        full = OFFLOAD["big_stay"] * per_res + (cfg_big.num_layers - OFFLOAD["big_stay"]) * per
+        log(f"  [10] {label} w{w}: {t * 1e3:.3f} ms a forward, {per:.3f} ms a streamed layer "
+            f"(link bound {layer_bytes(cfg) / (big_rate * 1e9) * 1e3:.3f} ms); resident "
+            f"{r * 1e3:.3f} ms, {per_res:.3f} ms a layer; an {cfg_big.num_layers}-layer "
+            f"forward with {OFFLOAD['big_stay']} layers resident, reckoned: {full:.1f} ms")
+    del off, resident
+    free_host()
+    log(f"  [10] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2372,6 +2727,12 @@ def main() -> None:
         f"max branch {gm.max_branch}, level widths {gm.level_widths}")
 
     kernels = []
+    if "--offload" in sys.argv[1:]:
+        log("[10] host offload: llama-2-7b and llama-2-70b (8 layers) streamed from pinned memory")
+        host_offload(torch, gm)
+        log(f"  --offload: phase 10 only, {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return
     if "--batched" in sys.argv[1:]:
         log("[9] batched serving: llama-68m -> llama-2-7b bf16, B = 8")
         counts, batched_kernels = batched_serving(torch, gm)
@@ -2520,6 +2881,10 @@ def main() -> None:
     counts, batched_kernels = batched_serving(torch, gm)
     add(counts)
     kernels += batched_kernels
+    torch.cuda.empty_cache()
+
+    log("[10] host offload: llama-2-7b and llama-2-70b (8 layers) streamed from pinned memory")
+    add(host_offload(torch, gm, draft_time))
 
     for e in kernels:
         e["launches"] = launches.get(e["name"], 0)

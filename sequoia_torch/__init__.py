@@ -13,6 +13,7 @@ __all__ = [
     "GrowMap",
     "LlamaConfig",
     "get_config",
+    "offload_params",
 ]
 
 
@@ -29,6 +30,10 @@ def __getattr__(name):
         from .trees.growmap import GrowMap
 
         return GrowMap
+    if name == "offload_params":
+        from .engine.offload import offload_params
+
+        return offload_params
     if name in ("LlamaConfig", "get_config"):
         from .core import config as _c
 

@@ -16,11 +16,15 @@ DIR`, `--draft-weights DIR`, or the directory as the model name with
 `arrow:PATH`, or a JSON file of token-id lists. `--quant int8|int4`
 quantizes the target's weights (random init straight into quantized
 layers); `--kv-quant int8|int4` gives the target an int8 / int4 KV cache.
-Offloading is not ported yet: its flag takes only its "off" value.
+`--offloading --staylayer N` keeps the target's first N layers on the card
+and streams the rest from pinned host memory (`engine/offload.py`); random
+weights are then built straight into host memory, so a target larger than
+the card (llama-2-70b) runs.
 
     python -m sequoia_torch.cli.testbed --mode spec
     python -m sequoia_torch.cli.testbed --mode spec --quant int8
     python -m sequoia_torch.cli.testbed --mode spec --kv-quant int4
+    python -m sequoia_torch.cli.testbed --mode spec --offloading --staylayer 16
     python -m sequoia_torch.cli.testbed --draft-weights CKPT_DIR --end 4 --prompts jsonl:sequoia_tpu/data/bundled/c4_small.json
 """
 
@@ -35,7 +39,7 @@ import torch
 
 
 def build_params(name_or_path: str, weights: str, dtype_str: str, seed: int, device=None,
-                 quant_bits=None):
+                 quant_bits=None, stay_layers=None):
     """`(params, cfg)` from a preset name or a HF checkpoint directory.
 
     `weights`: "random" (random init from `seed`, on the device), "auto"
@@ -43,11 +47,16 @@ def build_params(name_or_path: str, weights: str, dtype_str: str, seed: int, dev
     directory, else random), a checkpoint directory, or a torch state-dict
     file. `quant_bits` (8 or 4) gives an int-quantized model; random init
     goes straight into quantized layers (`random_quantized_model`): a bf16
-    7B tree first would need both copies in memory at once."""
+    7B tree first would need both copies in memory at once. `stay_layers`
+    (not None) gives a host-offloaded model with that many layers on the
+    device: random init builds the streamed stacks in host memory
+    (`random_offloaded_params`), a checkpoint is read on the host and
+    offloaded from there (`offload_params`)."""
     import os
 
     from ..core import init as pinit
     from ..core.config import PRESETS, LlamaConfig, get_config
+    from ..engine.offload import offload_params, random_offloaded_params
 
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_str]
     is_ckpt_dir = os.path.isdir(name_or_path) and os.path.exists(
@@ -59,23 +68,29 @@ def build_params(name_or_path: str, weights: str, dtype_str: str, seed: int, dev
     else:
         raise ValueError(f"{name_or_path!r} is neither a preset nor a checkpoint dir")
     if weights == "random" or (weights == "auto" and not is_ckpt_dir):
+        if stay_layers is not None:
+            return random_offloaded_params(cfg, seed, bits=quant_bits, dtype=dtype,
+                                           stay_layers=stay_layers, device=device), cfg
         if quant_bits is not None:
             from ..quant.quantize import random_quantized_model
 
             return random_quantized_model(cfg, seed, bits=quant_bits, dtype=dtype,
                                           device=device), cfg
         return pinit.random_params(cfg, seed, dtype=dtype, device=device), cfg
+    load_on = device if stay_layers is None else "cpu"
     if weights == "auto":
-        params, cfg = pinit.load_hf_checkpoint(name_or_path, dtype=dtype, device=device)
+        params, cfg = pinit.load_hf_checkpoint(name_or_path, dtype=dtype, device=load_on)
     elif os.path.isdir(weights):
-        params, cfg = pinit.load_hf_checkpoint(weights, dtype=dtype, device=device)
+        params, cfg = pinit.load_hf_checkpoint(weights, dtype=dtype, device=load_on)
     else:
         sd = torch.load(weights, map_location="cpu", weights_only=True)
-        params = pinit.params_from_hf_state_dict(cfg, sd, dtype=dtype, device=device)
+        params = pinit.params_from_hf_state_dict(cfg, sd, dtype=dtype, device=load_on)
     if quant_bits is not None:
         from ..quant.quantize import quantize_model
 
         params = quantize_model(params, bits=quant_bits)
+    if stay_layers is not None:
+        params = offload_params(params, stay_layers, device=device)
     return params, cfg
 
 
@@ -159,13 +174,15 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8", "int4"],
                     help="int8 / int4 target KV cache (per-row scales)")
     ap.add_argument("--offloading", action="store_true",
-                    help="host-offloaded target weights (not ported yet)")
+                    help="stream the target's layers from pinned host memory "
+                         "(engine/offload.py; the reference's --offloading)")
+    ap.add_argument("--staylayer", type=int, default=0,
+                    help="offloading: target layers kept on the device "
+                         "(tests/run_sequoia.py --staylayer)")
     ap.add_argument("--seed", type=int, default=17)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for small checks")
     args = ap.parse_args(argv)
-    if args.offloading:
-        raise NotImplementedError("--offloading is not ported yet")
 
     from ..engine.baseline import ARBaseline
     from ..engine.engine import SpecEngine
@@ -174,7 +191,8 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     target_params, target_cfg = build_params(
         args.target, args.target_weights, args.dtype, args.seed, device,
-        quant_bits=None if args.quant == "none" else int(args.quant[3:]))
+        quant_bits=None if args.quant == "none" else int(args.quant[3:]),
+        stay_layers=args.staylayer if args.offloading else None)
     prompts = load_prompts(args.prompts, target_cfg.vocab_size, args.seed,
                            prefill_len=args.S)[args.start:args.end]
 

@@ -82,26 +82,44 @@ def params_from_numpy(tree, device=None, dtype=None) -> LlamaParams:
     `scale`) becomes a `QuantizedTensor` with its int8 `q` and f32 `scale`
     as they are, whatever q's layout: a panel-tiled int4 leaf (`tile_int4`:
     q has one more axis than its scale) crosses with its panels unchanged;
-    `dtype` applies to float leaves only."""
+    `dtype` applies to float leaves only.
+
+    Offloaded layers (JAX's `OffloadLayers`, or an object or dict with the
+    fields `resident`, which may be None, and `streamed`) come back as the
+    port's `OffloadLayers` with the same split: the streamed >= 3-D leaves
+    in host memory (pinned on the card), the rest on `device`
+    (`engine/offload.py::place_layers`)."""
     dev = resolve_device(device)
 
-    def arr(a, dt=None):
+    def arr(a, dt=None, on=dev):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             out = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             out = torch.from_numpy(np.array(a))  # a writable copy
-        return out.to(device=dev, dtype=dt or out.dtype)
+        return out.to(device=on, dtype=dt or out.dtype)
 
-    def t(a):
+    def t(a, on=dev):
         if isinstance(a, dict) or (isinstance(a, tuple) and hasattr(a, "scale")):
-            return QuantizedTensor(q=arr(_field(a, "q")), scale=arr(_field(a, "scale")))
-        return arr(a, dtype)
+            return QuantizedTensor(q=arr(_field(a, "q"), on=on),
+                                   scale=arr(_field(a, "scale"), on=on))
+        return arr(a, dtype, on)
+
+    def stack(lp, on=dev):
+        return LayerParams(*(t(_field(lp, f), on) for f in _LAYER_FIELDS))
 
     layers = _field(tree, "layers")
+    if isinstance(layers, dict) and "streamed" in layers or hasattr(layers, "streamed"):
+        from ..engine.offload import place_layers
+
+        resident = _field(layers, "resident")
+        layers = place_layers(None if resident is None else stack(resident, "cpu"),
+                              stack(_field(layers, "streamed"), "cpu"), dev)
+    else:
+        layers = stack(layers)
     return LlamaParams(
         embed=t(_field(tree, "embed")),
-        layers=LayerParams(*(t(_field(layers, f)) for f in _LAYER_FIELDS)),
+        layers=layers,
         final_norm=t(_field(tree, "final_norm")),
         lm_head=t(_field(tree, "lm_head")),
     )

@@ -27,18 +27,22 @@ each with its own cache (the batched caches of `kvcache/cache.py`), its
 own offsets and masks. The projections and the head run once on the B x Q
 rows, one weight stream for every slot; attention is one launch of the
 batched tree-attention kernel.
+
+Both take the layers as a device-resident `LayerParams` or as
+`OffloadLayers` (host offload, `engine/offload.py`), through one helper,
+`_layer_weights`, which hands each loop one layer's weights at a time.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from .config import LlamaConfig
 from ..kernels.tree_attention import tree_attention, tree_attention_batched
-from ..quant.qtensor import WeightLike, layer, matmul
+from ..quant.qtensor import QuantizedTensor, WeightLike, layer, matmul
 from ..kvcache.cache import KVCache, KVCache4, KVCache8, slot_rows
 
 
@@ -56,9 +60,26 @@ class LayerParams(NamedTuple):
     w_down: WeightLike       # [L, F, E]
 
 
+class OffloadLayers(NamedTuple):
+    """Layer stacks split by residency for host-offloaded serving (JAX's
+    `OffloadLayers`, `sequoia_tpu/core/model.py:61-80`).
+
+    `resident` holds the first `stay_layers` layers on the device (None
+    when there are none). `streamed` holds the rest: each >= 3-D leaf (a
+    float weight stack, or a quantized stack's `q` and `scale`) lies in
+    pinned host memory on the card (plain host memory on the CPU) with
+    contiguous per-layer slices, and the `[L, E]` norm stacks stay on the
+    device. `engine/offload.py` builds it; the forward streams the host
+    leaves into device staging buffers one layer ahead of the compute
+    (`_layer_weights`)."""
+
+    resident: Optional[LayerParams]
+    streamed: LayerParams
+
+
 class LlamaParams(NamedTuple):
     embed: torch.Tensor       # [V, E]
-    layers: LayerParams
+    layers: LayerParams       # or OffloadLayers (host-offloaded serving)
     final_norm: torch.Tensor  # [E]
     lm_head: WeightLike       # [E, V]
 
@@ -115,6 +136,139 @@ def _window(offset, n: int, device) -> torch.Tensor:
     return offset + torch.arange(n, device=device)
 
 
+def layer_leaves(lp: LayerParams) -> List[torch.Tensor]:
+    """The tensors of a layer stack in field order (a quantized weight
+    gives its `q`, then its `scale`)."""
+    out = []
+    for w in lp:
+        out.extend(w if isinstance(w, QuantizedTensor) else (w,))
+    return out
+
+
+def from_leaves(template: LayerParams, leaves) -> LayerParams:
+    """`template`'s structure over `leaves`: the inverse of `layer_leaves`."""
+    it = iter(leaves)
+    return LayerParams(*(QuantizedTensor(next(it), next(it)) if isinstance(w, QuantizedTensor)
+                         else next(it) for w in template))
+
+
+def is_streamed(a: torch.Tensor) -> bool:
+    """JAX's placement rule (`sequoia_tpu/engine/offload.py:53-67`): a
+    leaf of the streamed layers with >= 3 dims lies in host memory; the
+    `[L, E]` norm stacks stay on the device."""
+    return a.dim() >= 3
+
+
+class _Staging:
+    """Two device buffers per streamed host leaf, each one layer of it
+    (`[2, ...]`; layer j goes to buffer j % 2), and on the card the copy
+    stream and the events that order the copies against the compute. Made
+    once per device and layer shapes (`staging`) and reused by every
+    forward and every graph captured over them: a graph holds the buffers'
+    addresses."""
+
+    def __init__(self, host: List[torch.Tensor], device: torch.device):
+        self.bufs = [torch.empty((2, *a.shape[1:]), dtype=a.dtype, device=device)
+                     for a in host]
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            # Ordering events only (no timing): legal inside a capture.
+            self.stream = torch.cuda.Stream(device)
+            self.landed = [torch.cuda.Event(), torch.cuda.Event()]  # copy into buffer b done
+            self.freed = [torch.cuda.Event(), torch.cuda.Event()]   # last read of buffer b done
+
+    def fill(self, host: List[torch.Tensor], j: int) -> None:
+        """Copy layer j of each host leaf into buffer j % 2. On the card:
+        `cudaMemcpyAsync` from pinned memory on the copy stream (a copy
+        engine, no kernel), after the event of the buffer's last reader
+        when there was one in this forward, then the buffer's landed
+        event. On the CPU: plain copies."""
+        b = j % 2
+        if not self.cuda:
+            for buf, a in zip(self.bufs, host):
+                buf[b].copy_(a[j])
+            return
+        with torch.cuda.stream(self.stream):
+            if j >= 2:
+                self.stream.wait_event(self.freed[b])
+            for buf, a in zip(self.bufs, host):
+                buf[b].copy_(a[j], non_blocking=True)
+            self.landed[b].record(self.stream)
+
+
+_STAGING: Dict[tuple, _Staging] = {}
+
+
+def staging(streamed: LayerParams, device) -> _Staging:
+    """The staging buffers (and copy stream) of `streamed`'s layer shapes
+    on `device`, made on first use."""
+    host = [a for a in layer_leaves(streamed) if is_streamed(a)]
+    key = (torch.device(device), tuple((tuple(a.shape[1:]), a.dtype) for a in host))
+    if key not in _STAGING:
+        _STAGING[key] = _Staging(host, key[0])
+    return _STAGING[key]
+
+
+def _layer_weights(layers, num_layers: int, device) -> Iterator[LayerParams]:
+    """Each layer's weights in order, as a one-layer `LayerParams`: the
+    helper both layer loops take their weights from.
+
+    Resident layers are views into their stacks. For `OffloadLayers`, the
+    streamed layer j (after the resident ones) is copied from host memory
+    into staging buffer j % 2. The copies of the first two streamed layers
+    are enqueued here, as the forward starts, so they overlap the embedding
+    and the resident layers; layer j + 2's copy is enqueued when the loop
+    comes back after layer j, the buffer's last reader. On the card the
+    copies run on the staging copy stream, which forks from the current
+    (compute) stream here and joins it after the last layer, so a captured
+    forward holds its copies in the same graph; layer j waits for its own
+    copy's event, and the copy into a buffer waits for an event recorded
+    after the buffer's last reader. On the CPU the same buffers are filled
+    in the same order with plain copies."""
+    if isinstance(layers, LayerParams):
+        return (LayerParams(*(layer(w, i) for w in layers)) for i in range(num_layers))
+    if not isinstance(layers, OffloadLayers):
+        raise TypeError(f"unknown layer stack {type(layers).__name__}")
+    n_res = 0 if layers.resident is None else layers.resident.attn_norm.shape[0]
+    n_str = layers.streamed.attn_norm.shape[0]
+    if n_res + n_str != num_layers:
+        raise ValueError(f"{n_res} resident + {n_str} streamed layers, config has {num_layers}")
+    flat = layer_leaves(layers.streamed)
+    host = [a for a in flat if is_streamed(a)]
+    st = staging(layers.streamed, device)
+    compute = None
+    if st.cuda:
+        # A pageable copy neither overlaps nor captures: refuse it (a
+        # capture refuses it on its own).
+        if not torch.cuda.is_current_stream_capturing() and not all(a.is_pinned() for a in host):
+            raise RuntimeError("streamed layers must lie in pinned host memory "
+                               "(engine/offload.py::offload_params)")
+        compute = torch.cuda.current_stream(st.bufs[0].device)
+        st.stream.wait_stream(compute)   # fork; also orders after earlier readers
+    for j in range(min(2, n_str)):
+        st.fill(host, j)
+    return _streamed_layers(layers, n_res, n_str, flat, host, st, compute)
+
+
+def _streamed_layers(layers: OffloadLayers, n_res: int, n_str: int, flat, host,
+                     st: _Staging, compute) -> Iterator[LayerParams]:
+    for i in range(n_res):
+        yield LayerParams(*(layer(w, i) for w in layers.resident))
+    for j in range(n_str):
+        b = j % 2
+        if st.cuda:
+            compute.wait_event(st.landed[b])
+        bufs = iter(st.bufs)
+        yield from_leaves(layers.streamed,
+                          [next(bufs)[b] if is_streamed(a) else a[j] for a in flat])
+        if j + 2 < n_str:
+            if st.cuda:
+                st.freed[b].record(compute)
+            st.fill(host, j + 2)
+    if st.cuda:
+        compute.wait_stream(st.stream)   # join
+
+
 def forward(
     params: LlamaParams,
     cfg: LlamaConfig,
@@ -138,15 +292,13 @@ def forward(
     """
     if not isinstance(kv, (KVCache, KVCache8, KVCache4)):
         raise TypeError(f"forward: unknown KV cache {type(kv).__name__}")
-    if not isinstance(params.layers, LayerParams):
-        raise NotImplementedError("only device-resident LayerParams are ported")
     quantized_kv = not isinstance(kv, KVCache)
     Q = tokens.shape[0]
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     scale = D ** -0.5
     split = scratch is not None
     dev = tokens.device
-    lp = params.layers
+    weights = _layer_weights(params.layers, cfg.num_layers, dev)
 
     hidden = params.embed[tokens]  # [Q, E]
     cos, sin = rope_cos_sin(position_ids, cfg)
@@ -160,11 +312,11 @@ def forward(
         empty = hidden.new_zeros((0, Hkv, D))
         scr_mask = torch.zeros((Q, 0), dtype=torch.bool, device=dev)
 
-    for i in range(cfg.num_layers):
-        x = rms_norm(hidden, lp.attn_norm[i], cfg.rms_norm_eps)
-        q = matmul(x, layer(lp.wq, i)).reshape(Q, H, D)
-        k = matmul(x, layer(lp.wk, i)).reshape(Q, Hkv, D)
-        v = matmul(x, layer(lp.wv, i)).reshape(Q, Hkv, D)
+    for i, w in enumerate(weights):
+        x = rms_norm(hidden, w.attn_norm, cfg.rms_norm_eps)
+        q = matmul(x, w.wq).reshape(Q, H, D)
+        k = matmul(x, w.wk).reshape(Q, Hkv, D)
+        v = matmul(x, w.wv).reshape(Q, Hkv, D)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -184,11 +336,11 @@ def forward(
                               sk, sv, scr_mask, scale=scale,
                               ks=kv.ks[i] if quantized_kv else None,
                               vs=kv.vs[i] if quantized_kv else None)
-        hidden = hidden + matmul(attn.reshape(Q, H * D), layer(lp.wo, i))
+        hidden = hidden + matmul(attn.reshape(Q, H * D), w.wo)
 
-        y = rms_norm(hidden, lp.mlp_norm[i], cfg.rms_norm_eps)
-        gate = torch.nn.functional.silu(matmul(y, layer(lp.w_gate, i)))
-        mlp = matmul(gate * matmul(y, layer(lp.w_up, i)), layer(lp.w_down, i))
+        y = rms_norm(hidden, w.mlp_norm, cfg.rms_norm_eps)
+        gate = torch.nn.functional.silu(matmul(y, w.w_gate))
+        mlp = matmul(gate * matmul(y, w.w_up), w.w_down)
         hidden = hidden + mlp
 
     hidden = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
@@ -215,8 +367,6 @@ def forward_batched(
     engine may sit at the end of its buffer)."""
     if not isinstance(kv, (KVCache, KVCache8, KVCache4)) or kv.batch is None:
         raise TypeError("forward_batched: needs a batched KV cache")
-    if not isinstance(params.layers, LayerParams):
-        raise NotImplementedError("only device-resident LayerParams are ported")
     quantized_kv = not isinstance(kv, KVCache)
     B, Q = tokens.shape
     R = B * Q
@@ -224,7 +374,7 @@ def forward_batched(
     scale = D ** -0.5
     split = scratch is not None
     dev = tokens.device
-    lp = params.layers
+    weights = _layer_weights(params.layers, cfg.num_layers, dev)
 
     hidden = params.embed[tokens.reshape(-1)]  # [B*Q, E]
     cos, sin = rope_cos_sin(position_ids.reshape(-1), cfg)
@@ -238,11 +388,11 @@ def forward_batched(
         empty = hidden.new_zeros((B, 0, Hkv, D))
         scr_mask = torch.zeros((B, Q, 0), dtype=torch.bool, device=dev)
 
-    for i in range(cfg.num_layers):
-        x = rms_norm(hidden, lp.attn_norm[i], cfg.rms_norm_eps)
-        q = matmul(x, layer(lp.wq, i)).reshape(R, H, D)
-        k = matmul(x, layer(lp.wk, i)).reshape(R, Hkv, D)
-        v = matmul(x, layer(lp.wv, i)).reshape(R, Hkv, D)
+    for i, w in enumerate(weights):
+        x = rms_norm(hidden, w.attn_norm, cfg.rms_norm_eps)
+        q = matmul(x, w.wq).reshape(R, H, D)
+        k = matmul(x, w.wk).reshape(R, Hkv, D)
+        v = matmul(x, w.wv).reshape(R, Hkv, D)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -262,11 +412,11 @@ def forward_batched(
                                       sk, sv, scr_mask, scale=scale,
                                       ks=kv.ks[i] if quantized_kv else None,
                                       vs=kv.vs[i] if quantized_kv else None)
-        hidden = hidden + matmul(attn.reshape(R, H * D), layer(lp.wo, i))
+        hidden = hidden + matmul(attn.reshape(R, H * D), w.wo)
 
-        y = rms_norm(hidden, lp.mlp_norm[i], cfg.rms_norm_eps)
-        gate = torch.nn.functional.silu(matmul(y, layer(lp.w_gate, i)))
-        mlp = matmul(gate * matmul(y, layer(lp.w_up, i)), layer(lp.w_down, i))
+        y = rms_norm(hidden, w.mlp_norm, cfg.rms_norm_eps)
+        gate = torch.nn.functional.silu(matmul(y, w.w_gate))
+        mlp = matmul(gate * matmul(y, w.w_up), w.w_down)
         hidden = hidden + mlp
 
     hidden = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)

@@ -119,6 +119,41 @@ def format_inst(prompt: str) -> str:
     return "[INST]" + prompt + "[/INST]" + "\n\nASSISTANT:"
 
 
+MT_BENCH_URL = (
+    "https://raw.githubusercontent.com/lm-sys/FastChat/main/"
+    "fastchat/llm_judge/data/mt_bench/question.jsonl"
+)
+# The repository's bundled copy of the MT-Bench questions (a data file).
+BUNDLED_MT_BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "sequoia_tpu", "data", "bundled", "mt_bench.jsonl")
+
+
+def _fetch(url: str, path: str) -> None:
+    import urllib.request
+
+    urllib.request.urlretrieve(url, path)
+
+
+def ensure_mt_bench(data_root: str) -> str:
+    """The local MT-Bench path: `data_root/mt_bench.jsonl` if present, else
+    the bundled copy, else a download into `data_root`
+    (`tests/run_sequoia.py:284-292`), which raises when it fails."""
+    path = os.path.join(data_root, "mt_bench.jsonl")
+    if os.path.exists(path):
+        return path
+    if os.path.exists(BUNDLED_MT_BENCH):
+        return BUNDLED_MT_BENCH
+    try:
+        os.makedirs(data_root, exist_ok=True)
+        _fetch(MT_BENCH_URL, path)
+        return path
+    except OSError as e:   # urllib's URLError / HTTPError included
+        raise RuntimeError(
+            f"mt_bench.jsonl not found at {path} and download failed ({e}); "
+            f"place the FastChat question.jsonl there manually"
+        ) from e
+
+
 # ---------------------------------------------------------------------------
 # Tokenizer-backed converters (reference parity; need HF `datasets` and a
 # network or a local cache)

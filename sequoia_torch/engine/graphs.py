@@ -27,11 +27,15 @@ hundreds of kernels.
   card.
 
 Capture warms up first (`warmup`): the phases run once eagerly on a side
-stream, which builds the kernels (`build.load()`), creates cuBLAS handles
-and loads lazy modules before any of that could fall inside a capture. No
-CUDA event is recorded inside a capture; the engines' phase clocks mark
-between replays. A capture or a replay that fails raises: nothing falls back
-to the eager loop.
+stream, which builds the kernels (`build.load()`), creates cuBLAS handles,
+loads lazy modules and allocates the offload staging buffers before any of
+that could fall inside a capture. No timing event is recorded inside a
+capture: the engines' phase clocks mark between replays. Ordering events
+are: a forward over host-offloaded layers (`core/model.py::_layer_weights`)
+forks its copy stream from the capturing stream and joins it back with
+events (`wait_stream` / `wait_event`), so its host-to-device copies and
+their order against the compute are nodes of the same graph. A capture or
+a replay that fails raises: nothing falls back to the eager loop.
 """
 
 from __future__ import annotations

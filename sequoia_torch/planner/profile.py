@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core.config import LlamaConfig
-from ..core.model import LlamaParams, forward, forward_batched
+from ..core.model import LlamaParams, OffloadLayers, forward, forward_batched
 from ..engine.graphs import GraphSet
 from ..kvcache.cache import KV_CACHES, KVCache
 
@@ -43,7 +43,7 @@ def time_forward_widths(
     max_length: int = 256,
     kv_len: int = 128,
     dtype=torch.bfloat16,
-    reps: int = 50,
+    reps: Optional[int] = None,
     batch: int = 1,
     kv_quant: Optional[str] = None,
 ) -> List[float]:
@@ -65,11 +65,17 @@ def time_forward_widths(
     `batch > 1` (JAX: the vmapped forward) times `forward_batched` over
     `batch` slots, each with its own main cache of `kv_quant` (the serving
     cache format) and scratch, at the same position: the batched engine's
-    verify. Width is per slot; the projections see `batch * width` rows."""
+    verify. Width is per slot; the projections see `batch * width` rows.
+
+    `reps` None: 50, or 2 for a host-offloaded target (`OffloadLayers`),
+    whose forward costs its streamed bytes over the host link (a quarter
+    of a second at 7B) whatever the width."""
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     if kv_quant not in KV_CACHES:
         raise ValueError(f"kv_quant must be one of none, int8, int4; got {kv_quant!r}")
+    if reps is None:
+        reps = 2 if isinstance(params.layers, OffloadLayers) else 50
     dev = params.embed.device
     slots = None if batch == 1 else batch
     kv = KV_CACHES[kv_quant].init(cfg, max_length, dtype, device=dev, batch=slots)

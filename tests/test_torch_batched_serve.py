@@ -9,6 +9,7 @@ with its request's seed, and serve_device's outputs do not depend on
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -38,6 +39,17 @@ PROMPTS = [
 ]
 GREEDY = dict(algorithm="greedy", max_length=96, prefill_chunk=16)
 SEQUOIA = dict(algorithm="sequoia", max_length=96, prefill_chunk=16, temperature=0.8, top_p=0.9)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its eager runs are small, and
+    with several test workers sharing the cores a many-threaded run of
+    them is 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -669,3 +669,123 @@ def test_batched_ar_graphs_equal_single_requests():
     for i, (p, out) in enumerate(zip(BATCH_PROMPTS, outs)):
         np.testing.assert_array_equal(out, single.generate(p, 20, seed=6 + i))
     assert ar.graph_report()["step"]["replays"] > 0
+
+
+def _small_offload(stay, dtype=torch.float32, bits=None):
+    """test-small on the card, resident and offloaded with `stay` layers
+    kept (the rest in pinned host memory), float or int8 / int4."""
+    from sequoia_torch.core.config import get_config
+    from sequoia_torch.core.init import random_params
+    from sequoia_torch.engine.offload import offload_params
+    from sequoia_torch.quant.quantize import quantize_model
+
+    cfg = get_config("test-small")
+    target = random_params(cfg, 8, dtype=dtype, device="cuda")
+    if bits:
+        target = quantize_model(target, bits=bits)
+    return cfg, target, offload_params(target, stay_layers=stay)
+
+
+def _split_forward(cfg, dtype, width=7, kv_len=20, M=64):
+    from sequoia_torch.core.model import forward
+    from sequoia_torch.kvcache.cache import KVCache
+
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    kv = KVCache.init(cfg, M, dtype, "cuda")
+    for t in (kv.k, kv.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (width,), generator=gen, device="cuda")
+    pos = kv_len + torch.arange(width, device="cuda")
+    mask = (torch.arange(M, device="cuda") < kv_len)[None, :].expand(width, M).contiguous()
+    smask = torch.tril(torch.ones(width, width, dtype=torch.bool, device="cuda"))
+
+    def run(params):
+        scratch = KVCache.init(cfg, width, dtype, "cuda")
+        logits, _ = forward(params, cfg, tokens, pos, kv, kv_len, mask, scratch=scratch,
+                            scratch_offset=0, scratch_mask=smask)
+        return logits, scratch.k, scratch.v
+
+    return run
+
+
+def _poison(bufs):
+    for b in bufs:
+        b.fill_(float("nan") if b.is_floating_point() else -128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stay,dtype,bits", [(0, torch.float32, None), (1, torch.float32, None),
+                                             (0, torch.bfloat16, None), (1, torch.bfloat16, 8),
+                                             (0, torch.bfloat16, 4)])
+def test_offloaded_forward_equals_resident_eager_and_captured(stay, dtype, bits):
+    """The streamed layers lie in pinned memory; the offloaded forward
+    equals the resident one bit for bit, eager and replayed from a graph
+    (its copies captured with it), also with both staging buffers poisoned
+    on the compute stream before the forward or the replay."""
+    _need_cuda()
+    from sequoia_torch.core.model import is_streamed, layer_leaves
+    from sequoia_torch.engine.graphs import GraphSet
+    from sequoia_torch.engine.offload import staging_buffers
+
+    cfg, target, off = _small_offload(stay, dtype, bits)
+    assert all(a.is_pinned() for a in layer_leaves(off.layers.streamed) if is_streamed(a))
+    assert all(a.is_cuda for a in layer_leaves(off.layers.streamed) if not is_streamed(a))
+    run = _split_forward(cfg, dtype)
+    want = [t.clone() for t in run(target)]
+
+    def same(got):
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    same(run(off))
+    bufs = staging_buffers(off)
+    _poison(bufs)
+    same(run(off))
+    graphs = GraphSet(torch.device("cuda"))
+    with graphs.warmup():
+        run(off)
+    outs = graphs.capture("forward", lambda: run(off))
+    for _ in range(2):
+        _poison(bufs)
+        graphs.replay("forward")
+        same(outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["greedy", "sequoia"])
+def test_offloaded_engines_equal_resident(algo):
+    """`generate_fast` (graph replays with the copy stream in them) and the
+    eager `generate` give the resident target's tokens; AR too."""
+    _need_cuda()
+    from sequoia_torch.core.init import random_params
+    from sequoia_torch.engine.baseline import ARBaseline
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.trees.growmap import uniform_tree
+
+    cfg, target, off = _small_offload(1)
+    kw = dict(max_length=128, temperature=0.7, top_p=0.9, prefill_chunk=16, device="cuda")
+    draft = random_params(cfg, 7, dtype=torch.float32, device="cuda")
+    runs = []
+    for t in (target, off):
+        eng = SpecEngine(draft, cfg, t, cfg, uniform_tree(3, 2), algorithm=algo, **kw)
+        ar = ARBaseline(t, cfg, greedy=algo == "greedy", **kw)
+        runs.append((eng.generate_fast(PROMPT, 30, seed=3), eng.generate(PROMPT, 30, seed=3),
+                     ar.generate_fast(PROMPT, 30, seed=3)))
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_offload_pageable_streamed_layers_raise():
+    """No pageable fallback: streamed layers that are not pinned raise."""
+    _need_cuda()
+    from sequoia_torch.core.model import OffloadLayers, from_leaves, is_streamed, layer_leaves
+
+    cfg, target, off = _small_offload(0)
+    streamed = off.layers.streamed
+    pageable = from_leaves(streamed, [a.clone() if is_streamed(a) else a
+                                      for a in layer_leaves(streamed)])
+    assert not pageable.wq.is_pinned()
+    params = off._replace(layers=OffloadLayers(resident=None, streamed=pageable))
+    with pytest.raises(RuntimeError, match="pinned"):
+        _split_forward(cfg, torch.float32)(params)

@@ -188,6 +188,17 @@ def test_plain_attention_folds_the_scales_exactly(kv_quant, packing):
 
 # (c) forward with a quantized cache against the JAX forward ------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its eager runs are small, and
+    with several test workers sharing the cores a many-threaded run of
+    them is 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jd = jax_random_params(CFG_J, jax.random.PRNGKey(7), dtype=jnp.float32)

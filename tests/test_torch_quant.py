@@ -193,6 +193,17 @@ def test_float_matmul_is_unchanged():
 
 # (d) quantized forward against the JAX forward ------------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its eager runs are small, and
+    with several test workers sharing the cores a many-threaded run of
+    them is 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def quant_models():
     jd = jax_random_params(CFG_J, jax.random.PRNGKey(7), dtype=jnp.float32)

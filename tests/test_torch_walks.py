@@ -148,6 +148,17 @@ def test_staged_plan_row_sets():
         np.testing.assert_array_equal(c.numpy(), succ[parents[:n_js[j]], j])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its eager runs are small, and
+    with several test workers sharing the cores a many-threaded run of
+    them is 10-100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     return (random_params(CFG, 7, dtype=torch.float32, device="cpu"),
