@@ -8,6 +8,7 @@
     python3 chip_smoke.py --plan        # phases 1, 2 and 8 (its own short bf16 curve)
     python3 chip_smoke.py --batched     # phases 1, 2 and 9
     python3 chip_smoke.py --offload     # phases 1, 2 and 10
+    python3 chip_smoke.py --tp          # phases 1, 2 and 11
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -60,7 +61,7 @@ Phases, each fatal on failure:
      the testbed's entry points (`generate_fast`: the captured graphs'
      kernel nodes and capture seconds, then replays, whose launches count),
      with launch counts of every kernel; on the bf16, int8 and int4 paths
-     also the eager `generate` on the same prompts and seeds (bf16: the
+     also the eager `generate` on prompt 0 and its seed (bf16: the
      tokens must equal the replayed ones), the graphs' replay device times,
      and the busy share of graphed runs (profiler trace, and replay
      events); then
@@ -118,7 +119,25 @@ Phases, each fatal on failure:
      addresses); llama-2-70b at full width cut to 8 layers, all streamed
      (built in pinned memory): device ms at widths 1, 64 and 512 and a
      layer, beside the same 8 layers resident, and the reckoned 80-layer
-     forward with 36 layers resident.
+     forward with 36 layers resident;
+ 11. tensor parallelism (`parallel/`): first each kernel at (b)'s shard
+     shapes against its plain version (tree attention at 16 heads in
+     every cache format, the quant matmuls at every 7B shard shape, w4a8
+     and the quantizer with whole-row maxima); (a) an NCCL group of one
+     rank in this process and a (1, 1) mesh: the bf16 7B path through
+     `SpecEngine(mesh=...)` and `generate_fast`, the collectives captured
+     into the decode graphs, greedy and stochastic tokens equal to the
+     mesh-less engine's, each graph's kernel and NCCL nodes, Sequoia
+     ms/token, replay ms and prefill ms with and without the mesh; (b) two
+     processes on the one card over gloo at tp = 2 (NCCL takes one rank a
+     card), llama-2-7b width cut to 4 layers: the verify forward (Q = 64
+     over a 128-token prefix) with bf16, int8 and tiled int4 weights
+     against the unsharded forward within 2e-2 of its largest |logit|
+     (w4a8 logged beside the route's own distance from int4 weight-only),
+     one row-parallel w4a8 layer with whole-row maxima within 1e-5 of the
+     unsharded layer, and a 32-token greedy generate equal to the
+     unsharded one up to the first top-2 logit gap under that amount; a
+     failed rank fails the run.
 
 Prints the kernels JSON line and the card line before the last line, and
 ends with one JSON line {"ok": true, "device": {...}}. Exits non-zero,
@@ -153,7 +172,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's heading ("[N] ...") with the seconds since
+    the script started, so the phases' times can be read off the log."""
+    if re.match(r"\[\d+\]", msg):
+        msg += f"  (t = {time.perf_counter() - T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -320,7 +346,7 @@ def attention_times(q, main, scr, D, H, Hkv, itemsize, kv_item=None):
     return t_bytes, ops * 1e3
 
 
-def check_tree_attention(torch, gm, results):
+def check_tree_attention(torch, gm, results, cases=None, note=""):
     """The float-cache kernel at every attention shape of the main path, and
     each quantized cache format at the verify, AR-step and prefill shapes
     (and the f32 verify). The f32 route also at phase 7's shapes (Q = 1, 16,
@@ -328,7 +354,10 @@ def check_tree_attention(torch, gm, results):
     rows), where its error and SDPA f32's against an f64 version of the
     plain version are printed (the kernel's held to 1e-4 of the largest
     |output|). The library yardstick is SDPA on the float cache (for a
-    quantized one: on its dequantized rows) under the same mask."""
+    quantized one: on its dequantized rows) under the same mask. `cases`
+    (name, `attention_case` arguments, tolerance) replace the main path's
+    shapes, e.g. a tensor-parallel shard's heads; `note` goes into each
+    entry's shape."""
     from sequoia_torch.kernels.tree_attention import (TILE_K, counter, split_count,
                                                       tile_extents, tree_attention,
                                                       tree_attention_plain)
@@ -343,7 +372,7 @@ def check_tree_attention(torch, gm, results):
         m[:, 0] = False
         draft_scr.append((w, m))
     ts = 191  # a decode step: 128-token prompt plus 64 generated
-    cases = [
+    cases = cases or [
         # name, kwargs, tolerance
         ("verify", dict(Q_rows=gm.size, layers=32, H=32, Hkv=32, D=128, M=256,
                         S=gm.size, ts=ts, dtype=torch.bfloat16, scratch_rows=anc), 2e-2),
@@ -356,11 +385,12 @@ def check_tree_attention(torch, gm, results):
         ("redraft_68m", dict(Q_rows=1, layers=2, H=12, Hkv=12, D=64, M=256, S=0, ts=0,
                              dtype=torch.bfloat16, causal_offset=ts), 2e-2),
     ]
-    for Q in (1, 16, 64):   # phase 7's f32 curve: kv_len 128, a causal scratch of Q rows
+    f32_rows = () if note else (1, 16, 64)
+    for Q in f32_rows:   # phase 7's f32 curve: kv_len 128, a causal scratch of Q rows
         cases.append((f"f32_q{Q}", dict(
             Q_rows=Q, layers=4, H=32, Hkv=32, D=128, M=256, S=Q, ts=128, dtype=torch.float32,
             scratch_rows=torch.tril(torch.ones(Q, Q, dtype=torch.bool, device="cuda"))), 1e-4))
-    for lvl, (w, m) in enumerate(draft_scr):
+    for lvl, (w, m) in enumerate(draft_scr if not note else ()):
         cases.append((f"grow_68m_l{lvl}", dict(Q_rows=w, layers=2, H=12, Hkv=12, D=64,
                                                M=256, S=gm.size, ts=ts + 1,
                                                dtype=torch.bfloat16, scratch_rows=m), 2e-2))
@@ -436,7 +466,7 @@ def check_tree_attention(torch, gm, results):
                 results.append(dict(
                     name=kname, route="cuda", source="sequoia_torch/csrc/tree_attention.cu",
                     replaces="sequoia_tpu/kernels/tree_attention.py:111",
-                    shape=f"verify Q={q.shape[0]} H={H} D={D} M={main.shape[1]} "
+                    shape=f"{note}verify Q={q.shape[0]} H={H} D={D} M={main.shape[1]} "
                           f"S={scr.shape[1]} {'bf16' if itemsize == 2 else 'f32'}, "
                           f"main cache {fmt}",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -747,7 +777,7 @@ def check_quant_matmul(torch, results):
             x_dt = torch.bfloat16 if xs == "bf16" else torch.float32
             out_dt = torch.bfloat16 if outs == "bf16" else torch.float32
             wbytes = K * N * bits // 8
-            n = max(2, -(-150_000_000 // wbytes))
+            n = max(2, -(-100_000_000 // wbytes))   # twice the 50 MB L2
             Kq = K if bits == 8 else K // 2
             rowmajor = [torch.randint(-128, 128, (Kq, N), generator=gen, device="cuda",
                                       dtype=torch.int8) for _ in range(n)]
@@ -1477,7 +1507,7 @@ def full_width(torch, gm, models, label, need, *, kv_quant=None, run_ar=True, ex
     `run_ar` is off) and Sequoia over the prompts through `generate_fast`
     (CUDA-graph replays; the testbed's timed entry point), with the kernels
     in `need` required to launch under replay. `extras` adds the eager
-    `generate` over the same prompts and seeds (the eager-vs-graphed
+    `generate` over prompt 0 with its seed (the eager-vs-graphed
     column; `check_eager` fails unless the tokens are equal), the phase
     graphs' replay times (`generate_benchmark`), the step graph's, the
     profiler traces of graphed runs and the busy share; `dsplit_prompt` one
@@ -1599,21 +1629,17 @@ def full_width(torch, gm, models, label, need, *, kv_quant=None, run_ar=True, ex
                  f"sequoia {sq_launches[k]}")
 
     if extras:
-        # The eager loops over the same prompts and seeds: the time the
-        # graphs save, and the same tokens.
-        e_ar = e_sq = 0.0
-        same = []
-        for i, p in enumerate(prompts):
-            out, dt = timed(ar.generate, p, SEED + i)
-            e_ar += dt
-            same.append(np.array_equal(out, ar_out[i]))
-            out, dt = timed(eng.generate, p, SEED + i)
-            e_sq += dt
-            same.append(np.array_equal(out, sq_out[i]))
-        log(f"  eager generate, the same prompts and seeds: AR {e_ar / ar_tokens * 1e3:.3f} "
-            f"ms/token, sequoia {e_sq / sq_tokens * 1e3:.3f} ms/token; graphed / eager: AR "
-            f"{t_ar / e_ar:.3f}, sequoia {t_sq / e_sq:.3f}; tokens equal to the replayed "
-            f"runs: {all(same)} ({same})")
+        # The eager loops over prompt 0 with its seed: the time the graphs
+        # save, and the same tokens.
+        p = prompts[0]
+        ar_e, e_ar = timed(ar.generate, p, SEED)
+        sq_e, e_sq = timed(eng.generate, p, SEED)
+        same = [np.array_equal(ar_e, ar_out[0]), np.array_equal(sq_e, sq_out[0])]
+        n_ar, n_sq = len(ar_out[0]) - len(p), len(sq_out[0]) - len(p)
+        log(f"  eager generate, prompt 0 and its seed: AR {e_ar / n_ar * 1e3:.3f} ms/token, "
+            f"sequoia {e_sq / n_sq * 1e3:.3f} ms/token; graphed / eager: AR "
+            f"{ar_dts[0] / e_ar:.3f}, sequoia {sq_dts[0] / e_sq:.3f}; tokens equal to the "
+            f"replayed runs: {all(same)} ({same})")
         if check_eager and not all(same):
             fail(f"{label}: replayed tokens differ from eager ones (seeded, AR and sequoia "
                  f"per prompt: {same})")
@@ -2686,6 +2712,542 @@ def host_offload(torch, gm, draft_time=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: tensor parallelism (parallel/, the forward's tp collectives)
+# ---------------------------------------------------------------------------
+
+# (b)'s two gloo ranks on the one card: llama-2-7b at full width, depth cut
+# to `layers`; the verify forward of Q = the planned tree's 64 nodes over a
+# `prefix`-token prefix, then a `gen`-token greedy generate. The tolerance:
+# the sharded logits within `tol` of the unsharded run's largest |logit|
+# (bf16 activations: each rank's partial sums round to bf16 before the
+# all-reduce, and w4a8's int8 levels move with them), and greedy tokens
+# equal up to the first position whose unsharded top-2 logit gap is under
+# that same absolute amount.
+TP_CHECK = dict(tp=2, layers=4, prefix=128, gen=32, tol=2e-2, max_length=256)
+TP_FORMATS = {   # weight format -> kernels its sharded forward must launch
+    "bf16": ("tree_attention",), "int8": ("quant_matmul_int8_wgmma",),
+    "tiled int4": ("quant_matmul_tiled_wgmma",),
+    "w4a8": ("quant_matmul_w4a8", "quantize_activations")}
+# The w4a8 forward is logged beside the route's own distance from
+# weight-only int4 on the same weights, not held to TP_CHECK["tol"]: at 7B
+# width some activation always lies within one f32 rounding of an int8
+# tie, so any other decomposition of a product (key splits, GEMM tiles, the
+# partial sums) flips a level, and each flip moves the next layers'
+# activations past more ties: 3.4% of max |logit| at 4 layers with bf16 x
+# and 3.6% with f32 x on an H100, 60% of the route's own distance. What the
+# tensor-parallel path itself adds is held apart, exactly: one row-parallel
+# w4a8 layer (`tp_row_layer`).
+TP_LOGGED = ("w4a8",)
+TP_ROW_TOL = 1e-5   # the row layer: two f32 partial sums against one
+TP_SHAPES = {   # llama-2-7b's shard shapes under tp: (K, N) of each projection kind
+    "col qkvo": lambda tp: (4096, 4096 // tp), "col gate/up": lambda tp: (4096, 11008 // tp),
+    "col lm_head": lambda tp: (4096, 32000 // tp), "row wo": lambda tp: (4096 // tp, 4096),
+    "row w_down": lambda tp: (11008 // tp, 4096)}
+TP_REPORT = ("col gate/up", "row w_down")   # shard shapes of the kernels line
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def graph_kernel_names(graph):
+    """Function names of a captured graph's kernel nodes (libcuda's
+    cuGraphKernelNodeGetParams and cuFuncGetName, CUDA 12.3+), or None where
+    libcuda does not give them."""
+    import ctypes
+
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+        get_name = cuda.cuFuncGetName
+    except (OSError, AttributeError):
+        return None
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    cuda.cuGraphGetNodes(g, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n))
+    kind, names = ctypes.c_int(), []
+    params = (ctypes.c_void_p * 16)()   # CUDA_KERNEL_NODE_PARAMS(_v2): the function first
+    for node in nodes:
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:
+            continue
+        name = ctypes.c_char_p()
+        if (cuda.cuGraphKernelNodeGetParams(ctypes.c_void_p(node), params) != 0
+                or not params[0] or get_name(ctypes.byref(name), ctypes.c_void_p(params[0])) != 0):
+            return None
+        names.append(name.value.decode(errors="replace"))
+    return names
+
+
+def tp_graph_line(torch, engine):
+    """Each captured phase's nodes and its NCCL kernel nodes."""
+    out = []
+    for name, g in engine._graphs.graphs.items():
+        nodes, names = graph_nodes(g.graph), graph_kernel_names(g.graph)
+        nccl = "?" if names is None else sum("nccl" in k.lower() for k in names)
+        out.append(f"{name} {nodes['kernel']} kernels ({nccl} NCCL) {nodes['memcpy']} memcpy "
+                   f"{nodes['other']} other")
+    return ", ".join(out)
+
+
+def tp_world1(torch, gm):
+    """Phase 11 (a): an NCCL group of one rank in this process, a (1, 1)
+    mesh, the bf16 llama-68m -> llama-2-7b path through `SpecEngine(mesh=...)`
+    and `generate_fast`: the collectives captured into the decode graphs.
+    Tokens equal to the mesh-less engine's with the same seeds, greedy and
+    stochastic; each graph's kernel nodes and NCCL nodes beside the
+    mesh-less ones; Sequoia ms/token with the mesh and without it (the
+    difference: the collectives' nodes). Returns the mesh run's launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sequoia_torch.cli.testbed import load_prompts
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.kernels import build
+    from sequoia_torch.parallel.sharding import make_mesh, shard_params
+    from sequoia_torch.utils import hard_sync
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(tp=1)
+        target, tcfg, draft, dcfg = load_models(torch)
+        starget = shard_params(target, mesh)
+        prompts = load_prompts(FULL["prompts"], tcfg.vocab_size, SEED)
+        M, T, P = FULL["max_length"], FULL["T"], FULL["P"]
+        kw = dict(max_length=M, temperature=T, top_p=P, device="cuda")
+        engines = {}
+        for algo in ("greedy", "sequoia"):
+            engines[algo] = (SpecEngine(draft, dcfg, target, tcfg, gm, algorithm=algo, **kw),
+                             SpecEngine(draft, dcfg, starget, tcfg, gm, algorithm=algo,
+                                        mesh=mesh, **kw))
+            for e in engines[algo]:
+                e.generate_fast(prompts[0], max_new_tokens=4)   # capture
+        plain, meshed = engines["sequoia"]
+        log(f"  graphs, mesh-less: {tp_graph_line(torch, plain)}")
+        log(f"  graphs, (1, 1) NCCL mesh: {tp_graph_line(torch, meshed)}")
+        for algo, (e0, e1) in engines.items():
+            for i, p in enumerate(prompts):
+                a = e0.generate_fast(p, max_new_tokens=64, seed=SEED + i)
+                b = e1.generate_fast(p, max_new_tokens=64, seed=SEED + i)
+                if len(b) <= len(p) or not np.array_equal(a, b):
+                    fail(f"[11] {algo}: tokens under the NCCL mesh differ from the "
+                         f"mesh-less engine's (prompt {i})")
+        log("  greedy and stochastic tokens under the mesh equal the mesh-less engine's "
+            f"({len(prompts)} prompts x 64 tokens each)")
+
+        def ms_per_token(e, p, seed):
+            hard_sync("cuda")
+            t0 = time.perf_counter()
+            e.generate_fast(p, max_new_tokens=FULL["gen"], seed=seed)
+            hard_sync("cuda")
+            return (time.perf_counter() - t0) * 1e3 / e.num_decoding_steps
+
+        build.reset_launches()                 # phase 11 (a)'s main path
+        times = {"mesh-less": [], "mesh": []}
+        for i, p in enumerate(prompts):        # mesh-less, mesh, mesh, mesh-less
+            times["mesh-less"].append(ms_per_token(plain, p, SEED + i))
+            times["mesh"].append(ms_per_token(meshed, p, SEED + i))
+            times["mesh"].append(ms_per_token(meshed, p, SEED + i))
+            times["mesh-less"].append(ms_per_token(plain, p, SEED + i))
+        counts = dict(build.launches)
+        for k in ("tree_attention", "top_p_threshold_from_logits"):   # Sequoia's kernels
+            if counts.get(k, 0) == 0:
+                fail(f"[11] {k} never launched on the mesh path")
+        a, b = (statistics.median(times[k]) for k in ("mesh-less", "mesh"))
+        pre = [prefill_ms(torch, e, prompts[0]) for e in (plain, meshed, meshed, plain)]
+        rep = [replay_ms(torch, e._graphs, ("grow", "verify", "finalize"))
+               for e in (plain, meshed, meshed, plain)]
+        rep0 = [statistics.median(r[i] for r in (rep[0], rep[3])) for i in range(3)]
+        rep1 = [statistics.median(r[i] for r in (rep[1], rep[2])) for i in range(3)]
+        log(f"  Sequoia ms/token ({FULL['gen']} tokens, {len(prompts)} prompts, median of "
+            f"{len(times['mesh'])}): mesh-less {a:.3f}, (1, 1) NCCL mesh {b:.3f} ({b - a:+.3f}); "
+            f"replay ms grow / verify / finalize: mesh-less "
+            + " / ".join(f"{x:.3f}" for x in rep0) + ", mesh "
+            + " / ".join(f"{x:.3f}" for x in rep1)
+            + f"; eager prefill wall ms: mesh-less {pre[0]:.2f} / {pre[3]:.2f}, mesh "
+            f"{pre[1]:.2f} / {pre[2]:.2f}")
+        del engines, plain, meshed, target, starget, draft
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_verify_logits(torch, params, cfg, gm, tp=None, tp_size=1):
+    """The logits of a verify over the planned tree (Q = its nodes) after a
+    prefill of TP_CHECK["prefix"] seeded tokens, on this rank's caches."""
+    from sequoia_torch.core.model import forward
+    from sequoia_torch.kvcache.cache import KVCache
+    from sequoia_torch.ops import masks
+    from sequoia_torch.parallel.sharding import shard_config
+
+    n, M, dt = TP_CHECK["prefix"], TP_CHECK["max_length"], params.embed.dtype
+    kcfg = shard_config(cfg, tp_size) if tp is not None else cfg
+    kv = KVCache.init(kcfg, M, dt, "cuda")
+    scratch = KVCache.init(kcfg, gm.size, dt, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    toks = torch.randint(3, cfg.vocab_size, (n + gm.size,), generator=g, device="cuda")
+    forward(params, cfg, toks[:n], torch.arange(n, device="cuda"), kv, 0,
+            masks.causal_mask(n, M, 0, "cuda"), tp=tp)
+    ts = n - 1
+    tree = toks[n:].clone()
+    tree[0] = toks[ts]
+    main, scr = masks.split_tree_masks(torch.as_tensor(gm.ancestors, device="cuda"), ts, M,
+                                       root_in_main=False)
+    logits, _ = forward(params, cfg, tree, ts + torch.as_tensor(gm.depth, device="cuda"), kv,
+                        ts, main, scratch=scratch, scratch_offset=0, scratch_mask=scr, tp=tp)
+    return logits
+
+
+def tp_row_layer(torch, group, tp: int, rank: int) -> dict:
+    """`core/model.py::_row_parallel` of one w4a8 layer on this rank: the
+    w_down shard (K 11008 / tp rows of the packed int4 weight, re-packed)
+    on the same f32 rows of x as the whole layer, against the whole
+    layer's `matmul` (relative to its largest |value|); with the shards'
+    own row maxima beside it."""
+    from sequoia_torch.core import model as model_mod
+    from sequoia_torch.parallel.sharding import ROW, shard_weight
+    from sequoia_torch.quant import qtensor
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    K, N = 11008, 4096
+    x = torch.randn(64, K, generator=g, device="cuda")
+    w = qtensor.quantize_int4(torch.randn(K, N, generator=g, device="cuda") * 0.02)
+    cols = slice(rank * K // tp, (rank + 1) * K // tp)
+    xs, ws = x[:, cols].contiguous(), shard_weight(w, ROW, tp, rank, K)
+    qtensor.set_w4a8("on")
+    ref = qtensor.matmul(x, w)
+    got = model_mod._row_parallel(xs, ws, group)
+    own = model_mod.all_reduce_max
+    model_mod.all_reduce_max = lambda a, grp: a
+    try:
+        per_shard = model_mod._row_parallel(xs, ws, group)
+    finally:
+        model_mod.all_reduce_max = own
+        qtensor.set_w4a8("off")
+    top = ref.abs().max().item()
+    return dict(err=(got - ref).abs().max().item() / top,
+                per_shard=(per_shard - ref).abs().max().item() / top)
+
+
+def tp_rank_worker(torch, rank: int, port: int, out_path: str) -> None:
+    """One of phase 11 (b)'s two ranks, both on cuda:0, over gloo: each
+    weight format's sharded verify forward against the unsharded one in
+    this process, then a greedy generate; writes its results as JSON."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from sequoia_torch.cli.testbed import build_params, load_growmap, load_prompts
+    from sequoia_torch.core.config import get_config
+    from sequoia_torch.core.init import random_params
+    from sequoia_torch.core.model import forward
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.kernels import build
+    from sequoia_torch.kvcache.cache import KVCache
+    from sequoia_torch.ops import masks
+    from sequoia_torch.parallel.sharding import make_mesh, mesh_axes, shard_params
+    from sequoia_torch.quant import qtensor
+    from sequoia_torch.quant.quantize import random_quantized_model
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=TP_CHECK["tp"])
+    out = {"rank": rank}
+    probe = torch.full((4,), float(rank + 1), dtype=torch.bfloat16, device="cuda")
+    try:   # the forward's collectives are f32; is bf16 taken too?
+        dist.all_reduce(probe)
+        out["gloo_bf16"] = bool((probe == 3).all())
+    except (RuntimeError, ValueError) as e:
+        out["gloo_bf16"], out["gloo_bf16_error"] = False, str(e).splitlines()[0][:200]
+    mesh = make_mesh(tp=TP_CHECK["tp"])
+    ax = mesh_axes(mesh)
+    gm = load_growmap("planned")
+    cfg = dataclasses.replace(get_config(FULL["target"]), num_layers=TP_CHECK["layers"])
+    out["formats"], t_start = {}, time.perf_counter()
+    for fmt in TP_FORMATS:
+        qtensor.set_w4a8("on" if fmt == "w4a8" else "off")
+        if fmt == "bf16":
+            params = random_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+        else:   # tiled int4 and w4a8: the same int4 weights
+            params = random_quantized_model(cfg, SEED, bits=8 if fmt == "int8" else 4,
+                                            device="cuda")
+            if fmt == "tiled int4":
+                params = tile_model(params)
+        ref = tp_verify_logits(torch, params, cfg, gm)
+        shard = shard_params(params, mesh)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        got = tp_verify_logits(torch, shard, cfg, gm, ax.tp_group, ax.tp)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        out["formats"][fmt] = dict(
+            err=(got - ref).abs().max().item(), scale=ref.abs().max().item(),
+            finite=bool(torch.isfinite(got).all()), counts=dict(build.launches),
+            shape=list(got.shape), wall_ms=wall)
+        if fmt in TP_LOGGED:   # the route's own distance from weight-only int4
+            qtensor.set_w4a8("off")
+            out["formats"][fmt]["route_err"] = (
+                tp_verify_logits(torch, params, cfg, gm) - ref).abs().max().item()
+        del params, shard, ref, got
+        torch.cuda.empty_cache()
+    qtensor.set_w4a8("off")
+    out["row_layer"] = tp_row_layer(torch, ax.tp_group, ax.tp, ax.tp_rank)
+    out["forwards_s"] = time.perf_counter() - t_start
+    t_start = time.perf_counter()
+    # The greedy generate: the bf16 target (cut) sharded, the 68m draft whole.
+    target = random_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    draft, dcfg = build_params(FULL["draft"], "random", "bf16", SEED + 1, "cuda")
+    prompt = load_prompts(FULL["prompts"], cfg.vocab_size, SEED)[0]
+    kw = dict(algorithm="greedy", max_length=TP_CHECK["max_length"], device="cuda")
+    want = SpecEngine(draft, dcfg, target, cfg, gm, **kw).generate(
+        prompt, max_new_tokens=TP_CHECK["gen"])
+    build.reset_launches()
+    got = SpecEngine(draft, dcfg, shard_params(target, mesh), cfg, gm, mesh=mesh, **kw).generate(
+        prompt, max_new_tokens=TP_CHECK["gen"])
+    out["generate_counts"] = dict(build.launches)
+    n = len(want)
+    kv = KVCache.init(cfg, TP_CHECK["max_length"], torch.bfloat16, "cuda")
+    logits, _ = forward(target, cfg, torch.as_tensor(want, device="cuda"),
+                        torch.arange(n, device="cuda"), kv, 0,
+                        masks.causal_mask(n, TP_CHECK["max_length"], 0, "cuda"))
+    top2 = logits.float().topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()      # row j - 1 picks token j
+    out["generate"] = dict(want=np.asarray(want).tolist(), got=np.asarray(got).tolist(),
+                           plen=len(prompt), gaps=gaps)
+    out["generate_s"] = time.perf_counter() - t_start
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_two_ranks(torch):
+    """Phase 11 (b): two spawned processes on the one card, a gloo tp = 2
+    group. Fails if either rank fails. Returns both ranks' launches."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    port, tp = free_port(), TP_CHECK["tp"]
+    procs = []
+    try:
+        for r in range(tp):
+            log_f = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), str(port),
+                 os.path.join(tmp, f"rank{r}.json")], stdout=log_f, stderr=subprocess.STDOUT,
+                cwd=ROOT), log_f))
+        deadline = time.time() + 420
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        for p, log_f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+        for r, (p, _) in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    fail(f"[11] tp rank {r} exited {p.returncode}:\n{f.read()[-4000:]}")
+        res = []
+        for r in range(tp):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return tp_report(res)
+
+
+def tp_report(res):
+    """Phase 11 (b)'s checks and lines from the ranks' results; fails after
+    printing them all if any check failed. Returns the ranks' launches."""
+    r0, tp = res[0], len(res)
+    log(f"  gloo takes CUDA bf16 tensors: {r0['gloo_bf16']}"
+        + ("" if r0["gloo_bf16"] else f" ({r0.get('gloo_bf16_error', 'wrong sum')})")
+        + "; the forward's collectives are f32 (partial sums, row maxima, logits)")
+    counts, tol, problems = {}, TP_CHECK["tol"], []
+    for fmt, need in TP_FORMATS.items():
+        for r, out in enumerate(res):
+            e = out["formats"][fmt]
+            if not e["finite"] or fmt not in TP_LOGGED and e["err"] > tol * e["scale"]:
+                problems.append(f"{fmt}: rank {r}'s tp={tp} verify logits {e['err']:.4g} from "
+                                f"the unsharded ones (max |logit| {e['scale']:.4g}, tol {tol} "
+                                "of it)")
+            problems += [f"{fmt}: {k} never launched on rank {r}'s sharded forward"
+                         for k in need if e["counts"].get(k, 0) == 0]
+            for k, v in e["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        e = r0["formats"][fmt]
+        held = (f"logged, not held; the route's own distance from int4 weight-only on the "
+                f"same weights {e['route_err']:.4g}" if fmt in TP_LOGGED
+                else f"tol {tol * e['scale']:.4g}")
+        log(f"  {fmt}: tp={tp} verify logits {e['shape']} max|Δ| {e['err']:.4g} "
+            f"(rank 1 {res[1]['formats'][fmt]['err']:.4g}) of max|logit| {e['scale']:.4g} "
+            f"({held}); wall {e['wall_ms']:.1f} ms (gloo through the host on one card: not "
+            "TP speed)")
+    rows = [out["row_layer"] for out in res]
+    log(f"  w4a8 row-parallel layer (w_down, K 11008 / {tp} a rank, f32 x): whole-row maxima "
+        f"{max(r['err'] for r in rows):.3g} of max|y| from the unsharded layer (tol "
+        f"{TP_ROW_TOL}), the shards' own maxima {min(r['per_shard'] for r in rows):.3g}")
+    problems += [f"rank {r}'s w4a8 row-parallel layer {e['err']:.3g} from the unsharded one"
+                 for r, e in enumerate(rows) if not e["err"] <= TP_ROW_TOL]
+    g = r0["generate"]
+    want, got, plen = g["want"], g["got"], g["plen"]
+    if any(out["generate"]["got"] != got for out in res[1:]):
+        problems.append("the two ranks committed different greedy tokens")
+    limit = tol * r0["formats"]["bf16"]["scale"]
+    small = next((j for j in range(plen, len(want)) if g["gaps"][j - 1] < limit), len(want))
+    diff = next((j for j in range(min(len(want), len(got))) if want[j] != got[j]),
+                min(len(want), len(got)))
+    if diff < small and (diff < len(want) or len(got) < len(want)):
+        problems.append(f"greedy tp={tp} tokens part from the unsharded ones at {diff}, "
+                        f"before the first top-2 gap under {limit:.4g} (at {small})")
+    log(f"  greedy generate ({TP_CHECK['gen']} tokens, tp={tp} target, whole draft): tokens "
+        f"equal to the unsharded run's through position {diff} of {len(want)} (first top-2 "
+        f"gap under {limit:.4g}: {'none' if small == len(want) else small}); rank 0: forwards "
+        f"{r0['forwards_s']:.1f} s, generate {r0['generate_s']:.1f} s")
+    if problems:
+        fail("[11] " + "; ".join(problems))
+    for out in res:
+        for k, v in out["generate_counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def check_shard_qmm(torch, tp, results):
+    """The quant-matmul kernels on phase 11's path at llama-2-7b's shard
+    shapes under tp (TP_SHAPES) and the verify's 64 rows, against their
+    plain versions, timed as phase 3 times them (weights cycled past the L2)
+    beside cuBLAS on a bf16 weight of the shape; w4a8's row shards
+    quantized by the whole rows' maxima, as the forward does. Then the
+    quantizer alone on a row shard with those maxima."""
+    from sequoia_torch.kernels import quant_matmul as qm
+    from sequoia_torch.quant import qtensor
+
+    R = 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for name in ("quant_matmul_int8_wgmma", "quant_matmul_int4_wgmma",
+                 "quant_matmul_tiled_wgmma", "quant_matmul_w4a8"):
+        bits, _, replaces, source, a8 = QMM_KERNELS[name]
+        call, plain_call = qmm_calls(qm, name)
+        for label, shape in TP_SHAPES.items():
+            K, N = shape(tp)
+            out_dt = torch.float32 if "lm_head" in label else torch.bfloat16
+            n = max(2, -(-120_000_000 // (K * N * bits // 8)))
+            ws = [torch.randn(K, N, generator=gen, device="cuda") * 0.02 for _ in range(n)]
+            qts = [qtensor.quantize_int8(w) if bits == 8 else qtensor.quantize_int4(w)
+                   for w in ws]
+            dense = [w.to(torch.bfloat16) for w in ws[:3]]   # cuBLAS's operand
+            del ws
+            if "tiled" in name:
+                qts = [qtensor.tile_int4(w) for w in qts]
+            qs, ss = [w.q for w in qts], [w.scale for w in qts]
+            x_full = torch.randn(R, K * tp, generator=gen, device="cuda").to(torch.bfloat16)
+            x = x_full[:, :K].contiguous()
+            amax = None
+            if a8 and label.startswith("row"):
+                amax = x_full.float().abs().amax(dim=-1, keepdim=True)
+                kern = lambda i: qm.quant_matmul(x, qs[i], ss[i], bits=4, unpack="w4a8",  # noqa: E731
+                                                 out_dtype=out_dt, amax=amax)
+                plain = lambda i: qm.quant_matmul_plain(x, qs[i], ss[i], bits=4,  # noqa: E731
+                                                        unpack="w4a8", out_dtype=out_dt,
+                                                        amax=amax)
+            else:
+                kern = lambda i: call(x, qs[i], ss[i], out_dt)  # noqa: E731
+                plain = lambda i: plain_call(x, qs[i], ss[i], out_dt)  # noqa: E731
+            got, want = kern(0), plain(0)
+            err = (got.float() - want.float()).abs().max().item()
+            peak = want.float().abs().max().item()
+            tol = 0.0 if a8 else (2e-2 if out_dt == torch.bfloat16 else 1e-4) * peak
+            if not torch.isfinite(got).all() or err > tol:
+                fail(f"{name} at the tp={tp} shard {label} R={R} K={K} N={N}: max|err| "
+                     f"{err:.4g} > {tol:.4g}")
+            ms = device_ms([lambda i=i: kern(i) for i in range(n)])
+            plain_ms = device_ms([lambda i=i: plain(i) for i in range(min(n, 3))], replays=5)
+            lib_ms = device_ms([lambda i=i: torch.matmul(x, dense[i]) for i in range(len(dense))])
+            bound, by = qmm_bound(R, K, N, bits, 2, got.element_size(), a8)
+            whole = " (whole-row maxima)" if amax is not None else ""
+            log(f"  {name} tp={tp} shard {label}: R={R} K={K} N={N}{whole} max|err| {err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  cuBLAS bf16 weight {lib_ms:.4f} ms  bound "
+                f"{bound:.5f} ms ({by}, {ms / bound:.2f}x)  [{n} weights cycled]")
+            if label in TP_REPORT:
+                results.append(dict(
+                    name=name, route="cuda", source=source, replaces=replaces,
+                    shape=f"tp={tp} shard {label}: R={R} K={K} N={N} x bf16 out "
+                          f"{'f32' if out_dt == torch.float32 else 'bf16'}"
+                          + (", whole-row maxima" if amax is not None else ""),
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms))
+            del qs, ss, qts, dense
+        torch.cuda.empty_cache()
+    K = TP_SHAPES["row w_down"](tp)[0]
+    xs = [torch.randn(R, K * tp, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(QUANT_CALLS)]
+    parts = [x[:, :K].contiguous() for x in xs]
+    amaxes = [x.float().abs().amax(dim=-1, keepdim=True) for x in xs]
+    got, want = qm.quantize_activations(parts[0], amaxes[0]), \
+        qm.quantize_activations_plain(parts[0], amaxes[0])
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"quantize_activations with whole-row maxima disagrees with its plain version "
+             f"at R={R} K={K}")
+    ms = device_ms([lambda i=i: qm.quantize_activations(parts[i], amaxes[i])
+                    for i in range(QUANT_CALLS)])
+    plain_ms = device_ms([lambda i=i: qm.quantize_activations_plain(parts[i], amaxes[i])
+                          for i in range(8)], replays=5)
+    bound = (R * K * 3 + R * 8) / HBM_BYTES_PER_S * 1e3
+    log(f"  quantize_activations tp={tp} shard R={R} K={K}, whole-row maxima: equal bits; "
+        f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.5f} ms (bytes)")
+    results.append(dict(
+        name="quantize_activations", route="cuda", source=QMM_A8_SOURCE,
+        replaces="sequoia_tpu/kernels/quant_matmul.py:361",
+        shape=f"tp={tp} shard R={R} K={K} bf16, whole-row maxima", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None))
+
+
+def tensor_parallel(torch, gm, results):
+    """Phase 11: the kernels at (b)'s shard shapes against their plain
+    versions; (a) the NCCL (1, 1) mesh in this process; (b) two gloo ranks
+    on the card at tp = 2. Returns the launches of (a) and (b)."""
+    tp = TP_CHECK["tp"]
+    t0 = time.perf_counter()
+    log(f"[11] the kernels at the tp = {tp} shard shapes against their plain versions")
+    H = 32 // tp
+    check_tree_attention(torch, gm, results, cases=[(
+        "verify", dict(Q_rows=gm.size, layers=32, H=H, Hkv=H, D=128, M=256, S=gm.size,
+                       ts=191, dtype=torch.bfloat16,
+                       scratch_rows=torch.as_tensor(gm.ancestors, device="cuda")), 2e-2)],
+        note=f"tp={tp} shard: ")
+    check_shard_qmm(torch, tp, results)
+    torch.cuda.empty_cache()
+    log(f"  kernels {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    log("[11] (a) NCCL, world size 1: the bf16 7B path through SpecEngine(mesh=...)")
+    counts = tp_world1(torch, gm)
+    log(f"  (a) {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    log(f"[11] (b) two ranks on the one card over gloo, tp = {tp}: llama-2-7b width, "
+        f"{TP_CHECK['layers']} layers")
+    for k, v in tp_two_ranks(torch).items():
+        counts[k] = counts.get(k, 0) + v
+    log(f"  (b) {time.perf_counter() - t2:.1f} s; phase 11 {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -2699,6 +3261,9 @@ def main() -> None:
         from sequoia_torch.cli.testbed import load_growmap
     except ImportError as e:
         fail(f"sequoia_torch is not importable next to chip_smoke.py: {e}")
+    if sys.argv[1:2] == ["--tp-rank"]:   # one of phase 11 (b)'s ranks
+        tp_rank_worker(torch, int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     t_start = time.perf_counter()
 
     log("[1] device")
@@ -2727,6 +3292,13 @@ def main() -> None:
         f"max branch {gm.max_branch}, level widths {gm.level_widths}")
 
     kernels = []
+    if "--tp" in sys.argv[1:]:
+        counts = tensor_parallel(torch, gm, kernels)
+        for e in kernels:
+            e["launches"] = counts.get(e["name"], 0)
+        log(f"  --tp: phase 11 only, {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return
     if "--offload" in sys.argv[1:]:
         log("[10] host offload: llama-2-7b and llama-2-70b (8 layers) streamed from pinned memory")
         host_offload(torch, gm)
@@ -2784,8 +3356,6 @@ def main() -> None:
     small_parity(torch)
     add(build.launches)   # f32 x: the f32-x matmuls and f32 attention run here and in phase 7
 
-    from sequoia_torch.core import model as model_mod
-    from sequoia_torch.kernels.quant_matmul import quant_matmul
     from sequoia_torch.planner.profile import time_forward_widths
     from sequoia_torch.quant import qtensor
 
@@ -2846,20 +3416,13 @@ def main() -> None:
                    extras=True))
     curves["int4"], _ = width_curve(torch, models, "int4", need=("quant_matmul_int4_wgmma",),
                                     host=True)
-    log("[6] int4 weights, every projection through unpack=\"w4a8\" (the profiler's "
-        "entry point; qtensor.matmul has no route to it)")
-
-    def routed(x, w, *, out_dtype=None):
-        if isinstance(w, qtensor.QuantizedTensor):
-            return quant_matmul(x, w.q, w.scale, bits=4, unpack="w4a8", out_dtype=out_dtype)
-        return qtensor.matmul(x, w, out_dtype=out_dtype)
-
-    model_mod.matmul = routed
+    log("[6] int4 weights, every projection through unpack=\"w4a8\" (qtensor.set_w4a8)")
+    qtensor.set_w4a8("on")
     try:
         need = ("quant_matmul_w4a8", "quantize_activations")
         curves["int4 w4a8"], counts = width_curve(torch, models, "int4 w4a8", need=need)
     finally:
-        model_mod.matmul = qtensor.matmul
+        qtensor.set_w4a8("off")
     add(counts)
     log("[6] full width: panel-tiled int4 weights (tile_int4 over the projections and the head)")
     models = (tile_model(models[0]),) + models[1:]
@@ -2885,6 +3448,10 @@ def main() -> None:
 
     log("[10] host offload: llama-2-7b and llama-2-70b (8 layers) streamed from pinned memory")
     add(host_offload(torch, gm, draft_time))
+    torch.cuda.empty_cache()
+
+    log("[11] tensor parallelism: the tp collectives in the decode graphs, and tp = 2")
+    add(tensor_parallel(torch, gm, kernels))
 
     for e in kernels:
         e["launches"] = launches.get(e["name"], 0)

@@ -9,6 +9,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "SpecEngine",
+    "BatchedSpecEngine",
     "ARBaseline",
     "GrowMap",
     "LlamaConfig",
@@ -22,6 +23,10 @@ def __getattr__(name):
         from .engine.engine import SpecEngine
 
         return SpecEngine
+    if name == "BatchedSpecEngine":
+        from .engine.batched import BatchedSpecEngine
+
+        return BatchedSpecEngine
     if name == "ARBaseline":
         from .engine.baseline import ARBaseline
 

@@ -7,7 +7,11 @@ of the reference's `tests/run_sequoia.py` (stochastic), `tests/greedy_run.py`
   N`: its first N layers stay on the card and the rest stream from pinned
   host memory (`engine/offload.py`, the reference's `offload_engine.py`),
   which composes with `--quant int8|int4` to cut the bytes over the link.
-  Tensor parallelism (`--tp`) is not ported: `--tp > 1` raises.
+- A target larger than one card is served with tensor parallelism,
+  `--tp N`, one process a card under `torchrun` (the draft stays whole on
+  every card; only rank 0 prints). `--tp` does not compose with
+  `--offloading` (the single-card path) or `--mode baseline` (the AR
+  baseline takes no mesh).
 - The prompt template, MT-Bench loading, seed and stop-token handling are
   the reference's (`tests/run_sequoia.py:82,284-297`; the Llama-3 EOS
   override `tests/greedy_run.py:129` is `--stop-tokens`).
@@ -21,11 +25,14 @@ local HF tokenizer directory.
 
     python -m sequoia_torch.cli.chat --tokenizer byte --limit 4
     python -m sequoia_torch.cli.chat --tokenizer byte --offloading --staylayer 16
+    torchrun --nproc-per-node 4 -m sequoia_torch.cli.chat --tp 4 --tokenizer byte
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -156,7 +163,8 @@ def main(argv=None) -> None:
                     help="offloading: target layers kept on the device "
                          "(tests/run_sequoia.py:247 --staylayer)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported: only 1)")
+                    help="tensor-parallel degree: one process a card under torchrun "
+                         "(--nproc-per-node N); on the CPU (--device cpu) gloo ranks")
     ap.add_argument("--T", type=float, default=0.6)
     ap.add_argument("--P", type=float, default=0.9)
     ap.add_argument("--M", type=int, default=1024, help="max buffer length")
@@ -181,9 +189,28 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for small checks")
     args = ap.parse_args(argv)
+    mesh = None
     if args.tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet")
+        if args.offloading:
+            raise ValueError("--offloading is the single-card path; it does not compose "
+                             "with --tp")
+        if args.mode == "baseline":
+            raise ValueError("--tp serves the spec mode: the AR baseline takes no mesh")
+        from ..parallel.distributed import initialize_distributed
+        from ..parallel.sharding import make_mesh
 
+        initialize_distributed(backend="gloo" if args.device == "cpu" else "nccl")
+        mesh = make_mesh(tp=args.tp)
+    from ..parallel.distributed import is_primary
+
+    with contextlib.ExitStack() as stack:
+        if not is_primary():
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        _run(args, mesh)
+
+
+def _run(args, mesh) -> None:
     import dataclasses
 
     from ..data.datasets import ensure_mt_bench, format_inst, load_mt_bench_prompts
@@ -201,6 +228,10 @@ def main(argv=None) -> None:
     if args.stop_tokens:
         stops = tuple(int(t) for t in args.stop_tokens.split(","))
         target_cfg = dataclasses.replace(target_cfg, stop_tokens=stops)
+    if mesh is not None:
+        from ..parallel.sharding import shard_params
+
+        target_params = shard_params(target_params, mesh)
 
     # --- Prompts ----------------------------------------------------------
     if args.prompts is not None:
@@ -233,7 +264,7 @@ def main(argv=None) -> None:
         engine = SpecEngine(
             draft_params, draft_cfg, target_params, target_cfg, load_growmap(args.growmap),
             algorithm=args.algorithm, max_length=args.M, temperature=args.T, top_p=args.P,
-            device=device)
+            mesh=mesh, device=device)
 
     if not args.no_warmup:
         # One synthetic chunk through the entry point the prompt loop uses

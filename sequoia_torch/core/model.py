@@ -31,6 +31,18 @@ batched tree-attention kernel.
 Both take the layers as a device-resident `LayerParams` or as
 `OffloadLayers` (host offload, `engine/offload.py`), through one helper,
 `_layer_weights`, which hands each loop one layer's weights at a time.
+
+Tensor parallelism (`tp=`, a process group; JAX shards with GSPMD): the
+params are this rank's shard (`parallel/sharding.py`), so the rank runs
+`H/tp` query and `Hkv/tp` KV heads over its own caches, and three
+collectives join the ranks (`parallel/collectives.py`): the partial
+products of the row-parallel `wo` and `w_down`, in f32, are all-reduced
+(SUM) and rounded once before the residual add, and the vocab-parallel
+logits are all-gathered to `[Q, V]` in rank order. A row-parallel matmul
+that quantizes its activations per row (w8a8, w4a8) scales them by the
+maxima of the WHOLE rows, an all-reduce (MAX) of the shards' row maxima,
+so that its int8 rows are those of the unsharded model. With a group the
+collectives run at every size, one included; without one nothing changes.
 """
 
 from __future__ import annotations
@@ -42,7 +54,8 @@ import torch
 
 from .config import LlamaConfig
 from ..kernels.tree_attention import tree_attention, tree_attention_batched
-from ..quant.qtensor import QuantizedTensor, WeightLike, layer, matmul
+from ..parallel.collectives import all_gather_last, all_reduce_max, all_reduce_sum, group_size
+from ..quant.qtensor import QuantizedTensor, WeightLike, layer, matmul, quantizes_activations
 from ..kvcache.cache import KVCache, KVCache4, KVCache8, slot_rows
 
 
@@ -269,6 +282,31 @@ def _streamed_layers(layers: OffloadLayers, n_res: int, n_str: int, flat, host,
         compute.wait_stream(st.stream)   # join
 
 
+def _row_parallel(x: torch.Tensor, w: WeightLike, tp) -> torch.Tensor:
+    """`x @ w` of a row-parallel weight: with a tp group, this rank's
+    partial product, in f32, summed over the group and then rounded to x's
+    dtype once, as the unsharded product is (a bf16 partial rounded before
+    the sum would differ from it by a rounding a rank); an
+    activation-quantizing route scales by the whole rows' maxima."""
+    if tp is None:
+        return matmul(x, w)
+    amax = None
+    if quantizes_activations(x, w):
+        amax = all_reduce_max(x.float().abs().amax(dim=-1, keepdim=True), tp)
+    return all_reduce_sum(matmul(x, w, amax=amax, out_dtype=torch.float32), tp).to(x.dtype)
+
+
+def _head_counts(cfg: LlamaConfig, tp) -> Tuple[int, int, int]:
+    """(query heads, KV heads, head dim) of one rank's shard."""
+    n = group_size(tp)
+    return cfg.num_heads // n, cfg.num_kv_heads // n, cfg.head_dim_
+
+
+def _logits(hidden: torch.Tensor, params: LlamaParams, tp) -> torch.Tensor:
+    logits = matmul(hidden, params.lm_head, out_dtype=torch.float32)
+    return logits if tp is None else all_gather_last(logits, tp)
+
+
 def forward(
     params: LlamaParams,
     cfg: LlamaConfig,
@@ -280,6 +318,7 @@ def forward(
     scratch: Optional[KVCache] = None,   # [L, S, Hkv, D] tree scratch
     scratch_offset: Optional[int] = None,  # queries' slots within the scratch
     scratch_mask: Optional[torch.Tensor] = None,  # bool [Q, S]
+    tp=None,                      # tensor-parallel process group (module doc)
 ):
     """Returns (`logits` f32 `[Q, vocab]`, the cache-or-scratch written).
 
@@ -294,7 +333,7 @@ def forward(
         raise TypeError(f"forward: unknown KV cache {type(kv).__name__}")
     quantized_kv = not isinstance(kv, KVCache)
     Q = tokens.shape[0]
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    H, Hkv, D = _head_counts(cfg, tp)
     scale = D ** -0.5
     split = scratch is not None
     dev = tokens.device
@@ -336,16 +375,15 @@ def forward(
                               sk, sv, scr_mask, scale=scale,
                               ks=kv.ks[i] if quantized_kv else None,
                               vs=kv.vs[i] if quantized_kv else None)
-        hidden = hidden + matmul(attn.reshape(Q, H * D), w.wo)
+        hidden = hidden + _row_parallel(attn.reshape(Q, H * D), w.wo, tp)
 
         y = rms_norm(hidden, w.mlp_norm, cfg.rms_norm_eps)
         gate = torch.nn.functional.silu(matmul(y, w.w_gate))
-        mlp = matmul(gate * matmul(y, w.w_up), w.w_down)
+        mlp = _row_parallel(gate * matmul(y, w.w_up), w.w_down, tp)
         hidden = hidden + mlp
 
     hidden = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
-    logits = matmul(hidden, params.lm_head, out_dtype=torch.float32)
-    return logits, (scratch if split else kv)
+    return _logits(hidden, params, tp), (scratch if split else kv)
 
 
 def forward_batched(
@@ -359,6 +397,7 @@ def forward_batched(
     scratch: Optional[KVCache] = None,      # batched [L, B, S, Hkv, D]
     scratch_offset: Optional[int] = None,   # queries' rows within each slot's scratch
     scratch_mask: Optional[torch.Tensor] = None,  # bool [B, Q, S]
+    tp=None,                      # tensor-parallel process group (module doc)
 ):
     """`forward` of B slots at once: returns (`logits` f32 `[B, Q, vocab]`,
     the cache-or-scratch written). The two write modes of `forward`, per
@@ -370,7 +409,7 @@ def forward_batched(
     quantized_kv = not isinstance(kv, KVCache)
     B, Q = tokens.shape
     R = B * Q
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    H, Hkv, D = _head_counts(cfg, tp)
     scale = D ** -0.5
     split = scratch is not None
     dev = tokens.device
@@ -412,13 +451,12 @@ def forward_batched(
                                       sk, sv, scr_mask, scale=scale,
                                       ks=kv.ks[i] if quantized_kv else None,
                                       vs=kv.vs[i] if quantized_kv else None)
-        hidden = hidden + matmul(attn.reshape(R, H * D), w.wo)
+        hidden = hidden + _row_parallel(attn.reshape(R, H * D), w.wo, tp)
 
         y = rms_norm(hidden, w.mlp_norm, cfg.rms_norm_eps)
         gate = torch.nn.functional.silu(matmul(y, w.w_gate))
-        mlp = matmul(gate * matmul(y, w.w_up), w.w_down)
+        mlp = _row_parallel(gate * matmul(y, w.w_up), w.w_down, tp)
         hidden = hidden + mlp
 
     hidden = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
-    logits = matmul(hidden, params.lm_head, out_dtype=torch.float32)
-    return logits.reshape(B, Q, -1), (scratch if split else kv)
+    return _logits(hidden, params, tp).reshape(B, Q, -1), (scratch if split else kv)

@@ -22,7 +22,10 @@
 // to 4); the row's amax is reduced by one redux.sync per warp and one
 // shared-memory step; each thread then quantizes its vectors from
 // registers and stores 8 (or 4) bytes per vector, each a true division
-// x / s rounded half to even. Rows that do not fit (K > 16384 bf16, 8192 f32), and
+// x / s rounded half to even. Given row maxima `amax_in` (one float a row,
+// at least the row's own: the maxima of whole rows when x is one rank's
+// slice of K under tensor parallelism), the block scales by those instead
+// of its own reduction. Rows that do not fit (K > 16384 bf16, 8192 f32), and
 // rows whose K or base breaks 16-byte vectors, loop over the row twice
 // (the second pass from L2), an element at a time where unaligned.
 //
@@ -96,7 +99,8 @@ __device__ __forceinline__ void store_pack(const Pack<T, E>& p, float s, int8_t*
 // aligned) or 1.
 template <typename T, int E>
 __global__ void __launch_bounds__(kMaxThreads)
-quantize_rows(const T* __restrict__ x, int8_t* __restrict__ x8, float* __restrict__ sx, int K) {
+quantize_rows(const T* __restrict__ x, int8_t* __restrict__ x8, float* __restrict__ sx,
+              const float* __restrict__ amax_in, int K) {
   grid_dep_launch();   // the consumer's set-up may start now
   __shared__ float warp_max[kMaxThreads / 32];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * K;
@@ -125,6 +129,7 @@ quantize_rows(const T* __restrict__ x, int8_t* __restrict__ x8, float* __restric
   __syncthreads();
   amax = threadIdx.x % 32 < nt / 32 ? warp_max[threadIdx.x % 32] : 0.f;   // every warp
   amax = __uint_as_float(__reduce_max_sync(0xffffffffu, __float_as_uint(amax)));
+  if (amax_in != nullptr) amax = amax_in[blockIdx.x];
   const float s = fmaxf(amax, 1e-8f) / 127.0f;   // a true division (no fast math)
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
   if (fits) {
@@ -146,16 +151,18 @@ int block_threads(int nvec) {
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* x8, void* sx, int R, int K, cudaStream_t st) {
+cudaError_t launch(const void* x, void* x8, void* sx, const void* amax, int R, int K,
+                   cudaStream_t st) {
   constexpr int kE = 16 / sizeof(T);
   const T* xp = static_cast<const T*>(x);
   int8_t* op = static_cast<int8_t*>(x8);
   float* sp = static_cast<float*>(sx);
+  const float* ap = static_cast<const float*>(amax);
   if (K % kE == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(x8) % kE == 0)
-    quantize_rows<T, kE><<<R, block_threads(K / kE), 0, st>>>(xp, op, sp, K);
+    quantize_rows<T, kE><<<R, block_threads(K / kE), 0, st>>>(xp, op, sp, ap, K);
   else
-    quantize_rows<T, 1><<<R, block_threads(K), 0, st>>>(xp, op, sp, K);
+    quantize_rows<T, 1><<<R, block_threads(K), 0, st>>>(xp, op, sp, ap, K);
   return cudaGetLastError();
 }
 
@@ -168,13 +175,14 @@ __global__ void empty_kernel() {}
 extern "C" {
 
 // x [R, K] (x_dtype 0 = float32, 1 = bfloat16) -> x8 [R, K] int8, sx [R]
-// float32: sx = max(amax |x|, 1e-8) / 127, x8 = clip(round(x / sx), +-127).
-int sequoia_quantize_activations(const void* x, void* x8, void* sx, int R, int K, int x_dtype,
-                                 void* stream) {
+// float32: sx = max(amax |x|, 1e-8) / 127, x8 = clip(round(x / sx), +-127);
+// amax [R] float32 or null: the row maxima to use instead of x's own.
+int sequoia_quantize_activations(const void* x, void* x8, void* sx, const void* amax, int R,
+                                 int K, int x_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (x_dtype == 0) return static_cast<int>(launch<float>(x, x8, sx, R, K, st));
-  if (x_dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(x, x8, sx, R, K, st));
+  if (x_dtype == 0) return static_cast<int>(launch<float>(x, x8, sx, amax, R, K, st));
+  if (x_dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(x, x8, sx, amax, R, K, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

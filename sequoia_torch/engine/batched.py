@@ -35,6 +35,13 @@ admission chunk steps at width `admit_width` (gather -> chunk forward ->
 scatter), a decode block loop until `harvest_batch` active slots finish,
 then the harvest and admission on the device (index copies), scheduled by
 the host from the block's one read.
+
+Under a mesh (`SpecEngine`'s `mesh`), the tp axis shards each forward as
+in the single engine, and the dp axis holds replicas: dp rank r serves its
+contiguous share of the slots (`parallel/sharding.py::dp_share`; JAX
+`shard_batched_state`), and of the requests of a queue, each request
+seeded by its index in the whole input; the outputs are gathered over the
+dp group in input order.
 """
 
 from __future__ import annotations
@@ -45,9 +52,11 @@ from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.model import forward_batched
 from ..kvcache.cache import KV_CACHES, KVCache, KVCache4
+from ..parallel.sharding import dp_share
 from ..ops.sampling import (
     categorical_from_gumbel,
     draft_probs,
@@ -276,15 +285,22 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
             raise ValueError(f"harvest_batch must be >= 1, got {harvest_batch}")
         if admit_width is not None and admit_width < 1:
             raise ValueError(f"admit_width must be >= 1, got {admit_width}")
+        # The whole batch over the dp axis; this rank's slots are its share.
+        self.global_batch_size = batch_size
+        if self._axes is not None:
+            if batch_size < self._axes.dp:
+                raise ValueError(f"batch_size {batch_size} < dp = {self._axes.dp}")
+            share = dp_share(batch_size, self._axes.dp, self._axes.dp_rank)
+            batch_size = share.stop - share.start
         self._init_slots(batch_size)
         B, dev, M = batch_size, self.device, self.max_length
         self.harvest_batch = harvest_batch
         self.admit_width = min(B, 4) if admit_width is None else min(admit_width, B)
         self._bstate = self._new_state(B)
         self._bformat = None
-        self._bdscratch = KVCache.init(self.draft_cfg, self.tree_size,
+        self._bdscratch = KVCache.init(self._dkv_cfg, self.tree_size,
                                        self.draft_params.embed.dtype, dev, batch=B)
-        self._btscratch = KVCache.init(self.target_cfg, self.tree_size,
+        self._btscratch = KVCache.init(self._tkv_cfg, self.tree_size,
                                        self.target_params.embed.dtype, dev, batch=B)
         self._blive = torch.zeros(B, dtype=torch.bool, device=dev)
         self._bgrow_scr = [m.expand(B, -1, -1).contiguous() for m in self._grow_scr_masks]
@@ -307,7 +323,7 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
         return BatchState(
             tokens=torch.zeros(B, M, dtype=torch.long, device=dev),
             gtl=torch.zeros(B, dtype=torch.long, device=dev),
-            draft_kv=KVCache.init(self.draft_cfg, M, self.draft_params.embed.dtype, dev,
+            draft_kv=KVCache.init(self._dkv_cfg, M, self.draft_params.embed.dtype, dev,
                                   batch=B),
             target_kv=target_kv,
             root_draft_logits=torch.zeros(B, self.vocab, dtype=torch.float32, device=dev),
@@ -315,9 +331,9 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
 
     def _target_cache_of(self, B: int):
         if self.kv_quant == "int4":
-            return KVCache4.init(self.target_cfg, self.max_length, packing=self._kv4_packing,
+            return KVCache4.init(self._tkv_cfg, self.max_length, packing=self._kv4_packing,
                                  device=self.device, batch=B)
-        return KV_CACHES[self.kv_quant].init(self.target_cfg, self.max_length,
+        return KV_CACHES[self.kv_quant].init(self._tkv_cfg, self.max_length,
                                              self.target_params.embed.dtype,
                                              device=self.device, batch=B)
 
@@ -389,9 +405,9 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
             mask = (k_idx[None, None, :] <= positions[:, :, None])
             offs = torch.full((B,), off, dtype=torch.long, device=dev)
             d_logits, _ = forward_batched(self.draft_params, self.draft_cfg, chunk, positions,
-                                          st.draft_kv, offs, mask)
+                                          st.draft_kv, offs, mask, tp=self._dtp)
             forward_batched(self.target_params, self.target_cfg, chunk, positions,
-                            st.target_kv, offs, mask)
+                            st.target_kv, offs, mask, tp=self._ttp)
             for b, plen in enumerate(plens):
                 if 0 <= plen - 1 - off < c:
                     st.root_draft_logits[b].copy_(d_logits[b, plen - 1 - off])
@@ -466,7 +482,7 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
             lvl_logits, _ = forward_batched(
                 self.draft_params, self.draft_cfg, new_tokens, positions, st.draft_kv,
                 ts + start, main, scratch=self._bdscratch, scratch_offset=start,
-                scratch_mask=self._bgrow_scr[lvl])
+                scratch_mask=self._bgrow_scr[lvl], tp=self._dtp)
             draft_logits[:, start:start + w] = lvl_logits
         return tokens_tree, draft_logits
 
@@ -478,7 +494,7 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
         logits, _ = forward_batched(
             self.target_params, self.target_cfg, tokens_tree, ts[:, None] + self._depth,
             st.target_kv, ts, main, scratch=self._btscratch, scratch_offset=0,
-            scratch_mask=self._banc)
+            scratch_mask=self._banc, tp=self._ttp)
         return logits
 
     def _bwalk(self, tokens_tree, draft_logits, target_logits, r):
@@ -574,7 +590,7 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
         root_logits, _ = forward_batched(
             self.draft_params, self.draft_cfg, st.tokens.gather(1, new_ts[:, None]),
             new_ts[:, None], st.draft_kv, slot,
-            self._k_idx[None, None, :] <= slot[:, None, None])
+            self._k_idx[None, None, :] <= slot[:, None, None], tp=self._dtp)
         first = path.path[:, 0]
         first_rank = torch.where(first >= 0, self._child_rank[first.clamp_min(0)],
                                  torch.full_like(first, -1))
@@ -623,6 +639,7 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
         st = self._state()
 
         def capture(g):
+            self._graph_collectives(g)
             active = self._bactive.clone()
             self._bactive.zero_()
             try:
@@ -656,31 +673,55 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
     # Loops
     # ------------------------------------------------------------------
 
+    def _over_dp(self, prompts, seed: int, run) -> List[np.ndarray]:
+        """`run(prompts, seed)` on this dp rank's contiguous share of the
+        prompts, seeded from the share's first index (request i keeps seed
+        `seed + i`), and the outputs of every dp rank gathered in input order;
+        the step counters summed (tokens) and maxed (iterations) over the
+        ranks. Without a dp axis, `run` on every prompt."""
+        prompts = list(prompts)
+        if self._axes is None or self._axes.dp == 1:
+            return run(prompts, seed)
+        share = dp_share(len(prompts), self._axes.dp, self._axes.dp_rank)
+        local, counts = [], (0, 0)
+        if share.stop > share.start:
+            local = run(prompts[share], seed + share.start)
+            counts = (self.num_decoding_steps, self.num_large_model_steps)
+        parts = [None] * self._axes.dp
+        dist.all_gather_object(parts, (local, counts), group=self._axes.dp_group)
+        self.num_decoding_steps = sum(c[0] for _, c in parts)
+        self.num_large_model_steps = max(c[1] for _, c in parts)
+        return [out for part, _ in parts for out in part]
+
     def generate_batch(self, prompts: Sequence[np.ndarray], max_new_tokens: int = 128,
                        seed: int = 0) -> List[np.ndarray]:
-        """Decode a fixed batch to completion, one eager iteration and one
-        host read at a time; one committed sequence (prompt + generated) per
-        slot."""
-        return self._generate_slots(prompts, max_new_tokens, seed, eager=True)
+        """Decode a fixed batch (`batch_size` prompts, over every dp rank)
+        to completion, one eager iteration and one host read at a time; one
+        committed sequence (prompt + generated) per slot."""
+        return self._over_dp(prompts, seed, lambda p, s: self._generate_slots(
+            p, max_new_tokens, s, eager=True))
 
     def generate_batch_fast(self, prompts: Sequence[np.ndarray], max_new_tokens: int = 128,
                             seed: int = 0) -> List[np.ndarray]:
         """`generate_batch` with the loop on the device: blocks of replayed
         iterations, one host read a block."""
-        return self._generate_slots(prompts, max_new_tokens, seed, eager=False)
+        return self._over_dp(prompts, seed, lambda p, s: self._generate_slots(
+            p, max_new_tokens, s, eager=False))
 
     def serve(self, prompts: Iterable[np.ndarray], max_new_tokens: int = 128,
               seed: int = 0) -> List[np.ndarray]:
         """Continuous batching over a prompt queue, the host reading after
         every eager iteration; slots are filled by the single-request
         prefill. Request i is seeded `seed + i`. Outputs in input order."""
-        return self._serve_slots(prompts, max_new_tokens, seed, eager=True, fused=False)
+        return self._over_dp(prompts, seed, lambda p, s: self._serve_slots(
+            p, max_new_tokens, s, eager=True, fused=False))
 
     def serve_fast(self, prompts: Iterable[np.ndarray], max_new_tokens: int = 128,
                    seed: int = 0) -> List[np.ndarray]:
         """`serve` with the decode loop on the device (blocks of replays until
         a slot finishes) and a fused first fill. The same outputs."""
-        return self._serve_slots(prompts, max_new_tokens, seed, eager=False)
+        return self._over_dp(prompts, seed, lambda p, s: self._serve_slots(
+            p, max_new_tokens, s, eager=False))
 
     def serve_auto(self, prompts: Iterable[np.ndarray], *, spec_iter_s: float,
                    ar_step_s: float, expected_accepted: float,
@@ -712,6 +753,8 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
             if prompts and all(1 <= len(p) <= limit for p in prompts):
                 return self.serve_device(prompts, max_new_tokens=max_new_tokens, seed=seed)
             return self.serve_fast(prompts, max_new_tokens=max_new_tokens, seed=seed)
+        if self.mesh is not None:
+            raise ValueError("serve_auto chose batched AR, whose engines take no mesh")
         if ar_engine is None:
             ar_engine = BatchedAREngine(
                 self.target_params, self.target_cfg, batch_size=self.batch_size,
@@ -747,9 +790,9 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
         positions = off[:, None] + torch.arange(C, device=dev)
         mask = self._k_idx[None, None, :] <= positions[:, :, None]
         d_logits, _ = forward_batched(self.draft_params, self.draft_cfg, chunk, positions,
-                                      sub.draft_kv, off, mask)
+                                      sub.draft_kv, off, mask, tp=self._dtp)
         forward_batched(self.target_params, self.target_cfg, chunk, positions, sub.target_kv,
-                        off, mask)
+                        off, mask, tp=self._ttp)
         last = plen - 1 - off
         root = d_logits.gather(1, last.clamp(0, C - 1)[:, None, None].expand(W, 1, V))[:, 0]
         in_chunk = valid & (last >= 0) & (last < C)
@@ -761,6 +804,15 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
 
     def serve_device(self, prompts: Iterable[np.ndarray], max_new_tokens: int = 128,
                      seed: int = 0) -> List[np.ndarray]:
+        """`_serve_device` over the dp axis (`_over_dp`)."""
+        prompts = list(prompts)
+        if not prompts:
+            raise ValueError("serve_device needs at least one prompt")
+        return self._over_dp(prompts, seed, lambda p, s: self._serve_device(
+            p, max_new_tokens, s))
+
+    def _serve_device(self, prompts: Iterable[np.ndarray], max_new_tokens: int = 128,
+                      seed: int = 0) -> List[np.ndarray]:
         """Continuous batching with admission, decode, harvest and the
         admission prefill on the device (JAX `serve_device`, one XLA
         program there), as waves of replayed graphs: admission chunk steps

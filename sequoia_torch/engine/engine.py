@@ -33,6 +33,16 @@ Slot/step invariants (identical to the reference):
   grow and verify;
 - after acceptance, the accepted rows are committed to both main caches
   and a width-1 draft forward on the bonus token seeds the next root.
+
+Tensor parallelism (`mesh=`, a (dp, tp) `DeviceMesh` of
+`parallel/sharding.py::make_mesh`), as in JAX: the caller passes the
+target's shard (`shard_params`) and, with `shard_draft`, the draft's; the
+engine makes each sharded model's caches with this rank's `Hkv/tp` KV
+heads and runs its forwards on the mesh's tp group. The forward gathers the
+logits, so every rank runs the draft, the walk and the samplers on the same
+tensors with identically seeded generators and takes the same decisions.
+On the card the graph entry points capture the NCCL collectives into the
+same graphs; a gloo group there runs only the eager entry points.
 """
 
 from __future__ import annotations
@@ -43,10 +53,19 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import LlamaConfig
-from ..core.model import LlamaParams, forward
+from ..core.model import LlamaParams, OffloadLayers, forward
 from ..kvcache.cache import KV_CACHES, KVCache, KVCache4
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.sharding import (
+    check_tp_divisibility,
+    kv4_packing,
+    mesh_axes,
+    out_features,
+    shard_config,
+)
 from ..ops import masks
 from ..ops.sampling import (
     draft_probs,
@@ -165,8 +184,8 @@ class SpecEngine:
             raise ValueError(f"unknown algorithm {algorithm!r}; known: {ALGORITHMS}")
         if walk not in WALKS:
             raise ValueError(f"unknown walk {walk!r}; known: {WALKS}")
-        if mesh is not None or shard_draft:
-            raise NotImplementedError("tensor parallelism is not ported yet")
+        if shard_draft and mesh is None:
+            raise ValueError("shard_draft needs a mesh")
         if kv_quant not in KV_CACHES:
             raise ValueError(f"kv_quant must be one of none, int8, int4; got {kv_quant!r}")
         if draft_cfg.vocab_size != target_cfg.vocab_size:
@@ -184,12 +203,14 @@ class SpecEngine:
         self.growmap = growmap
         self.algorithm = algorithm
         self.walk = walk
+        self._init_mesh(mesh, shard_draft)
         # Optional int8 / int4 target KV cache (per-row scales): the rows the
         # verify and the AR step read are a half / a quarter of the bf16
-        # bytes. The draft's cache and both tree scratches stay float. With
-        # one card the int4 packing is "head" when Hkv is even, else "dsplit".
+        # bytes. The draft's cache and both tree scratches stay float. The
+        # int4 packing pairs heads where the pairs split over tp (Hkv even,
+        # (Hkv / 2) % tp == 0), else "dsplit" (JAX's rule).
         self.kv_quant = None if kv_quant == "none" else kv_quant
-        self._kv4_packing = "head" if target_cfg.num_kv_heads % 2 == 0 else "dsplit"
+        self._kv4_packing = kv4_packing(target_cfg.num_kv_heads, self.tp)
         self.max_length = max_length
         self.temperature = temperature
         self.top_p = top_p
@@ -223,8 +244,8 @@ class SpecEngine:
         self._stop = torch.as_tensor(list(self.stop_tokens), dtype=torch.long, device=dev)
         # Tree scratches, zeroed once and rewritten row by row before any
         # row is read (draft scratch row 0 is never written and stays 0).
-        self._dscratch = KVCache.init(draft_cfg, gm.size, draft_params.embed.dtype, dev)
-        self._tscratch = KVCache.init(target_cfg, gm.size, target_params.embed.dtype, dev)
+        self._dscratch = KVCache.init(self._dkv_cfg, gm.size, draft_params.embed.dtype, dev)
+        self._tscratch = KVCache.init(self._tkv_cfg, gm.size, target_params.embed.dtype, dev)
         # The request's buffers, allocated once and reset by `prefill`; the
         # target cache is made on the first prefill of each cache format.
         self._gen = make_generator(0, dev)
@@ -232,7 +253,7 @@ class SpecEngine:
         self._gtl = torch.zeros((), dtype=torch.long, device=dev)
         self._root_logits = torch.zeros(self.vocab, dtype=torch.float32, device=dev)
         self._terminal = torch.zeros((), dtype=torch.bool, device=dev)
-        self._draft_kv = KVCache.init(draft_cfg, max_length, draft_params.embed.dtype, dev)
+        self._draft_kv = KVCache.init(self._dkv_cfg, max_length, draft_params.embed.dtype, dev)
         self._target_kv, self._target_format = None, None
         # The device loop's counters (JAX `_generate_loop_impl`'s carry):
         # tokens and iterations since the loop began, and its token budget.
@@ -251,6 +272,54 @@ class SpecEngine:
         self.num_decoding_steps = 0
         self.num_large_model_steps = 0
 
+    def _init_mesh(self, mesh, shard_draft: bool) -> None:
+        """The tp groups of the two models and the configs their caches are
+        made from (this rank's KV heads where the model is sharded)."""
+        self.mesh, self.shard_draft = mesh, shard_draft
+        self.tp, self._axes = 1, None
+        self._ttp = self._dtp = None
+        self._tkv_cfg, self._dkv_cfg = self.target_cfg, self.draft_cfg
+        if mesh is None:
+            return
+        if not hasattr(mesh, "get_group"):
+            raise TypeError(f"mesh must be a (dp, tp) DeviceMesh (parallel/sharding.py::"
+                            f"make_mesh), got {type(mesh).__name__}")
+        self._axes = ax = mesh_axes(mesh)
+        self.tp = ax.tp
+        models = [("target", self.target_params, self.target_cfg)]
+        if shard_draft:
+            models.append(("draft", self.draft_params, self.draft_cfg))
+        for name, p, cfg in models:
+            check_tp_divisibility(cfg, ax.tp)
+            if isinstance(p.layers, OffloadLayers):
+                raise ValueError(f"{name}: host-offloaded params are the single-card path; "
+                                 "tensor parallelism takes device-resident params")
+            kv_cols = cfg.num_kv_heads * cfg.head_dim_ // ax.tp
+            if out_features(p.layers.wk) != kv_cols:
+                raise ValueError(f"{name} params are not this rank's tp={ax.tp} shard "
+                                 "(parallel/sharding.py::shard_params)")
+        self._ttp = ax.tp_group
+        self._tkv_cfg = shard_config(self.target_cfg, ax.tp)
+        if shard_draft:
+            self._dtp = ax.tp_group
+            self._dkv_cfg = shard_config(self.draft_cfg, ax.tp)
+
+    def _graph_collectives(self, graphs: GraphSet) -> None:
+        """Before `graphs` capture under a mesh: the tp collectives must be
+        NCCL's (a gloo collective cannot be captured), and one eager
+        collective creates NCCL's communicator outside the capture."""
+        if self._ttp is None:
+            return
+        backend = dist.get_backend(self._ttp)
+        if backend != "nccl":
+            raise RuntimeError(
+                f"the CUDA-graph entry points capture the tp collectives, which needs "
+                f"an NCCL group; this mesh's tp group is {backend}: use the eager "
+                "entry points (generate, stream, generate_batch, serve) instead")
+        all_reduce_sum(torch.zeros(1, device=self.device), self._ttp)
+        torch.cuda.synchronize(self.device)
+        graphs.error_mode = "thread_local"
+
     # ------------------------------------------------------------------
     # Prefill
     # ------------------------------------------------------------------
@@ -264,11 +333,11 @@ class SpecEngine:
         if self._target_format != self._format():
             self._target_kv = None   # free the old cache first
             if self.kv_quant == "int4":
-                self._target_kv = KVCache4.init(self.target_cfg, self.max_length,
+                self._target_kv = KVCache4.init(self._tkv_cfg, self.max_length,
                                                 packing=self._kv4_packing, device=self.device)
             else:
                 self._target_kv = KV_CACHES[self.kv_quant].init(
-                    self.target_cfg, self.max_length, self.target_params.embed.dtype,
+                    self._tkv_cfg, self.max_length, self.target_params.embed.dtype,
                     device=self.device)
             self._target_format = self._format()
         return self._target_kv.zero_()
@@ -301,9 +370,9 @@ class SpecEngine:
             positions = off + torch.arange(c, device=dev)
             mask = masks.causal_mask(c, self.max_length, off, dev)
             d_logits, _ = forward(self.draft_params, self.draft_cfg, chunk,
-                                  positions, state.draft_kv, off, mask)
+                                  positions, state.draft_kv, off, mask, tp=self._dtp)
             forward(self.target_params, self.target_cfg, chunk, positions,
-                    state.target_kv, off, mask)
+                    state.target_kv, off, mask, tp=self._ttp)
             if 0 <= plen - 1 - off < c:
                 state.root_draft_logits.copy_(d_logits[plen - 1 - off])
             state.tokens[off:off + c] = chunk
@@ -360,7 +429,7 @@ class SpecEngine:
                 self.draft_params, self.draft_cfg, new_tokens, positions,
                 state.draft_kv, ts + start, main_mask_row.expand(w, -1),
                 scratch=self._dscratch, scratch_offset=start,
-                scratch_mask=self._grow_scr_masks[lvl],
+                scratch_mask=self._grow_scr_masks[lvl], tp=self._dtp,
             )
             draft_logits[start:start + w] = lvl_logits
         return tokens_tree, draft_logits
@@ -374,7 +443,7 @@ class SpecEngine:
         logits, _ = forward(
             self.target_params, self.target_cfg, tokens_tree, ts + self._depth,
             state.target_kv, ts, main_mask, scratch=self._tscratch,
-            scratch_offset=0, scratch_mask=self._anc,
+            scratch_offset=0, scratch_mask=self._anc, tp=self._ttp,
         )
         return logits
 
@@ -437,6 +506,7 @@ class SpecEngine:
         root_logits, _ = forward(
             self.draft_params, self.draft_cfg, state.tokens.index_select(0, new_ts.reshape(1)),
             new_ts.reshape(1), state.draft_kv, slot, (self._k_idx <= slot)[None, :],
+            tp=self._dtp,
         )
         first = path.path[0]
         first_rank = torch.where(first >= 0, at_index(self._child_rank, first.clamp_min(0)),
@@ -513,6 +583,7 @@ class SpecEngine:
         [gtl, gtl + max_depth], so the next tree must fit). On the card
         only."""
         def capture(g):
+            self._graph_collectives(g)
             budget = self._budget.clone()
             self._budget.zero_()
             try:

@@ -66,6 +66,9 @@ class GraphSet:
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
         self.device = device
         self.generators = list(generators)
+        # "thread_local" under NCCL collectives: their watchdog thread polls
+        # events while this thread captures, which "global" would refuse.
+        self.error_mode = "global"
         self.key = None
         self.pool = None
         self.graphs: Dict[str, _Captured] = {}
@@ -116,7 +119,8 @@ class GraphSet:
         before = dict(build.launches)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.device(self.device), torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    graph, pool=self.pool, capture_error_mode=self.error_mode):
                 outputs = fn()
             graph.instantiate()
         finally:

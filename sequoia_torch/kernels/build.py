@@ -44,7 +44,7 @@ SIGNATURES = {
                             _c_int, _c_void_p],
     "sequoia_top_p_empty": [_c_int, _c_int, _c_int, _c_void_p],
     "sequoia_split_bf16x3": [_c_void_p] * 2 + [_c_int] * 2 + [_c_void_p],
-    "sequoia_quantize_activations": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
+    "sequoia_quantize_activations": [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p],
     "sequoia_empty_kernel": [_c_int, _c_int, _c_void_p],
     "sequoia_qmm8_sm90": [_c_void_p] * 5 + [_c_int] * 8 + [_c_void_p],
     "sequoia_qmm8_sm90_max_clusters": [_c_int] * 3,

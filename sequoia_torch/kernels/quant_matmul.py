@@ -98,13 +98,17 @@ def untile(q: torch.Tensor, N: int) -> torch.Tensor:
     return q.transpose(-3, -2).reshape(*lead, Kq, nt * bn0)[..., :N].contiguous()
 
 
-def quantize_activations_plain(x: torch.Tensor):
+def quantize_activations_plain(x: torch.Tensor, amax: torch.Tensor = None):
     """Per-row symmetric int8: `sx [R, 1] = max(amax |x|, 1e-8) / 127` (f32),
     `x8 = clip(round(x / sx), -127, 127)`. True divisions (the divisor is a
     tensor: PyTorch multiplies by the reciprocal of a Python scalar on the
-    card) and round-half-to-even, so x8 and sx equal JAX's bit for bit."""
+    card) and round-half-to-even, so x8 and sx equal JAX's bit for bit.
+    `amax` (f32 `[R, 1]`, at least each row's own): the row maxima to scale
+    by instead of x's, e.g. those of the whole row when x is one shard of
+    its K (a row-parallel layer under tensor parallelism)."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     sx = amax.clamp_min(1e-8) / torch.full((), 127.0, device=x.device)
     x8 = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
     return x8, sx
@@ -160,20 +164,22 @@ def quant_matmul_a8_plain(x8, sx, q, scale, *, bits: int, out_dtype):
     return y.to(out_dtype)
 
 
-def quant_matmul_plain(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"):
+def quant_matmul_plain(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto",
+                      amax=None):
     """`(x.float() @ q.float()) * scale` in f32 (int4: q unpacked first);
-    `unpack="w4a8"`: x quantized per row, then the exact integer product."""
+    `unpack="w4a8"`: x quantized per row (by `amax` when given), then the
+    exact integer product."""
     out_dtype = out_dtype or x.dtype
     if unpack == "w4a8":
-        x8, sx = quantize_activations_plain(x)
+        x8, sx = quantize_activations_plain(x, amax)
         return quant_matmul_a8_plain(x8, sx, q, scale, bits=bits, out_dtype=out_dtype)
     w = q if bits == 8 else unpack_int4(q)
     y = (x.float() @ w.float()) * scale.float().reshape(1, -1)
     return y.to(out_dtype)
 
 
-def quant_matmul_w8a8_plain(x, q, scale, *, out_dtype=None):
-    x8, sx = quantize_activations_plain(x)
+def quant_matmul_w8a8_plain(x, q, scale, *, out_dtype=None, amax=None):
+    x8, sx = quantize_activations_plain(x, amax)
     return quant_matmul_a8_plain(x8, sx, q, scale, bits=8, out_dtype=out_dtype or x.dtype)
 
 
@@ -490,31 +496,36 @@ def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
     return planes
 
 
-def quantize_activations(x: torch.Tensor):
-    """`(x8 [R, K] int8, sx [R, 1] f32)`: see `quantize_activations_plain`.
-    One kernel on the card (`csrc/quant_matmul_a8.cu`)."""
+def quantize_activations(x: torch.Tensor, amax: torch.Tensor = None):
+    """`(x8 [R, K] int8, sx [R, 1] f32)`: see `quantize_activations_plain`
+    (`amax`: row maxima to scale by instead of x's own). One kernel on the
+    card (`csrc/quant_matmul_a8.cu`)."""
     if x.device.type == "cpu":
-        return quantize_activations_plain(x)
+        return quantize_activations_plain(x, amax)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dim() != 2 or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
         raise ValueError(f"quantize_activations: x {tuple(x.shape)} {x.dtype} must be "
                          "a contiguous 2-D float32 or bfloat16 tensor")
     R, K = x.shape
+    if amax is not None and (amax.dtype != torch.float32 or amax.numel() != R
+                             or amax.device != x.device or not amax.is_contiguous()):
+        raise ValueError(f"quantize_activations: amax {tuple(amax.shape)} {amax.dtype} must "
+                         f"be {R} contiguous float32 values on {x.device}")
     x8 = torch.empty((R, K), dtype=torch.int8, device=x.device)
     sx = torch.empty((R, 1), dtype=torch.float32, device=x.device)
     rc = build.load().sequoia_quantize_activations(
-        x.data_ptr(), x8.data_ptr(), sx.data_ptr(), R, K, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), x8.data_ptr(), sx.data_ptr(), None if amax is None else amax.data_ptr(),
+        R, K, _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "quantize_activations")
     build.launches["quantize_activations"] += 1
     return x8, sx
 
 
-def _quant_matmul_w4a8(x, q, scale, out_dtype):
+def _quant_matmul_w4a8(x, q, scale, out_dtype, amax=None):
     """Quantize x per row, then the x8 instantiation of the int4 kernel."""
     _check(x, q, scale, 4, out_dtype)
-    x8, sx = quantize_activations(x)
+    x8, sx = quantize_activations(x, amax)
     return _launch_int4_sm90(x8, q, scale, out_dtype, sx=sx, pdl=True)
 
 
@@ -528,22 +539,26 @@ def _quant_matmul_f32(x, q, scale, out_dtype, *, bits, tiled=False):
     return _launch_int4_sm90(planes, q, scale, out_dtype, tiled=tiled, pdl=True)
 
 
-def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"):
+def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto",
+                 amax=None):
     """`out [R, N]` = `x @ dequant(q) * scale` (see module doc). `unpack`
     (int4 only): "auto", "shift" and "float" are the one weight-only kernel;
-    "w4a8" quantizes x per row and runs on the int8 tensor cores."""
+    "w4a8" quantizes x per row (by the row maxima `amax` when given, see
+    `quantize_activations`) and runs on the int8 tensor cores."""
     if unpack not in UNPACK:
         raise ValueError(f"quant_matmul: unpack must be one of {UNPACK}, got {unpack!r}")
     if unpack == "w4a8" and bits != 4:
         raise ValueError("quant_matmul: unpack='w4a8' is an int4 variant")
+    if amax is not None and unpack != "w4a8":
+        raise ValueError("quant_matmul: amax is for unpack='w4a8' only")
     if x.device.type == "cpu":
         return quant_matmul_plain(x, q, scale, bits=bits, out_dtype=out_dtype,
-                                  unpack=unpack)
+                                  unpack=unpack, amax=amax)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     out_dtype = out_dtype or x.dtype
     if unpack == "w4a8":
-        return _quant_matmul_w4a8(x, q, scale, out_dtype)
+        return _quant_matmul_w4a8(x, q, scale, out_dtype, amax)
     _check(x, q, scale, bits, out_dtype)
     if x.dtype == torch.float32:
         return _quant_matmul_f32(x, q, scale, out_dtype, bits=bits)
@@ -552,16 +567,17 @@ def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"
     return _launch_int4_sm90(x, q, scale, out_dtype)
 
 
-def quant_matmul_w8a8(x, q, scale, *, out_dtype=None):
+def quant_matmul_w8a8(x, q, scale, *, out_dtype=None, amax=None):
     """int8 weights x int8 activations: `float(x8 @ q) * sx * scale`, x
-    quantized per row (`quantize_activations`). Any row count, R = 1 too."""
+    quantized per row (`quantize_activations`, by the row maxima `amax`
+    when given). Any row count, R = 1 too."""
     if x.device.type == "cpu":
-        return quant_matmul_w8a8_plain(x, q, scale, out_dtype=out_dtype)
+        return quant_matmul_w8a8_plain(x, q, scale, out_dtype=out_dtype, amax=amax)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     out_dtype = out_dtype or x.dtype
     _check(x, q, scale, 8, out_dtype)
-    x8, sx = quantize_activations(x)
+    x8, sx = quantize_activations(x, amax)
     return _launch_int8_sm90(x8, q, scale, out_dtype, sx=sx, pdl=True)
 
 

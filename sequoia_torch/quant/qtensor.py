@@ -72,14 +72,19 @@ def quantize_int4(w: torch.Tensor) -> QuantizedTensor:
     wf = w.float()
     amax = wf.abs().amax(dim=-2, keepdim=True)
     scale = amax.clamp_min(1e-8) / 7.0
-    q = torch.round(wf / scale).clamp(-7, 7).to(torch.int16)
-    if q.shape[-2] % 2:
+    return QuantizedTensor(q=pack_int4(torch.round(wf / scale).clamp(-7, 7)), scale=scale)
+
+
+def pack_int4(v: torch.Tensor) -> torch.Tensor:
+    """int4 values `[..., K, N]` (integers in [-8, 7], any dtype) -> the
+    half-split packed `[..., K/2, N]` int8: the inverse of `unpack_int4`,
+    bit for bit."""
+    if v.shape[-2] % 2:
         raise ValueError("int4 packing needs an even `in` dim")
-    half = q.shape[-2] // 2
-    lo = q[..., :half, :] & 0x0F
-    hi = (q[..., half:, :] & 0x0F) << 4
-    packed = (lo | hi).to(torch.uint8).view(torch.int8)
-    return QuantizedTensor(q=packed, scale=scale)
+    half = v.shape[-2] // 2
+    w = v.to(torch.int16)
+    packed = (w[..., :half, :] & 0x0F) | ((w[..., half:, :] & 0x0F) << 4)
+    return packed.to(torch.uint8).view(torch.int8)
 
 
 def tile_int4(w: QuantizedTensor, bn0: int = 128) -> QuantizedTensor:
@@ -115,6 +120,12 @@ def is_tiled(w: QuantizedTensor) -> bool:
 # default of 96 rows is the JAX package's, not a measurement on this card.
 _W8A8 = "auto"
 _W8A8_MIN_ROWS = 96
+# W4A8: a row-major packed int4 weight multiplied int4 x int8 on the int8
+# tensor cores after the same per-row activation quantization
+# (`quant_matmul(..., unpack="w4a8")`). JAX reaches it only through its
+# kernel's `unpack` argument; "on" sends every such matmul of the forward
+# there. Off by default.
+_W4A8 = "off"
 
 
 def set_w8a8(mode: str, min_rows: int = None) -> None:
@@ -126,10 +137,18 @@ def set_w8a8(mode: str, min_rows: int = None) -> None:
         _W8A8_MIN_ROWS = int(min_rows)
 
 
+def set_w4a8(mode: str) -> None:
+    global _W4A8
+    if mode not in ("on", "off"):
+        raise ValueError(f"w4a8 mode must be on or off, got {mode!r}")
+    _W4A8 = mode
+
+
 def w8a8_setting() -> tuple:
-    """`(mode, min_rows)` of the w8a8 switch: a captured graph holds the
-    route it was captured with, so the engines key their graphs on it."""
-    return _W8A8, _W8A8_MIN_ROWS
+    """`(w8a8 mode, min_rows, w4a8 mode)` of the activation-quantization
+    switches: a captured graph holds the routes it was captured with, so the
+    engines key their graphs on them."""
+    return _W8A8, _W8A8_MIN_ROWS, _W4A8
 
 
 def _use_w8a8(x: torch.Tensor) -> bool:
@@ -141,10 +160,26 @@ def _use_w8a8(x: torch.Tensor) -> bool:
     return rows >= _W8A8_MIN_ROWS and x.device.type == "cuda"
 
 
-def matmul(x: torch.Tensor, w: WeightLike, *, out_dtype=None) -> torch.Tensor:
+def quantizes_activations(x: torch.Tensor, w: WeightLike) -> bool:
+    """True when `matmul(x, w)` quantizes x per row to int8 (w8a8 on an
+    int8 weight, w4a8 on a row-major packed int4 one): the routes whose
+    product depends on each row's maximum."""
+    if not isinstance(w, QuantizedTensor) or is_tiled(w):
+        return False
+    if w.q.shape[-2] == x.shape[-1]:
+        return _use_w8a8(x)
+    return _W4A8 == "on"
+
+
+def matmul(x: torch.Tensor, w: WeightLike, *, out_dtype=None, amax=None) -> torch.Tensor:
     """`x @ w`, with the dequantization inside the kernel for a
     `QuantizedTensor` (JAX's `preferred_element_type` is `out_dtype`; None
-    keeps x's dtype). A float weight goes to `torch.matmul`."""
+    keeps x's dtype). A float weight goes to `torch.matmul`. `amax` (f32
+    `[R, 1]`): the row maxima the activation quantizer scales by, on the
+    routes of `quantizes_activations` only (a row-parallel shard of K takes
+    those of the whole row)."""
+    if amax is not None and not quantizes_activations(x, w):
+        raise ValueError("matmul: amax on a route that does not quantize activations")
     if not isinstance(w, QuantizedTensor):
         if out_dtype is None:
             return x @ w
@@ -161,7 +196,10 @@ def matmul(x: torch.Tensor, w: WeightLike, *, out_dtype=None) -> torch.Tensor:
     if bits == 8 and _use_w8a8(x):
         # JAX's `_matmul_w8a8`: per-row activation quantization, the
         # int8 x int8 product and the f32 rescale, here one wrapper call.
-        return quant_matmul_w8a8(x, w.q, w.scale, out_dtype=out_dtype)
+        return quant_matmul_w8a8(x, w.q, w.scale, out_dtype=out_dtype, amax=amax)
+    if bits == 4 and _W4A8 == "on":
+        return quant_matmul(x, w.q, w.scale, bits=4, unpack="w4a8", out_dtype=out_dtype,
+                            amax=amax)
     return quant_matmul(x, w.q, w.scale, bits=bits, out_dtype=out_dtype)
 
 

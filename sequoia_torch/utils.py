@@ -32,6 +32,18 @@ def hard_sync(device=None) -> None:
         torch.cuda.synchronize(dev)
 
 
+def hard_sync_all_devices(group=None) -> None:
+    """JAX `utils.hard_sync_all_devices`: wait for all queued work on this
+    process's card, then, under `torch.distributed`, for every rank of
+    `group` (the default group): a synchronize plus a barrier."""
+    import torch.distributed as dist
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    if dist.is_initialized():
+        dist.barrier(group=group)
+
+
 def make_generator(seed: int, device) -> torch.Generator:
     """A seeded generator on `device`, threaded explicitly through every
     random draw (never the global RNG). Streams differ from JAX's keys;
@@ -41,4 +53,4 @@ def make_generator(seed: int, device) -> torch.Generator:
     return gen
 
 
-__all__ = ["resolve_device", "hard_sync", "make_generator"]
+__all__ = ["resolve_device", "hard_sync", "hard_sync_all_devices", "make_generator"]

@@ -99,10 +99,15 @@ def test_chat_cli(capsys, extra, want):
 
 
 def test_chat_cli_refuses_tensor_parallelism():
+    """`--tp 2` needs a process group (torchrun's ranks,
+    tests/test_torch_distributed.py runs it so); a single process without
+    one is refused, and so are the single-card paths under --tp."""
     from sequoia_torch.cli.chat import main
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         main(CLI + ["--tp", "2", "--prompts", "synthetic:1,10"])
+    with pytest.raises(ValueError, match="offloading"):
+        main(CLI + ["--tp", "2", "--offloading", "--prompts", "synthetic:1,10"])
 
 
 def test_chat_mt_bench_offline_byte_tokenizer(capsys, tmp_path):

@@ -789,3 +789,86 @@ def test_offload_pageable_streamed_layers_raise():
     params = off._replace(layers=OffloadLayers(resident=None, streamed=pageable))
     with pytest.raises(RuntimeError, match="pinned"):
         _split_forward(cfg, torch.float32)(params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int4", "tiled", "w4a8"])
+@pytest.mark.parametrize("K,N,out_dtype", [
+    # llama-2-7b's tensor-parallel shards at tp = 2 and 4 (core/model.py, tp=):
+    # column shards of qkv / gate-up / the head, row shards of wo / w_down.
+    (4096, 2048, None), (4096, 5504, None), (4096, 16000, torch.float32),
+    (2048, 4096, None), (5504, 4096, None),
+    (4096, 1024, None), (4096, 2752, None), (4096, 8000, torch.float32),
+    (1024, 4096, None), (2752, 4096, None),
+])
+def test_quant_matmuls_at_tp_shard_shapes(kind, K, N, out_dtype):
+    """Each quant-matmul kernel at the shard shapes of the tensor-parallel
+    forward, 64 rows (a verify), against its plain version at the
+    tolerances of the whole shapes; w4a8 with the whole rows' maxima (x is
+    the first K of rows twice as wide), as a row shard gets them."""
+    _need_cuda()
+    bits = 8 if kind == "int8" else 4
+    x, q, scale = _qmm_inputs(64, K, N, bits, torch.bfloat16, K + N + bits)
+    tol = 2e-2 if out_dtype is None else 1e-4
+    if kind == "tiled":
+        t = tile_int4(QuantizedTensor(q, scale))
+        got = qmm.quant_matmul_tiled(x, t.q, t.scale, out_dtype=out_dtype)
+        want = qmm.quant_matmul_tiled_plain(x, t.q, t.scale, out_dtype=out_dtype)
+    elif kind == "w4a8":
+        wide = torch.cat([x, 4 * x.flip(1)], dim=1)
+        amax = wide.float().abs().amax(dim=-1, keepdim=True)
+        got = qmm.quant_matmul(x, q, scale, bits=4, unpack="w4a8", out_dtype=out_dtype,
+                               amax=amax)
+        want = qmm.quant_matmul_plain(x, q, scale, bits=4, unpack="w4a8",
+                                      out_dtype=out_dtype, amax=amax)
+        tol = 2 ** -8 if out_dtype is None else 1e-6
+    else:
+        got = qmm.quant_matmul(x, q, scale, bits=bits, out_dtype=out_dtype)
+        want = qmm.quant_matmul_plain(x, q, scale, bits=bits, out_dtype=out_dtype)
+    assert got.shape == (64, N)
+    peak = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * peak)
+
+
+@pytest.mark.cuda
+def test_quantizer_takes_whole_row_maxima():
+    """A row-parallel shard quantized by its whole rows' maxima (the
+    tensor-parallel w8a8 / w4a8 route): the kernel equals its plain
+    version bit for bit, and both equal the whole row's values."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(64, 11008, generator=g, device="cuda").to(torch.bfloat16)
+    amax = x.float().abs().amax(dim=-1, keepdim=True)
+    part = x[:, :5504].contiguous()
+    got8, gots = qmm.quantize_activations(part, amax)
+    want8, wants = qmm.quantize_activations_plain(part, amax)
+    whole8, whole_s = qmm.quantize_activations(x)
+    assert torch.equal(got8, want8) and torch.equal(gots, wants)
+    assert torch.equal(got8, whole8[:, :5504]) and torch.equal(gots, whole_s)
+
+
+@pytest.mark.cuda
+def test_graph_entry_points_refuse_gloo_on_cuda(tmp_path):
+    """On the card a gloo tp group cannot be captured: `generate_fast`
+    raises, naming NCCL; the eager `generate` runs (one gloo rank,
+    tests/torch_tp_worker.py)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    _need_cuda()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    inp = tmp_path / "input.pt"
+    torch.save({"tp": 1}, inp)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tp_worker.py")
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    res = subprocess.run([sys.executable, worker, "gloo_cuda", str(inp), str(tmp_path)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    got = torch.load(tmp_path / "rank0.pt", weights_only=False)
+    assert got["raised"] and got["eager_tokens"] > 0
+

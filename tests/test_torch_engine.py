@@ -140,9 +140,10 @@ def test_planned_growmap_equals_jax():
 def test_unported_options_raise(models):
     _, _, td, tt = models
     gm = uniform_tree(2, 2)
-    for kw in ({"mesh": object()}, {"shard_draft": True}):
-        with pytest.raises(NotImplementedError):
-            SpecEngine(td, CFG, tt, CFG, gm, device="cpu", **kw)
+    with pytest.raises(TypeError, match="DeviceMesh"):   # tensor parallelism: a (dp, tp) mesh
+        SpecEngine(td, CFG, tt, CFG, gm, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        SpecEngine(td, CFG, tt, CFG, gm, device="cpu", shard_draft=True)
     for kw in ({"algorithm": "nope"}, {"kv_quant": "int2"}, {"walk": "sparse"}):
         with pytest.raises(ValueError):
             SpecEngine(td, CFG, tt, CFG, gm, device="cpu", **kw)

@@ -16,6 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "sequoia_tpu")
 def _port_files():
     files = sorted((ROOT / "sequoia_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    for name in ("distributed", "sharding", "collectives", "aot_proof"):
+        assert ROOT / "sequoia_torch" / "parallel" / f"{name}.py" in files
     return files
 
 
