@@ -9,6 +9,7 @@
     python3 chip_smoke.py --batched     # phases 1, 2 and 9
     python3 chip_smoke.py --offload     # phases 1, 2 and 10
     python3 chip_smoke.py --tp          # phases 1, 2 and 11
+    python3 chip_smoke.py --tools       # phases 1, 2 and 12 (its own short bf16 curve)
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -137,7 +138,28 @@ Phases, each fatal on failure:
      one row-parallel w4a8 layer with whole-row maxima within 1e-5 of the
      unsharded layer, and a 32-token greedy generate equal to the
      unsharded one up to the first top-2 logit gap under that amount; a
-     failed rank fails the run.
+     failed rank fails the run;
+ 12. the tools (`tools/distill.py`, `tools/perplexity.py`): (a) one f32
+     batch (B = 8, T = 64) of an 8L-256h target, every leaf's gradient
+     through the batched f32 tree-attention kernel under autograd
+     (`TreeAttentionFunction`) against the plain attention's on the card,
+     within 1e-4 of its largest |grad|, the kernel launched; a
+     grad-requiring input to a quant matmul, the quantizer or top-p
+     raises; (b) `make_correlated_pair` (bench.py's trained pair: target
+     8L-256h for 300 steps, a 2L-128h draft distilled for 600, vocab 512,
+     on the bundled c4_small rows), ms a step, losses falling, params
+     returned without grad; (c) 20 `train_lm` steps at llama-68m's width
+     (V 32000); (d) the pair's dynamic acceptance (width 8, 40 steps x 6
+     prompts of 24 tokens, T 0.6; rank 1 accepted > 0.15), the plan on the
+     bf16 7B curve, Sequoia served through `generate_fast` at more than
+     1.15 tokens a target step, planned E beside it; (e) `evaluate` on the
+     card equal to the CPU's for the trained target in f32, int8 and int4
+     weights with the float, int8 and int4 KV cache, then llama-2-7b
+     (random, seeded) in bf16, int8 (w8a8 "auto": int8 activations at
+     the chunk's 128 rows; and weight-only) and int4 weights and bf16 with
+     int8 / int4 KV on 4 c4_small rows at seq_len 256, chunk 128: finite
+     NLLs, int8 within 5% of bf16, ms per chunk forward. Its launches ((b)-(e))
+     count.
 
 Prints the kernels JSON line and the card line before the last line, and
 ends with one JSON line {"ok": true, "device": {...}}. Exits non-zero,
@@ -3248,6 +3270,309 @@ def tensor_parallel(torch, gm, results):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the tools (distill and perplexity)
+# ---------------------------------------------------------------------------
+
+# bench.py's trained pair (`_bench_trained_pair`): an 8L-256h target, a
+# 2L-128h draft distilled for twice the steps, on the bundled corpus at
+# vocab 512; measured as bench.py measures it.
+TOOLS = dict(steps=300, draft_steps=600, target_shape=(8, 256), draft_shape=(2, 128),
+             seq_len=64, B=8, width=8, accept_steps=40, accept_len=192, prompts=6,
+             prompt_len=24, T=0.6, P=0.9, gen=128, serve_len=256, wide_steps=20)
+PPL = dict(rows=4, seq_len=256, chunk=128, small_seq_len=64, small_chunk=32)
+GRAD_TOL = 1e-4      # kernel vs plain attention: each leaf within this of its max |grad|
+PPL_TOL = 1e-3       # card vs CPU perplexity of the trained target: relative NLL
+RANDOM_RATE = 1.928  # tokens per target step of the 7B path at random weights (PERF.md §5)
+TOOLS_KERNELS = ("tree_attention_batched_f32", "tree_attention_f32", "tree_attention_kv8_f32",
+                 "tree_attention_kv4_head_f32", "top_p_threshold_from_logits", "tree_attention",
+                 "tree_attention_kv8", "tree_attention_kv4_head", "quant_matmul_int8_wgmma",
+                 "quant_matmul_int4_wgmma", "quant_matmul_int8", "quant_matmul_int4",
+                 "split_bf16x3", "quant_matmul_w8a8_wgmma", "quantize_activations")
+
+
+def tools_grads(torch, tcfg, data):
+    """(a) One f32 batch (B = 8, T = 64) of the 8L-256h target: the loss
+    and every leaf's gradient through the batched f32 kernel under autograd
+    (`TreeAttentionFunction`), then with the plain attention on the card
+    (the model's attention swapped for `tree_attention_batched_plain`,
+    whose backward is PyTorch's autograd). Each leaf within GRAD_TOL of its
+    largest |grad|; the kernel's counter must rise. Then a grad-requiring
+    input to the other kernel wrappers must raise."""
+    import sequoia_torch.core.model as model
+    from sequoia_torch.core.init import random_params
+    from sequoia_torch.kernels import build
+    from sequoia_torch.kernels.quant_matmul import quant_matmul, quantize_activations
+    from sequoia_torch.kernels.top_p import top_p_threshold_from_logits
+    from sequoia_torch.kernels.tree_attention import tree_attention_batched_plain
+    from sequoia_torch.quant.qtensor import quantize_int8
+    from sequoia_torch.quant.quantize import tensors
+    from sequoia_torch.tools.distill import lm_loss
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the f32 gradients must be checked in f32")
+    batch = torch.as_tensor(data[:TOOLS["B"]], dtype=torch.long, device="cuda")
+    res, swapped = {}, model.tree_attention_batched
+    for route in ("kernel", "plain"):
+        params = random_params(tcfg, SEED + 7, dtype=torch.float32, device="cuda")
+        leaves = [t.requires_grad_(True) for t in tensors(params)]
+        if route == "plain":
+            model.tree_attention_batched = tree_attention_batched_plain
+        try:
+            times = []
+            for _ in range(3):          # the last of three, each from zero grads
+                for t in leaves:
+                    t.grad = None
+                build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = lm_loss(params, tcfg, batch)
+                loss.backward()
+                loss = loss.detach()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            model.tree_attention_batched = swapped
+        res[route] = (loss.item(), [t.grad for t in leaves], times[-1],
+                      build.launches["tree_attention_batched_f32"])
+        if route == "kernel":
+            for t in leaves:
+                t.grad = None
+            traced = profile_kernels(torch, lambda: lm_loss(params, tcfg, batch).backward(),
+                                     "(a) loss + backward, kernel", top=4)
+            if traced is not None:
+                log(f"  (a) kernel ms {traced[0]:.3f} of {times[-1] * 1e3:.2f} wall ms "
+                    f"(busy share {traced[0] / (times[-1] * 1e3):.3f})")
+    (lk, gk, tk, nk), (lp, gp, tp_, np_) = res["kernel"], res["plain"]
+    if nk != tcfg.num_layers or np_ != 0:
+        fail(f"(a) batched f32 kernel launches: {nk} with the Function (want "
+             f"{tcfg.num_layers}), {np_} with the plain attention (want 0)")
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(gk, gp)]
+    if any(g is None for g in gk + gp) or max(errs) > GRAD_TOL:
+        fail(f"(a) kernel-Function gradients differ from the plain ones: {errs}")
+    log(f"  (a) loss {lk:.6f} (kernel) / {lp:.6f} (plain); every leaf's gradient within "
+        f"{max(errs):.2e} of its max |grad| (tolerance {GRAD_TOL:g}, {len(errs)} leaves); "
+        f"loss + backward {tk * 1e3:.2f} ms (kernel, {nk} launches) / {tp_ * 1e3:.2f} ms (plain)")
+    x = torch.randn(4, 256, device="cuda", requires_grad=True)
+    w = quantize_int8(torch.randn(256, 128, device="cuda"))
+    for name, call in (("quant_matmul", lambda: quant_matmul(x, w.q, w.scale, bits=8)),
+                       ("quantize_activations", lambda: quantize_activations(x)),
+                       ("top_p_threshold_from_logits",
+                        lambda: top_p_threshold_from_logits(x, 0.9, 0.6))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"(a) {name} on a grad-requiring CUDA input did not raise")
+    log("  (a) quant_matmul, quantize_activations and top_p on a grad-requiring CUDA input "
+        "raise")
+
+
+def tools_perplexity(torch, target, tcfg, target7, tcfg7):
+    """(e) `evaluate` on the card: the trained f32 target against the same
+    params on the CPU (f32, int8 and int4 weights, each with the float,
+    int8 and int4 KV cache), then llama-2-7b (random, seeded) in bf16, int8
+    (w8a8 "auto", which quantizes the activations of a 128-row chunk, and
+    weight-only), int4 weights and bf16 with int8 / int4 KV on 4 c4_small
+    rows."""
+    import numpy as np
+
+    from sequoia_torch.data.datasets import C4_SMALL, load_pretokenized_jsonl
+    from sequoia_torch.quant import qtensor
+    from sequoia_torch.quant.quantize import quantize_model
+    from sequoia_torch.tools.perplexity import evaluate
+    from sequoia_torch.utils import hard_sync
+
+    ds = load_pretokenized_jsonl(C4_SMALL, seq_len=PPL["small_seq_len"], limit=PPL["rows"])
+    ids = ds.ids % tcfg.vocab_size
+    lines, worst, base, scored = [], 0.0, None, 0
+    for bits in (None, 8, 4):
+        params = target if bits is None else quantize_model(target, bits=bits)
+        cpu = tree_to(params, "cpu")
+        for kv in (None, "int8", "int4"):
+            card = evaluate(params, tcfg, ids, ds.lengths, chunk=PPL["small_chunk"], kv_quant=kv)
+            ref = evaluate(cpu, tcfg, ids, ds.lengths, chunk=PPL["small_chunk"], kv_quant=kv)
+            rel = abs(card.nll - ref.nll) / ref.nll
+            worst = max(worst, rel)
+            if card.tokens != ref.tokens or not np.isfinite(card.nll) or rel > PPL_TOL:
+                fail(f"(e) trained target, {bits or 32}-bit weights, {kv or 'float'} KV: card "
+                     f"NLL {card.nll} ({card.tokens} tokens) vs CPU {ref.nll} ({ref.tokens})")
+            base = card.nll if base is None else base
+            scored = card.tokens
+            lines.append(f"w{bits or 'f32'}/{kv or 'f32'} KV {card.nll:.5f} "
+                         f"({card.nll - base:+.5f})")
+    log(f"  (e) trained target NLL on the card ({scored} tokens, chunk "
+        f"{PPL['small_chunk']}; delta from f32): " + ", ".join(lines)
+        + f"; card vs CPU within {worst:.2e} relative (tolerance {PPL_TOL:g})")
+
+    ds = load_pretokenized_jsonl(C4_SMALL, seq_len=PPL["seq_len"], limit=PPL["rows"])
+    chunks = sum(-(-PPL["seq_len"] // PPL["chunk"]) for n in ds.lengths if n >= 2)
+    evaluate(target7, tcfg7, ds.ids, ds.lengths, chunk=PPL["chunk"], limit=1)   # warm-up
+    out, quantized = {}, {}
+    for label, bits, kv, w8a8 in (
+            ("bf16", None, None, "auto"), ("int8 (w8a8 auto)", 8, None, "auto"),
+            ("int8 weight-only", 8, None, "off"), ("int4", 4, None, "auto"),
+            ("bf16, int8 KV", None, "int8", "auto"), ("bf16, int4 KV", None, "int4", "auto")):
+        if bits is not None and bits not in quantized:
+            quantized.clear()
+            torch.cuda.empty_cache()
+            quantized[bits] = quantize_model(target7, bits=bits)
+        params = target7 if bits is None else quantized[bits]
+        qtensor.set_w8a8(w8a8)
+        try:
+            hard_sync("cuda")
+            t0 = time.perf_counter()
+            res = evaluate(params, tcfg7, ds.ids, ds.lengths, chunk=PPL["chunk"], kv_quant=kv)
+            out[label] = (res, (time.perf_counter() - t0) / chunks)
+        finally:
+            qtensor.set_w8a8("auto")
+        if not np.isfinite(res.nll):
+            fail(f"(e) llama-2-7b {label}: NLL {res.nll}")
+    del params
+    quantized.clear()
+    torch.cuda.empty_cache()
+    b = out["bf16"][0].nll
+    for label in ("int8 (w8a8 auto)", "int8 weight-only"):
+        if abs(out[label][0].nll - b) >= 0.05 * max(b, 1.0):
+            fail(f"(e) llama-2-7b {label} moved the NLL from {b} to {out[label][0].nll}")
+    log(f"  (e) llama-2-7b (random weights), {out['bf16'][0].tokens} tokens of "
+        f"{PPL['rows']} c4_small rows at seq_len {PPL['seq_len']}, chunk {PPL['chunk']}: "
+        + ", ".join(f"{k} NLL {r.nll:.5f} ({r.nll - b:+.5f}, {(r.nll - b) / b * 100:+.3f}%), "
+                    f"{ms * 1e3:.2f} ms/chunk" for k, (r, ms) in out.items()))
+
+
+def tools(torch, curve=None, draft_time=None):
+    """Phase 12: distill a correlated pair on the card, serve it through
+    measure -> plan -> serve, and score perplexity (module doc, phase 12).
+    `curve` / `draft_time`: phase 7's bf16 7B curve at PLAN_WIDTHS and the
+    68m draft's forward at width 8 (None: measure a short curve at
+    PHASE8_CURVE_WIDTHS and the draft here). Returns the launches of
+    (b)-(e), the main paths; (a) is a comparison and not counted."""
+    import numpy as np
+
+    from sequoia_torch.cli.testbed import build_params
+    from sequoia_torch.core.config import get_config
+    from sequoia_torch.engine.engine import SpecEngine
+    from sequoia_torch.kernels import build
+    from sequoia_torch.planner.acceptance import dynamic_acceptance
+    from sequoia_torch.planner.dp import plan
+    from sequoia_torch.planner.profile import time_forward_widths
+    from sequoia_torch.quant.quantize import tensors
+    from sequoia_torch.tools.distill import (_shape_cfg, corpus_from_reference,
+                                             make_correlated_pair, train_lm)
+    from sequoia_torch.utils import hard_sync
+
+    t_phase = time.perf_counter()
+    T, P, S = TOOLS["T"], TOOLS["P"], TOOLS["steps"]
+    data = corpus_from_reference(vocab_size=512, seq_len=TOOLS["seq_len"])
+    log("  [12] (a) gradients through the tree-attention kernel under autograd")
+    tools_grads(torch, _shape_cfg(get_config("test-small"), *TOOLS["target_shape"]), data)
+
+    build.reset_launches()     # the paths start here
+    log("  [12] (b) distill the pair (make_correlated_pair)")
+    report = {}
+    draft, dcfg, target, tcfg = make_correlated_pair(
+        steps=S, seq_len=TOOLS["seq_len"], distill_draft=True,
+        target_shape=TOOLS["target_shape"], draft_shape=TOOLS["draft_shape"],
+        draft_steps=TOOLS["draft_steps"], device="cuda", report=report)
+    if any(t.requires_grad for t in list(tensors(target)) + list(tensors(draft))):
+        fail("(b) train_lm returned params that require grad")
+    for name, cfg in (("target", tcfg), ("draft", dcfg)):
+        r = report[name]
+        first, last = np.mean(r["losses"][:10]), np.mean(r["losses"][-10:])
+        if not last < first:
+            fail(f"(b) the {name}'s loss did not fall: {r['losses'][:3]} ... {r['losses'][-3:]}")
+        log(f"  {name} {cfg.num_layers}L-{cfg.hidden_size}h V {cfg.vocab_size}: "
+            f"{len(r['losses'])} steps, {r['seconds'] / len(r['losses']) * 1e3:.2f} ms/step, "
+            f"loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} (mean of the first / last 10: "
+            f"{first:.4f} / {last:.4f})")
+
+    log("  [12] (c) train_lm at llama-68m's width (768, 12 heads of 64, V 32000)")
+    wcfg = get_config("llama-68m")
+    losses = []
+    hard_sync("cuda")
+    t0 = time.perf_counter()
+    wide = train_lm(wcfg, corpus_from_reference(vocab_size=wcfg.vocab_size,
+                                                seq_len=TOOLS["seq_len"]),
+                    steps=TOOLS["wide_steps"], batch_size=TOOLS["B"], seed=SEED, device="cuda",
+                    losses=losses)
+    losses = torch.stack(losses).tolist()
+    took = time.perf_counter() - t0
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]) or any(t.requires_grad
+                                                              for t in tensors(wide)):
+        fail(f"(c) llama-68m width: the loss did not fall or params require grad: {losses}")
+    log(f"  {wcfg.num_layers}L-{wcfg.hidden_size}h: {len(losses)} steps, "
+        f"{took / len(losses) * 1e3:.2f} ms/step, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    del wide
+
+    log("  [12] (d) measure -> plan -> serve the trained pair")
+    target7, tcfg7 = build_params(FULL["target"], "random", "bf16", SEED, "cuda")
+    widths = PLAN_WIDTHS
+    if curve is None:
+        widths = PHASE8_CURVE_WIDTHS
+        curve = time_forward_widths(target7, tcfg7, widths, max_length=FULL["max_length"],
+                                    kv_len=128, reps=10, dtype=torch.bfloat16)
+        draft0, dcfg0 = build_params(FULL["draft"], "random", "bf16", SEED + 1, "cuda")
+        draft_time = time_forward_widths(draft0, dcfg0, [8], max_length=FULL["max_length"],
+                                         kv_len=128, reps=20)[0]
+        del draft0
+        log("  bf16 7B forward: " + ", ".join(f"w{w} {t * 1e3:.3f} ms"
+                                              for w, t in zip(widths, curve))
+            + f"; 68m draft w8 {draft_time * 1e3:.4f} ms")
+    prompts = [np.asarray(r[:TOOLS["prompt_len"]], np.int32) for r in data[:TOOLS["prompts"]]]
+    t0 = time.perf_counter()
+    vec = dynamic_acceptance(draft, dcfg, target, tcfg, prompts, width=TOOLS["width"],
+                             steps_per_prompt=TOOLS["accept_steps"],
+                             max_length=TOOLS["accept_len"], temperature=T, top_p=P)
+    t_vec = time.perf_counter() - t0
+    if not vec[1] > 0.15:
+        fail(f"(d) the distilled draft's rank-1 child is accepted at {vec[1]} (want > 0.15)")
+    pvec = np.maximum(vec, 1e-4)
+    pvec[0] = 0.0
+    gm, info = plan(pvec, widths, list(curve[:len(widths)]), draft_time, max_depth=8)
+    eng = SpecEngine(draft, dcfg, target, tcfg, gm, algorithm="sequoia",
+                     max_length=TOOLS["serve_len"], temperature=T, top_p=P, device="cuda")
+    eng.generate_fast(prompts[0], max_new_tokens=4)     # warm up and capture
+    hard_sync("cuda")
+    tokens = steps = 0
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        out = eng.generate_fast(p, max_new_tokens=TOOLS["gen"], seed=SEED + i)
+        if len(out) <= len(p) or out.min() < 0 or out.max() >= tcfg.vocab_size:
+            fail(f"(d) the trained pair produced invalid tokens {out[len(p):]}")
+        tokens += eng.num_decoding_steps
+        steps += eng.num_large_model_steps
+    hard_sync("cuda")
+    wall = time.perf_counter() - t0
+    rate = tokens / max(steps, 1)
+    log(f"  dynamic acceptance (width {TOOLS['width']}, {TOOLS['accept_steps']} steps x "
+        f"{len(prompts)} prompts of {TOOLS['prompt_len']}, T {T}) in {t_vec:.1f} s: "
+        f"{np.round(vec, 4).tolist()}")
+    log(f"  plan on the bf16 7B curve: {gm.size} nodes, depth {info['depth']}, level widths "
+        f"{gm.level_widths}, planned E {info['expected_accepted']:.3f} tokens a step; served "
+        f"(generate_fast, {len(prompts)} prompts x {TOOLS['gen']} tokens): {rate:.3f} tokens a "
+        f"target step ({tokens} tokens, {steps} steps; random 7B weights {RANDOM_RATE}), "
+        f"{wall / tokens * 1e3:.3f} ms/token, graphs {graph_lines(torch, eng, 'pair')}")
+    if not rate > 1.15:
+        fail(f"(d) the trained pair emits {rate} tokens a target step (want > 1.15)")
+    del eng
+
+    log("  [12] (e) perplexity (tools/perplexity.py::evaluate)")
+    tools_perplexity(torch, target, tcfg, target7, tcfg7)
+    hard_sync("cuda")
+    launches = dict(build.launches)     # ... and end here
+    del target7
+    torch.cuda.empty_cache()
+    missing = [k for k in TOOLS_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"phase 12: {missing} never launched: {launches}")
+    log(f"  phase 12 launches {({k: v for k, v in launches.items() if v})}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3297,6 +3622,12 @@ def main() -> None:
         for e in kernels:
             e["launches"] = counts.get(e["name"], 0)
         log(f"  --tp: phase 11 only, {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return
+    if "--tools" in sys.argv[1:]:
+        log("[12] the tools: distill, measure -> plan -> serve the trained pair, perplexity")
+        tools(torch)
+        log(f"  --tools: phase 12 only, {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}), flush=True)
         return
     if "--offload" in sys.argv[1:]:
@@ -3452,6 +3783,10 @@ def main() -> None:
 
     log("[11] tensor parallelism: the tp collectives in the decode graphs, and tp = 2")
     add(tensor_parallel(torch, gm, kernels))
+    torch.cuda.empty_cache()
+
+    log("[12] the tools: distill, measure -> plan -> serve the trained pair, perplexity")
+    add(tools(torch, curves["bf16"][:len(PLAN_WIDTHS)], draft_time))
 
     for e in kernels:
         e["launches"] = launches.get(e["name"], 0)

@@ -19,7 +19,12 @@ and target models.
   params dtype on `torch.matmul`, an int8 / packed-int4 `QuantizedTensor`
   through the fused dequant-matmul kernel (`kernels.quant_matmul`).
 - The caches are updated IN PLACE (JAX returned new buffers); `forward`
-  still returns the cache it wrote, for the same call shape as JAX.
+  still returns the cache it wrote, for the same call shape as JAX. Under
+  autograd (training, `tools/distill.py`) a float cache is still written
+  in place, but attention reads an out-of-place copy of the layer's rows
+  that carries the new rows' history (`_write_rows`): an in-place write
+  into the shared `[L, ...]` stack would bump the version of every
+  layer's saved view, and backward would refuse them.
 
 `forward_batched` is the same forward over a slot axis (JAX vmaps
 `forward` in `sequoia_tpu/engine/batched.py`): B independent requests,
@@ -147,6 +152,23 @@ def _window(offset, n: int, device) -> torch.Tensor:
     """Slot indices `[offset, offset + n)`; `offset` may be a device
     tensor, so the write needs no host sync."""
     return offset + torch.arange(n, device=device)
+
+
+def _write_rows(block: torch.Tensor, rows: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Write `new` (`[n, Hkv, D]`) into rows `rows` of one layer's float
+    cache block (`[M, Hkv, D]`, or `[B, M, Hkv, D]` with `rows` into the
+    slots' rows laid end to end), in place; returns the block attention
+    reads. With grad mode on and `new` requiring grad that is an
+    out-of-place copy carrying `new`'s history (module doc); otherwise the
+    block itself, so the engines and their graphs run as before."""
+    flat = block.flatten(0, -3)
+    if torch.is_grad_enabled() and new.requires_grad:
+        read = flat.index_copy(0, rows, new.to(flat.dtype)).view_as(block)
+        with torch.no_grad():
+            flat.index_copy_(0, rows, new.to(flat.dtype))
+        return read
+    flat.index_copy_(0, rows, new.to(flat.dtype))
+    return block
 
 
 def layer_leaves(lp: LayerParams) -> List[torch.Tensor]:
@@ -361,15 +383,14 @@ def forward(
 
         k_cache, v_cache = kv.k[i], kv.v[i]  # one layer's rows, views
         if split:
-            sk, sv = scratch.k[i], scratch.v[i]
-            sk.index_copy_(0, rows, k.to(sk.dtype))  # in place
-            sv.index_copy_(0, rows, v.to(sv.dtype))
+            sk = _write_rows(scratch.k[i], rows, k)  # in place
+            sv = _write_rows(scratch.v[i], rows, v)
         else:
             if quantized_kv:
                 kv.write_rows(i, rows, k, v)  # quantized, in place
             else:
-                k_cache.index_copy_(0, rows, k.to(k_cache.dtype))  # in place
-                v_cache.index_copy_(0, rows, v.to(v_cache.dtype))
+                k_cache = _write_rows(k_cache, rows, k)  # in place
+                v_cache = _write_rows(v_cache, rows, v)
             sk = sv = empty
         attn = tree_attention(q.contiguous(), k_cache, v_cache, attn_mask,
                               sk, sv, scr_mask, scale=scale,
@@ -437,15 +458,14 @@ def forward_batched(
 
         k_cache, v_cache = kv.k[i], kv.v[i]  # [B, M, ...] views
         if split:
-            sk, sv = scratch.k[i], scratch.v[i]
-            sk.flatten(0, 1).index_copy_(0, rows, k.to(sk.dtype))  # in place
-            sv.flatten(0, 1).index_copy_(0, rows, v.to(sv.dtype))
+            sk = _write_rows(scratch.k[i], rows, k)  # in place
+            sv = _write_rows(scratch.v[i], rows, v)
         else:
             if quantized_kv:
                 kv.write_rows(i, rows, k, v)
             else:
-                k_cache.flatten(0, 1).index_copy_(0, rows, k.to(k_cache.dtype))
-                v_cache.flatten(0, 1).index_copy_(0, rows, v.to(v_cache.dtype))
+                k_cache = _write_rows(k_cache, rows, k)
+                v_cache = _write_rows(v_cache, rows, v)
             sk = sv = empty
         attn = tree_attention_batched(q.reshape(B, Q, H, D), k_cache, v_cache, attn_mask,
                                       sk, sv, scr_mask, scale=scale,

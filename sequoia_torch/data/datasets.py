@@ -123,9 +123,13 @@ MT_BENCH_URL = (
     "https://raw.githubusercontent.com/lm-sys/FastChat/main/"
     "fastchat/llm_judge/data/mt_bench/question.jsonl"
 )
-# The repository's bundled copy of the MT-Bench questions (a data file).
-BUNDLED_MT_BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "sequoia_tpu", "data", "bundled", "mt_bench.jsonl")
+# The repository's bundled data files, read by path: the MT-Bench questions
+# and the pre-tokenized c4_small rows (the corpus `tools/distill.py` trains
+# on).
+BUNDLED = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "sequoia_tpu", "data", "bundled")
+BUNDLED_MT_BENCH = os.path.join(BUNDLED, "mt_bench.jsonl")
+C4_SMALL = os.path.join(BUNDLED, "c4_small.json")
 
 
 def _fetch(url: str, path: str) -> None:

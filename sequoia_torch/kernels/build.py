@@ -9,7 +9,10 @@ is built when this module is imported: only the first kernel launch on a
 CUDA tensor calls `load()`.
 
 The launch counters live here too: each wrapper adds one to its count where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else. So does `refuse_grad`, which every
+wrapper calls before a launch: the kernels write raw device pointers and have
+no backward, so a grad-requiring input raises rather than come back detached
+(tree attention's float route has an autograd Function of its own).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -155,6 +160,15 @@ def load(verbose: bool = False) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through kernel `name`: grad
+    mode is on and one of `tensors` (None skipped) requires grad. A launch
+    returns a tensor with no history, which would cut the graph."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it under "
+                           "torch.no_grad() or on inputs that do not require grad")
 
 
 def check(rc: int, name: str) -> None:

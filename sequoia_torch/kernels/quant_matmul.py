@@ -484,6 +484,7 @@ def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
         return split_bf16x3_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("split_bf16x3", x)
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"split_bf16x3: x {tuple(x.shape)} {x.dtype} must be a contiguous "
                          "2-D float32 tensor")
@@ -504,6 +505,7 @@ def quantize_activations(x: torch.Tensor, amax: torch.Tensor = None):
         return quantize_activations_plain(x, amax)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("quantize_activations", x, amax)
     if x.dim() != 2 or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
         raise ValueError(f"quantize_activations: x {tuple(x.shape)} {x.dtype} must be "
                          "a contiguous 2-D float32 or bfloat16 tensor")
@@ -556,6 +558,7 @@ def quant_matmul(x, q, scale, *, bits: int, out_dtype=None, unpack: str = "auto"
                                   unpack=unpack, amax=amax)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("quant_matmul", x, scale, amax)
     out_dtype = out_dtype or x.dtype
     if unpack == "w4a8":
         return _quant_matmul_w4a8(x, q, scale, out_dtype, amax)
@@ -575,6 +578,7 @@ def quant_matmul_w8a8(x, q, scale, *, out_dtype=None, amax=None):
         return quant_matmul_w8a8_plain(x, q, scale, out_dtype=out_dtype, amax=amax)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("quant_matmul_w8a8", x, scale, amax)
     out_dtype = out_dtype or x.dtype
     _check(x, q, scale, 8, out_dtype)
     x8, sx = quantize_activations(x, amax)
@@ -588,6 +592,7 @@ def quant_matmul_tiled(x, q, scale, *, out_dtype=None):
         return quant_matmul_tiled_plain(x, q, scale, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("quant_matmul_tiled", x, scale)
     out_dtype = out_dtype or x.dtype
     _check(x, q, scale, 4, out_dtype, tiled=True)
     if x.dtype == torch.float32:

@@ -121,6 +121,7 @@ def top_p_threshold_from_logits(logits: torch.Tensor, top_p: float,
         return top_p_threshold_from_logits_plain(logits, top_p, temperature)
     if logits.device.type != "cuda":
         raise ValueError(f"unsupported device {logits.device}")
+    build.refuse_grad("top_p_threshold_from_logits", logits)
     _check_rows(logits, "top_p_threshold_from_logits")
     R, V = logits.shape
     cluster = V > REGISTER_VOCAB
@@ -140,6 +141,7 @@ def top_p_threshold_fused(probs: torch.Tensor, top_p: float) -> torch.Tensor:
         return top_p_threshold_plain(probs, top_p)
     if probs.device.type != "cuda":
         raise ValueError(f"unsupported device {probs.device}")
+    build.refuse_grad("top_p_threshold_fused", probs)
     _check_rows(probs, "top_p_threshold_fused")
     R, V = probs.shape
     cluster = V > REGISTER_VOCAB

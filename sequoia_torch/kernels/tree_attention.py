@@ -37,6 +37,14 @@ every operand gains a leading `[B]` axis, each slot its own problem with
 its own prefix skip, in one launch whose grid's y axis is slot x head. Its
 launches tick counters of their own (`tree_attention_batched...`).
 `tree_attention_batched_plain` runs the plain version slot by slot.
+
+Under autograd (grad mode on and a float operand that requires grad), both
+entry points run through `TreeAttentionFunction`: its forward is the kernel
+on the card and the plain version on the CPU, its backward is written out
+in torch ops (`attention_grads`: the probabilities recomputed from q and the
+keys, as a flash-attention backward does). JAX differentiates its einsum
+attention with XLA and has no backward Pallas kernel; nor does the port. A
+quantized main cache under autograd raises.
 """
 
 from __future__ import annotations
@@ -371,9 +379,92 @@ def _check(q, k, v, main_mask, sk, sv, scr_mask, ks, vs) -> str:
     return fmt
 
 
+def attention_grads(q, k, v, main_mask, sk, sv, scr_mask, out, dout, *, scale: float):
+    """(dq, dk, dv, dsk, dsv) of the float-cache attention over B slots
+    (every operand with the slot axis, as `tree_attention_batched`), given
+    its output `out` and the output's gradient `dout`. In the compute dtype
+    (f32, f64 for f64 q), cast back to each input's dtype:
+    S = q k^T scale over main ∪ scratch with the masked entries at -1e30,
+    P = softmax(S), dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O)),
+    zero where masked, dq = dS k scale, dk = dS^T q scale; the g = H / Hkv
+    query heads of a KV head sum into it. The probabilities are not rounded
+    to q's dtype as the forward's value product rounds them. The products
+    follow torch's matmul settings: f32 with TF32 off, torch's default, as
+    JAX's CPU reference computes them."""
+    B, Q, H, D = q.shape
+    M, Hkv = k.shape[1], sk.shape[2]
+    g = H // Hkv
+    ft = _compute_dtype(q)
+    keys = torch.cat([k, sk], dim=1).to(ft)                  # [B, M + S, Hkv, D]
+    vals = torch.cat([v, sv], dim=1).to(ft)
+    masked = ~torch.cat([main_mask, scr_mask], dim=-1)[:, None, None]   # [B, 1, 1, Q, M + S]
+    qg = q.reshape(B, Q, Hkv, g, D).to(ft)
+    do = dout.reshape(B, Q, Hkv, g, D).to(ft)
+    o = out.reshape(B, Q, Hkv, g, D).to(ft)
+    s = torch.einsum("bqhgd,bnhd->bhgqn", qg, keys) * scale
+    p = torch.softmax(s.masked_fill(masked, NEG), dim=-1)
+    dv = torch.einsum("bhgqn,bqhgd->bnhd", p, do)
+    dp = torch.einsum("bqhgd,bnhd->bhgqn", do, vals)
+    delta = (do * o).sum(dim=-1).permute(0, 2, 3, 1)[..., None]   # [B, Hkv, g, Q, 1]
+    ds = (p * (dp - delta)).masked_fill(masked, 0.0)
+    dq = torch.einsum("bhgqn,bnhd->bqhgd", ds, keys) * scale
+    dk = torch.einsum("bhgqn,bqhgd->bnhd", ds, qg) * scale
+    return (dq.reshape(B, Q, H, D).to(q.dtype), dk[:, :M].to(k.dtype), dv[:, :M].to(v.dtype),
+            dk[:, M:].to(sk.dtype), dv[:, M:].to(sv.dtype))
+
+
+class TreeAttentionFunction(torch.autograd.Function):
+    """Float-cache tree attention under autograd, single (`batched`
+    False: `[Q, H, D]` operands) or over a slot axis. Forward: the kernel
+    on a CUDA tensor (its launch counted as any other), the plain version
+    on a CPU tensor; backward: `attention_grads`. No gradient reaches the
+    masks."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, main_mask, sk, sv, scr_mask, scale, batched):
+        if batched:
+            out = _tree_attention_batched(q, k, v, main_mask, sk, sv, scr_mask, scale=scale)
+        else:
+            out = _tree_attention(q, k, v, main_mask, sk, sv, scr_mask, scale=scale)
+        ctx.save_for_backward(q, k, v, main_mask, sk, sv, scr_mask, out)
+        ctx.scale, ctx.batched = scale, batched
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        if not ctx.batched:
+            saved = [t[None] for t in saved]
+            dout = dout[None]
+        q, k, v, main_mask, sk, sv, scr_mask, out = saved
+        grads = attention_grads(q, k, v, main_mask, sk, sv, scr_mask, out, dout.contiguous(),
+                                scale=ctx.scale)
+        if not ctx.batched:
+            grads = [t[0] for t in grads]
+        dq, dk, dv, dsk, dsv = grads
+        return dq, dk, dv, None, dsk, dsv, None, None, None
+
+
+def _differentiable(name, q, k, v, sk, sv, ks, vs) -> bool:
+    """Whether a call goes through `TreeAttentionFunction`; a quantized
+    main cache under autograd raises."""
+    if not torch.is_grad_enabled() or not any(t.requires_grad for t in (q, k, v, sk, sv)):
+        return False
+    if ks is not None or vs is not None:
+        raise RuntimeError(f"{name}: no gradient through an int8 / int4 KV cache; use a "
+                           "float cache to train, or call under torch.no_grad()")
+    return True
+
+
 def tree_attention(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
                    ks=None, vs=None):
     """attn `[Q, H, D]` = softmax over main ∪ scratch (see module doc)."""
+    if _differentiable("tree_attention", q, k, v, sk, sv, ks, vs):
+        return TreeAttentionFunction.apply(q, k, v, main_mask, sk, sv, scr_mask, scale, False)
+    return _tree_attention(q, k, v, main_mask, sk, sv, scr_mask, scale=scale, ks=ks, vs=vs)
+
+
+def _tree_attention(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float, ks=None, vs=None):
     if q.device.type == "cpu":
         return tree_attention_plain(q, k, v, main_mask, sk, sv, scr_mask,
                                     scale=scale, ks=ks, vs=vs)
@@ -426,6 +517,14 @@ def tree_attention_batched(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float
     """attn `[B, Q, H, D]` of B independent slots (see module doc) in one
     launch of the kernel on the card; `tree_attention_batched_plain` on the
     CPU."""
+    if _differentiable("tree_attention_batched", q, k, v, sk, sv, ks, vs):
+        return TreeAttentionFunction.apply(q, k, v, main_mask, sk, sv, scr_mask, scale, True)
+    return _tree_attention_batched(q, k, v, main_mask, sk, sv, scr_mask, scale=scale,
+                                   ks=ks, vs=vs)
+
+
+def _tree_attention_batched(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
+                            ks=None, vs=None):
     if q.device.type == "cpu":
         return tree_attention_batched_plain(q, k, v, main_mask, sk, sv, scr_mask,
                                             scale=scale, ks=ks, vs=vs)

@@ -872,3 +872,54 @@ def test_graph_entry_points_refuse_gloo_on_cuda(tmp_path):
     got = torch.load(tmp_path / "rank0.pt", weights_only=False)
     assert got["raised"] and got["eager_tokens"] > 0
 
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_cuda():
+    """On the card no kernel hands back a detached result for a
+    grad-requiring input: every wrapper but float tree attention raises."""
+    _need_cuda()
+    x = torch.randn(4, 64, device="cuda", requires_grad=True)
+    q = torch.randint(-127, 128, (64, 32), dtype=torch.int8, device="cuda")
+    q4 = torch.randint(-127, 128, (32, 32), dtype=torch.int8, device="cuda")
+    scale = torch.rand(1, 32, device="cuda")
+    calls = [lambda: qmm.quant_matmul(x, q, scale, bits=8),
+             lambda: qmm.quant_matmul(x.bfloat16(), q4, scale, bits=4),
+             lambda: qmm.quant_matmul_w8a8(x, q, scale),
+             lambda: qmm.quantize_activations(x),
+             lambda: qmm.split_bf16x3(x),
+             lambda: tp.top_p_threshold_from_logits(x, 0.9, 0.6),
+             lambda: tp.top_p_threshold_fused(x.softmax(-1), 0.9)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("batched", [False, True])
+def test_tree_attention_function_on_cuda_matches_plain_autograd(dtype, tol, batched):
+    """Under autograd the kernel (its launch counted) with the written-out
+    backward against autograd through the plain version on the card: the
+    output and every input's gradient within `tol` of its largest |value|."""
+    from sequoia_torch.kernels import build
+
+    _need_cuda()
+    args = _attention_inputs(37, 96, 24, 4, 2, 32, dtype)
+    if batched:
+        args = tuple(torch.stack([a, a.flip(0)]) for a in args)
+    dout = torch.randn(args[0].shape, device="cuda", dtype=dtype)
+    res = []
+    for fn in ((tree_attention_batched, tree_attention_batched_plain) if batched
+               else (tree_attention, tree_attention_plain)):
+        q, k, v, mask, sk, sv, smask = (a.clone() for a in args)
+        diff = [t.requires_grad_(True) for t in (q, k, v, sk, sv)]
+        name = counter("float", dtype, batched=batched)
+        before = build.launches[name]
+        out = fn(q, k, v, mask, sk, sv, smask, scale=32 ** -0.5)
+        assert build.launches[name] == before + (fn in (tree_attention, tree_attention_batched))
+        out.backward(dout)
+        res.append([out.detach()] + [t.grad for t in diff])
+    for a, b in zip(*res):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * float(b.float().abs().max()))
