@@ -2,7 +2,7 @@
 """Chip smoke test of sequoia_torch on one CUDA card (an H100).
 
     python3 chip_smoke.py               # every phase (the contract run)
-    python3 chip_smoke.py --attention   # phases 1, 2 and phase 3's tree attention
+    python3 chip_smoke.py --attention   # phases 1, 2, phase 3's and phase 9's tree attention
     python3 chip_smoke.py --qmm         # phases 1, 2 and phase 3's top-p and matmuls
     python3 chip_smoke.py --loops       # phases 1, 2, 4 and phase 5's bf16 path
     python3 chip_smoke.py --plan        # phases 1, 2 and 8 (its own short bf16 curve)
@@ -87,9 +87,11 @@ Phases, each fatal on failure:
      target is freed;
   8. measure -> plan -> serve (bf16): an HF checkpoint of the draft, both
      acceptance methods, the plan on the native DP table, the four walks;
-  9. batched serving (`engine/batched.py`): test-small on the card (f32
-     greedy `serve_fast` equal to its CPU run; every cache format, f32 and
-     bf16, replayed equal to eager `serve`); then llama-68m -> llama-2-7b
+  9. batched serving (`engine/batched.py`): test-small on the card at
+     enough slots that its 32-row prefill chunks fill the card and take the
+     Hopper kernel (f32 greedy `serve_fast` equal to its CPU run; every
+     cache format, f32 and bf16, replayed equal to eager `serve`, bf16 up to
+     a near-tie token); then llama-68m -> llama-2-7b
      bf16 at B = 8 slots over a queue of 16 synthetic requests of 32-256
      tokens (64 new tokens each, max_length 512, prefill_chunk 64): Sequoia
      through `serve_fast` and `serve_device` (admit_width 4) and batched AR
@@ -101,8 +103,12 @@ Phases, each fatal on failure:
      `serve_device` equal to `serve_fast`, replayed equal to eager
      `generate_batch`, each slot of `generate_batch_fast` equal to the
      single-request `generate_fast`; last, the batched tree-attention
-     kernel at B = 8 against its plain version, every format and dtype,
-     timed beside B single launches and SDPA with a [B, ...] mask;
+     kernels at B = 8 against their plain version, every format and dtype:
+     the route `sm90_route` picks (the Hopper kernel where Q > 16 and the
+     work items fill the card) at the verify, timed beside the other route
+     on the same inputs, B single launches and SDPA with a [B, ...] mask,
+     then at the verify of one slot, the prefill chunk and distill's
+     forward; the slot-grid route at the batched AR step;
  10. host offload (`engine/offload.py`): the host link's rate for one
      llama-2-7b and one llama-2-70b layer, a copy alone and a run of 8
      back to back (the link bound's rate); llama-2-7b bf16 (seeded random
@@ -2055,109 +2061,198 @@ def batched_prompts(vocab, n, seed=SEED):
 
 
 def check_batched_attention(torch, gm, results):
-    """The slot-axis launch of tree attention at B = 8 (the verify of 8
-    requests of mixed lengths: Q = 64 tree rows over M = 512, each slot its
-    own prefix), every cache format and both dtypes, against
-    `tree_attention_batched_plain`; timed beside B launches of the single
-    kernel, the plain version and SDPA with a [B, 1, Q, M + S] mask (on the
-    dequantized rows for an integer cache), with the byte bound of the
-    batched read."""
-    from sequoia_torch.kernels.tree_attention import (
-        counter, split_count, tree_attention, tree_attention_batched,
-        tree_attention_batched_plain)
+    """The slot-axis launches of tree attention against
+    `tree_attention_batched_plain`, each slot its own prefix. At the batched
+    verify (B = 8 requests of mixed lengths: Q = 64 tree rows over M = 512)
+    the route `sm90_route` picks, the Hopper kernel, every cache format and
+    both dtypes, timed beside the other route (tree_attention.cu's slot-axis
+    launch on the same inputs), B single launches, the plain
+    version and SDPA with a [B, 1, Q, M + S] mask (on the dequantized rows
+    for an integer cache), with the byte bound of the batched read and the
+    route's key tiles (the Hopper kernel: those its prefix skip reads; the
+    slot grid: its split count); then the verify of one slot (B = 1: the
+    slot-grid route, the Hopper kernel beside it), the batched prefill chunk
+    (bf16, Q = 64 causal, S = 0) and distill's forward (f32, B 8, T 64 at
+    the trained target's width); then the batched AR step (Q = 1), every
+    format and dtype."""
+    from sequoia_torch.kernels import tree_attention as ta
     from sequoia_torch.kvcache.cache import quantize_kv_rows, quantize_kv_rows4, unpack_kv_rows4
 
-    B, M, H, D, L = BATCHED["B"], BATCHED["max_length"], 32, 128, 2
-    Q = S = gm.size
+    B, M, L = BATCHED["B"], BATCHED["max_length"], 2
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     anc = torch.as_tensor(gm.ancestors, device="cuda")
     ts = torch.tensor([40, 95, 150, 200, 260, 300, 330, 380], device="cuda")[:B]
-    main = (torch.arange(M, device="cuda")[None, None, :] < ts[:, None, None]).expand(
-        B, Q, M).contiguous()
-    scr = anc.expand(B, Q, S).contiguous()
+    k_idx = torch.arange(M, device="cuda")[None, None, :]
+    prefix = (k_idx < ts[:, None, None])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        itemsize = 2 if dtype == torch.bfloat16 else 4
-        q = torch.randn(B, Q, H, D, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(L, B, M, H, D, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(L, B, M, H, D, generator=gen, device="cuda").to(dtype)
-        sk = torch.randn(L, B, S, H, D, generator=gen, device="cuda").to(dtype)
-        sv = torch.randn(L, B, S, H, D, generator=gen, device="cuda").to(dtype)
-        for fmt, kv_item in KV_FORMATS.items():
-            if fmt == "float":
-                km, vm, ks, vs, kd, vd = k, v, [None] * L, [None] * L, k, v
-            else:
-                quant = quantize_kv_rows if fmt == "int8" else (
-                    lambda x, f=fmt: quantize_kv_rows4(x, packing=f[5:]))
-                (km, ks), (vm, vs) = quant(k), quant(v)
-                ints = (lambda x: x) if fmt == "int8" else (
-                    lambda x, f=fmt: unpack_kv_rows4(x, packing=f[5:]))
-                kd = (ints(km).float() * ks[..., None]).to(dtype)
-                vd = (ints(vm).float() * vs[..., None]).to(dtype)
-            call = lambda fn, i: fn(q, km[i], vm[i], main, sk[i], sv[i], scr,  # noqa: E731
-                                    scale=D ** -0.5, ks=ks[i], vs=vs[i])
-            got, want = call(tree_attention_batched, 0), call(tree_attention_batched_plain, 0)
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol) \
-                    or not torch.isfinite(got).all():
-                fail(f"{counter(fmt, dtype, True)} disagrees with its plain version at B={B}: "
-                     f"max |err| {err} (tol {tol})")
-            ms = device_ms([lambda i=i: call(tree_attention_batched, i) for i in range(L)])
-            plain_ms = device_ms([lambda i=i: call(tree_attention_batched_plain, i)
-                                  for i in range(L)])
-            single_ms = B * device_ms([
-                lambda i=i, b=b: tree_attention(
-                    q[b], km[i][b], vm[i][b], main[b], sk[i][b], sv[i][b], scr[b],
-                    scale=D ** -0.5, ks=None if ks[i] is None else ks[i][b],
-                    vs=None if vs[i] is None else vs[i][b])
-                for i in range(L) for b in range(B)])
-            qb = q.transpose(1, 2)                                        # [B, H, Q, D]
-            kk = [torch.cat([kd[i], sk[i]], dim=1).transpose(1, 2) for i in range(L)]
-            vv = [torch.cat([vd[i], sv[i]], dim=1).transpose(1, 2) for i in range(L)]
-            full_mask = torch.cat([main, scr], dim=2)[:, None]            # [B, 1, Q, M + S]
-            lib_ms = device_ms([lambda i=i: sdpa(qb, kk[i], vv[i], attn_mask=full_mask,
-                                                 scale=D ** -0.5) for i in range(L)])
-            del kk, vv
-            t_bytes = t_ops = 0.0
-            for b in range(B):
-                tb, to = attention_times(q[b], main[b], scr[b], D, H, H, itemsize, kv_item)
-                t_bytes, t_ops = t_bytes + tb, t_ops + to
-            bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-            name = counter(fmt, dtype, batched=True)
-            log(f"  {name} B={B} Q={Q} H={H} D={D} M={M} S={S} {str(dtype)[6:]}: max|err| "
-                f"{err:.3g} (tol {tol}) kernel {ms:.4f} ms  {B} single launches "
-                f"{single_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa [B] mask {lib_ms:.4f} ms  "
-                f"bound {bound:.5f} ms ({by}); splits "
-                f"{split_count(Q, H, M, S, sms, dtype, batch=B)}")
-            results.append(dict(
-                name=name, route="cuda", source="sequoia_torch/csrc/tree_attention.cu",
-                replaces="sequoia_tpu/kernels/tree_attention.py:111",
-                shape=f"batched verify B={B} Q={Q} H={H} D={D} M={M} S={S} "
-                      f"{'bf16' if itemsize == 2 else 'f32'}, main cache {fmt}",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib_ms, single_launches_ms=single_ms))
-            del km, vm, kd, vd
-        del q, k, v, sk, sv
-        torch.cuda.empty_cache()
+    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    T = TOOLS["seq_len"]
+    th = TOOLS["target_shape"][1] // 32             # the trained target: heads of dim 32
+    causal = lambda Q, MM, off: (torch.arange(MM, device="cuda")[None, None, :]  # noqa: E731
+                                 <= off[:, None, None] + torch.arange(Q, device="cuda")[None, :, None])
+    cases = [   # label, B, Q, H, D, M, S, main mask, scratch mask, dtypes, formats, JSON entries
+        ("verify", B, gm.size, 32, 128, M, gm.size, prefix.expand(B, gm.size, M),
+         anc.expand(B, gm.size, gm.size), (torch.bfloat16, torch.float32), KV_FORMATS, True),
+        ("verify of one slot", 1, gm.size, 32, 128, M, gm.size, prefix[-1:].expand(
+            1, gm.size, M), anc.expand(1, gm.size, gm.size), (torch.bfloat16, torch.float32),
+         ("float", "int8"), False),
+        ("prefill chunk", B, 64, 32, 128, M, 0, causal(64, M, (ts // 64) * 64),
+         None, (torch.bfloat16,), ("float", "int8"), False),
+        ("distill forward", B, T, th, 32, T, 0, causal(T, T, ts * 0), None, (torch.float32,),
+         ("float",), False),
+        ("ar step", B, 1, 32, 128, M, 1, prefix.expand(B, 1, M), None,
+         (torch.bfloat16, torch.float32), KV_FORMATS, True),
+    ]
+    for label, B, Q, H, D, MM, S, main, scr, dtypes, formats, entry in cases:
+        main = main.contiguous()
+        scr = (scr if scr is not None else torch.ones(B, Q, S, dtype=torch.bool, device="cuda")
+               ).contiguous()
+        sm90 = ta.sm90_route(B, Q, H, H, sms)
+        for dtype in dtypes:
+            tol, itemsize = tols[dtype], (2 if dtype == torch.bfloat16 else 4)
+            q = torch.randn(B, Q, H, D, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(L, B, MM, H, D, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(L, B, MM, H, D, generator=gen, device="cuda").to(dtype)
+            sk = torch.randn(L, B, S, H, D, generator=gen, device="cuda").to(dtype)
+            sv = torch.randn(L, B, S, H, D, generator=gen, device="cuda").to(dtype)
+            for fmt in formats:
+                kv_item = KV_FORMATS[fmt]
+                if fmt == "float":
+                    km, vm, ks, vs, kd, vd = k, v, [None] * L, [None] * L, k, v
+                else:
+                    quant = quantize_kv_rows if fmt == "int8" else (
+                        lambda x, f=fmt: quantize_kv_rows4(x, packing=f[5:]))
+                    (km, ks), (vm, vs) = quant(k), quant(v)
+                    ints = (lambda x: x) if fmt == "int8" else (
+                        lambda x, f=fmt: unpack_kv_rows4(x, packing=f[5:]))
+                    kd = (ints(km).float() * ks[..., None]).to(dtype)
+                    vd = (ints(vm).float() * vs[..., None]).to(dtype)
+                call = lambda fn, i: fn(q, km[i], vm[i], main, sk[i], sv[i], scr,  # noqa: E731
+                                        scale=D ** -0.5, ks=ks[i], vs=vs[i])
+                name = ta.counter(fmt, dtype, batched=True, sm90=sm90)
+                got = call(ta.tree_attention_batched, 0)
+                want = call(ta.tree_attention_batched_plain, 0)
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol) \
+                        or not torch.isfinite(got).all():
+                    fail(f"{name} [{label}] disagrees with its plain version at B={B}: "
+                         f"max |err| {err} (tol {tol})")
+                ms = device_ms([lambda i=i: call(ta.tree_attention_batched, i) for i in range(L)])
+                plain_ms = device_ms([lambda i=i: call(ta.tree_attention_batched_plain, i)
+                                      for i in range(L)])
+                # The other route on the same inputs where both take the
+                # call (Q > 16); its launches count nowhere.
+                old_ms, old_note, grid_ms = None, "", None
+                if Q > ta.SM90_MIN_Q:
+                    other = ta.counter(fmt, dtype, batched=True, sm90=not sm90)
+                    launch = ta._launch if sm90 else ta._launch_sm90
+                    alt = lambda i: launch(  # noqa: E731
+                        q, km[i], vm[i], main, sk[i], sv[i], scr, ks[i], vs[i], fmt, D ** -0.5,
+                        B, Q, H, H, D, MM, S, other)
+                    if not torch.allclose(alt(0).float(), want.float(), rtol=tol, atol=tol):
+                        fail(f"{other} [{label}] (the route not taken) disagrees with its plain "
+                             f"version")
+                    old_ms = device_ms([lambda i=i: alt(i) for i in range(L)])
+                    old_note = (f"  {'slot grid' if sm90 else 'Hopper kernel'} {old_ms:.4f} ms "
+                                f"({old_ms / ms:.2f}x)")
+                    grid_ms = old_ms if sm90 else ms
+                ext = ta.tile_extents(main, scr, rows=ta.SM90_ROWS)   # (g = 1)
+                kt = ta.SM90_KEYS[dtype]
+                read = int(((ext + kt - 1) // kt).sum())
+                walk = (-(-MM // kt) + -(-S // kt)) * ext.shape[0] * ext.shape[1]
+                route = (f"Hopper kernel ({B * H * ext.shape[1]} work items on {sms} SMs), "
+                         f"{kt}-key tiles {read}/{walk} a KV head" if sm90 else
+                         f"slot grid, splits {ta.split_count(Q, H, MM, S, sms, dtype, batch=B)}")
+                single_ms = None
+                if label == "verify":
+                    single_ms = B * device_ms([
+                        lambda i=i, b=b: ta.tree_attention(
+                            q[b], km[i][b], vm[i][b], main[b], sk[i][b], sv[i][b], scr[b],
+                            scale=D ** -0.5, ks=None if ks[i] is None else ks[i][b],
+                            vs=None if vs[i] is None else vs[i][b])
+                        for i in range(L) for b in range(B)])
+                qb = q.transpose(1, 2)                                        # [B, H, Q, D]
+                kk = [torch.cat([kd[i], sk[i]], dim=1).transpose(1, 2) for i in range(L)]
+                vv = [torch.cat([vd[i], sv[i]], dim=1).transpose(1, 2) for i in range(L)]
+                full_mask = torch.cat([main, scr], dim=2)[:, None]            # [B, 1, Q, M + S]
+                lib_ms = device_ms([lambda i=i: sdpa(qb, kk[i], vv[i], attn_mask=full_mask,
+                                                     scale=D ** -0.5) for i in range(L)])
+                del kk, vv
+                t_bytes = t_ops = 0.0
+                for b in range(B):
+                    tb, to = attention_times(q[b], main[b], scr[b], D, H, H, itemsize, kv_item)
+                    t_bytes, t_ops = t_bytes + tb, t_ops + to
+                bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+                log(f"  {name} [{label}] B={B} Q={Q} H={H} D={D} M={MM} S={S} "
+                    f"{str(dtype)[6:]}: max|err| {err:.3g} (tol {tol}) kernel {ms:.4f} ms"
+                    f"{old_note}" + (f"  {B} single launches {single_ms:.4f} ms"
+                                     if single_ms else "")
+                    + f"  plain {plain_ms:.4f} ms  sdpa [B] mask {lib_ms:.4f} ms  "
+                    f"bound {bound:.5f} ms ({by}); {route}")
+                if entry:
+                    source = "tree_attention_batched_sm90.cu" if sm90 else "tree_attention.cu"
+                    results.append(dict(
+                        name=name, route="cuda", source=f"sequoia_torch/csrc/{source}",
+                        replaces="sequoia_tpu/kernels/tree_attention.py:111",
+                        shape=f"batched {label} B={B} Q={Q} H={H} D={D} M={MM} S={S} "
+                              f"{'bf16' if itemsize == 2 else 'f32'}, main cache {fmt}",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        library_ms=lib_ms, single_launches_ms=single_ms, slot_grid_ms=grid_ms))
+                del km, vm, kd, vd
+            del q, k, v, sk, sv
+            torch.cuda.empty_cache()
 
 
 def batched_small(torch):
-    """test-small on the card through the batched engine: f32 greedy
-    `serve_fast` equal to its CPU run (float cache), replayed equal to eager
-    `serve`; with an int8, an int4 head-paired and an int4 dsplit cache
-    (f32 and bf16) a valid run, replayed equal to eager."""
+    """test-small on the card through the batched engine, at the fewest
+    slots whose 32-row prefill chunks take the Hopper slot-axis kernel
+    (`sm90_route`; a KV head of a slot a work item) in every format;
+    the 15-node tree's verify takes the slot-grid route. f32 greedy
+    `serve_fast` equal to its CPU run (float cache); with a float, int8,
+    int4 head-paired and int4 dsplit cache (f32; int4 also bf16) a valid run
+    whose `serve_fast` (graph replays) equals eager `serve`. `serve` fills
+    slots by the single-request prefill and `serve_fast` by the fused
+    batched one, so in bf16 the two sum in different orders: a bf16 run may
+    part from `serve` only at a near-tie token (`near_tie` within TIE, its
+    gap logged). bf16 int4 caches also through `generate_batch_fast` against
+    `generate_batch` (both fused): exact. Last, an int8-weight target (bf16
+    activations) the same way."""
     import numpy as np
 
     from sequoia_torch.core.config import get_config
     from sequoia_torch.core.init import random_params
     from sequoia_torch.engine.batched import BatchedSpecEngine
+    from sequoia_torch.kernels import tree_attention as ta
     from sequoia_torch.trees.growmap import uniform_tree
 
     cfg = get_config("test-small")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(3, cfg.vocab_size, size=int(n)) for n in (5, 11, 17, 3, 9, 14)]
-    kw = dict(algorithm="greedy", max_length=96, prefill_chunk=16, batch_size=4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = next(b for b in range(1, sms + 1)
+                 if ta.sm90_route(b, 32, cfg.num_heads, cfg.num_kv_heads, sms))
+    kw = dict(algorithm="greedy", max_length=96, batch_size=slots, prefill_chunk=32)
+    ties = []
+
+    def compare(label, fast, eager, target, exact):
+        """Every output valid; `fast` equal to `eager`, or (not `exact`)
+        parted from it first at a near tie."""
+        for a, b, p in zip(fast, eager, prompts):
+            if len(a) <= len(p) or not np.array_equal(a[:len(p)], p) \
+                    or a.max() >= cfg.vocab_size:
+                fail(f"{label}: invalid batched output {a}")
+            if np.array_equal(a, b):
+                continue
+            n = min(len(a), len(b))
+            if exact or np.array_equal(a[:n], b[:n]):
+                fail(f"{label}: batched replays differ from eager:\n{a}\n{b}")
+            j, gap, below, spread = near_tie(torch, target, cfg, b, a, kw["max_length"])
+            ties.append(f"{label} at position {j} ({j - len(p)} generated): logit gap "
+                        f"{gap:.4f}, {below:.4f} below the top, logits' std {spread:.3f}")
+            if j < len(p) or gap > TIE * spread or below > TIE * spread:
+                fail(f"{label}: serve_fast parts from eager serve past a near tie: {ties[-1]}")
+
     outs = {}
     for dtype in ("f32", "bf16"):
         tdtype = torch.float32 if dtype == "f32" else torch.bfloat16
@@ -2177,38 +2272,45 @@ def batched_small(torch):
                 outs[dev] = eng.serve_fast(prompts, max_new_tokens=24, seed=SEED)
                 if dev == "cuda":
                     eager = eng.serve(prompts, max_new_tokens=24, seed=SEED)
-                    label = f"test-small {dtype}, KV {kv_quant or 'float'} {packing or ''}"
-                    for a, b, p in zip(outs[dev], eager, prompts):
-                        if not np.array_equal(a, b):
-                            fail(f"{label}: batched replays differ from eager:\n{a}\n{b}")
-                        if len(a) <= len(p) or not np.array_equal(a[:len(p)], p) \
-                                or a.max() >= cfg.vocab_size:
-                            fail(f"{label}: invalid batched output {a}")
+                    compare(f"test-small {dtype}, KV {kv_quant or 'float'} {packing or ''}",
+                            outs[dev], eager, card[1], exact=dtype == "f32")
             if kv_quant is None:
                 for a, b in zip(outs["cuda"], outs["cpu"]):
                     if not np.array_equal(a, b):
                         fail(f"test-small f32 batched serve_fast: card differs from CPU:\n{a}\n{b}")
-                log("  test-small f32 batched serve_fast (B=4, 6 requests): card == CPU, "
+                log(f"  test-small f32 batched serve_fast (B={slots}, 6 requests): card == CPU, "
                     "replayed == eager")
-    log("  test-small batched runs with int8 / int4-head / int4-dsplit caches (f32; int4 also "
-        "bf16): valid, replayed == eager")
-    # A quantized batched target, small: int8 weights (bf16 activations), the
-    # B x tree rows of a batched verify through the int8 wgmma kernel.
+            if dtype == "bf16" and kv_quant == "int4":   # both fills fused: exact
+                batch = [prompts[i % len(prompts)] for i in range(slots)]   # a prompt a slot
+                fast = eng.generate_batch_fast(batch, max_new_tokens=16, seed=SEED)
+                for a, b in zip(fast, eng.generate_batch(batch, max_new_tokens=16, seed=SEED)):
+                    if not np.array_equal(a, b):
+                        fail(f"test-small bf16, KV int4 {packing}: batched replays differ "
+                             f"from eager generate_batch:\n{a}\n{b}")
+    # A quantized batched target, small: int8 weights (bf16 activations: w8a8
+    # off, which "auto" turns on at these slots' 96+ rows), the B x tree rows
+    # of a batched verify through the int8 wgmma kernel.
     from sequoia_torch.kernels import build
+    from sequoia_torch.quant import qtensor
     from sequoia_torch.quant.quantize import quantize_model
 
     draft = random_params(cfg, 7, dtype=torch.bfloat16, device="cuda")
     target = quantize_model(random_params(cfg, 8, dtype=torch.bfloat16, device="cuda"), bits=8)
     eng = BatchedSpecEngine(draft, cfg, target, cfg, uniform_tree(3, 2), device="cuda", **kw)
     before = build.launches["quant_matmul_int8_wgmma"]
-    fast = eng.serve_fast(prompts, max_new_tokens=24, seed=SEED)
+    qtensor.set_w8a8("off")
+    try:
+        fast = eng.serve_fast(prompts, max_new_tokens=24, seed=SEED)
+        eager = eng.serve(prompts, max_new_tokens=24, seed=SEED)
+    finally:
+        qtensor.set_w8a8("auto")
     if build.launches["quant_matmul_int8_wgmma"] == before:
         fail("the int8 batched target never reached quant_matmul_int8_wgmma")
-    for a, b, p in zip(fast, eng.serve(prompts, max_new_tokens=24, seed=SEED), prompts):
-        if not np.array_equal(a, b) or len(a) <= len(p) or not np.array_equal(a[:len(p)], p):
-            fail(f"test-small int8-weight batched target: replays differ from eager or "
-                 f"invalid output:\n{a}\n{b}")
-    log("  test-small int8-weight target (bf16 activations), batched: valid, replayed == eager")
+    compare("test-small int8-weight target", fast, eager, target, exact=False)
+    log(f"  test-small batched runs at B={slots}, 32-row chunks (Hopper kernel), float / int8 / "
+        "int4-head / int4-dsplit caches (f32; int4 also bf16) and an int8-weight target: valid, "
+        "replayed == eager (f32 exact; bf16 up to near ties); bf16 int4: generate_batch_fast == "
+        "generate_batch" + ("".join(f"; {t}" for t in ties) if ties else "; no near tie"))
 
 
 # Two greedy runs whose target forwards differ in shape (a batch of slots, a
@@ -3284,11 +3386,22 @@ PPL = dict(rows=4, seq_len=256, chunk=128, small_seq_len=64, small_chunk=32)
 GRAD_TOL = 1e-4      # kernel vs plain attention: each leaf within this of its max |grad|
 PPL_TOL = 1e-3       # card vs CPU perplexity of the trained target: relative NLL
 RANDOM_RATE = 1.928  # tokens per target step of the 7B path at random weights (PERF.md §5)
-TOOLS_KERNELS = ("tree_attention_batched_f32", "tree_attention_f32", "tree_attention_kv8_f32",
+TOOLS_KERNELS = ("tree_attention_f32", "tree_attention_kv8_f32",
                  "tree_attention_kv4_head_f32", "top_p_threshold_from_logits", "tree_attention",
                  "tree_attention_kv8", "tree_attention_kv4_head", "quant_matmul_int8_wgmma",
                  "quant_matmul_int4_wgmma", "quant_matmul_int8", "quant_matmul_int4",
                  "split_bf16x3", "quant_matmul_w8a8_wgmma", "quantize_activations")
+
+
+def training_counter(torch, tcfg):
+    """The counter of the slot-axis attention that a training batch (B 8,
+    T 64) of `tcfg` ticks: the route `sm90_route` picks (on an H100, with
+    8 heads, the slot grid: 64 work items would leave half the SMs idle)."""
+    from sequoia_torch.kernels import tree_attention as ta
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ta.counter("float", torch.float32, batched=True, sm90=ta.sm90_route(
+        TOOLS["B"], TOOLS["seq_len"], tcfg.num_heads, tcfg.num_kv_heads, sms))
 
 
 def tools_grads(torch, tcfg, data):
@@ -3334,7 +3447,7 @@ def tools_grads(torch, tcfg, data):
         finally:
             model.tree_attention_batched = swapped
         res[route] = (loss.item(), [t.grad for t in leaves], times[-1],
-                      build.launches["tree_attention_batched_f32"])
+                      build.launches[training_counter(torch, tcfg)])
         if route == "kernel":
             for t in leaves:
                 t.grad = None
@@ -3565,7 +3678,8 @@ def tools(torch, curve=None, draft_time=None):
     launches = dict(build.launches)     # ... and end here
     del target7
     torch.cuda.empty_cache()
-    missing = [k for k in TOOLS_KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in TOOLS_KERNELS + (training_counter(torch, tcfg),)
+               if launches.get(k, 0) == 0]
     if missing:
         fail(f"phase 12: {missing} never launched: {launches}")
     log(f"  phase 12 launches {({k: v for k, v in launches.items() if v})}; "
@@ -3666,6 +3780,8 @@ def main() -> None:
     if "--qmm" not in sys.argv[1:]:
         check_tree_attention(torch, gm, kernels)
     if "--attention" in sys.argv[1:]:
+        log("[9] the batched kernels against their plain versions")
+        check_batched_attention(torch, gm, kernels)
         log(f"  --attention: tree attention only, {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}), flush=True)
         return

@@ -1,11 +1,11 @@
 """Device times of the quantized matmuls at the 7B projection shapes (and
-of the f32 tree attention), for comparing two checkouts of the port on one
-card.
+of the f32 and the batched tree attention), for comparing two checkouts of
+the port on one card.
 
     python3 sequoia_torch/cli/qmm_times.py [--root DIR] [--rows 1,16,64,128,256]
         [--kernels int8,w8a8,w8a8_mm,int4,tiled,w4a8,quantize,cublas_bf16,
                    int8_f32,int4_f32,tiled_f32,cublas_f32,top_p_logits,top_p_fused,
-                   tree_attention_f32,sdpa_f32]
+                   tree_attention_f32,sdpa_f32,tree_attention_batched,sdpa_batched]
         [--label NAME] [--reps 3]
 
 Imports `sequoia_torch` from DIR (default: the checkout that holds this
@@ -45,7 +45,14 @@ kernels:
   L2; JSON lines with "case", "Q" and "S" in place of R, K and N);
   sdpa_f32: the yardstick, scaled_dot_product_attention in f32 over the
   concatenated main and scratch rows under the same mask (its line also
-  names the device kernels of one call, from a torch.profiler trace).
+  names the device kernels of one call, from a torch.profiler trace);
+- tree_attention_batched: `tree_attention_batched` (whatever route the
+  checkout takes) at chip_smoke.py phase 9's batched verify (B = 8 slots,
+  Q = 64 tree rows, H = 32, D = 128, M = 512, S = 64, prefixes of 40-380
+  keys; 2 layers cycled, each past the L2) in bf16 and f32, every main-cache
+  format (JSON lines with "case", "dtype" and "format"); sdpa_batched: the
+  yardstick, scaled_dot_product_attention with a [B, 1, Q, M + S] mask over
+  the float rows, per dtype.
 Exits non-zero without a CUDA card.
 """
 
@@ -60,9 +67,10 @@ import sys
 SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 KERNELS = ("int8", "w8a8", "w8a8_mm", "int4", "tiled", "w4a8", "quantize", "cublas_bf16",
            "int8_f32", "int4_f32", "tiled_f32", "cublas_f32", "top_p_logits", "top_p_fused",
-           "tree_attention_f32", "sdpa_f32")
+           "tree_attention_f32", "sdpa_f32", "tree_attention_batched", "sdpa_batched")
 TOP_P = ("top_p_logits", "top_p_fused")
 ATTENTION = ("tree_attention_f32", "sdpa_f32")
+BATCHED = ("tree_attention_batched", "sdpa_batched")
 # The 7B verify of chip_smoke.py phase 3 (the planned tree over a 191-key
 # prefix), then phase 7's f32 curve at Q queries (a 128-key prefix, a causal
 # scratch of Q rows).
@@ -147,7 +155,7 @@ def main() -> None:
                 [torch.rand(1, N, generator=gen, device="cuda") * 0.02 + 0.001
                  for _ in range(n)])
 
-    for K, N in SHAPES if set(kernels) - set(TOP_P) - set(ATTENTION) else ():
+    for K, N in SHAPES if set(kernels) - set(TOP_P) - set(ATTENTION) - set(BATCHED) else ():
         # enough weights per kernel that one pass exceeds the L2
         n8, n4 = (max(2, -(-150_000_000 // nbytes)) for nbytes in (K * N, K * N // 2))
         want8 = {"int8", "w8a8", "w8a8_mm", "w8a8_route", "cublas_bf16", "int8_f32",
@@ -216,6 +224,8 @@ def main() -> None:
     for case in ATTENTION_CASES if set(kernels) & set(ATTENTION) else ():
         attention_times(torch, [k for k in kernels if k in ATTENTION], case, gen, label,
                         args.reps)
+    if set(kernels) & set(BATCHED):
+        batched_times(torch, [k for k in kernels if k in BATCHED], gen, label, args.reps)
 
 
 def attention_times(torch, kernels, case, gen, label, reps):
@@ -251,6 +261,58 @@ def attention_times(torch, kernels, case, gen, label, reps):
         if name == "sdpa_f32":
             line["device_kernels"] = device_kernels(torch, lambda: calls[name](0))
         print(json.dumps(line), flush=True)
+
+
+def batched_times(torch, kernels, gen, label, reps):
+    """JSON lines of the batched verify (see the module doc)."""
+    from sequoia_torch.cli.testbed import load_growmap
+    from sequoia_torch.kernels import tree_attention as ta
+    from sequoia_torch.kvcache.cache import quantize_kv_rows, quantize_kv_rows4
+
+    B, H, D, M, L = 8, 32, 128, 512, 2
+    scr = torch.as_tensor(load_growmap("planned").ancestors, device="cuda")
+    Q = S = scr.shape[0]
+    ts = torch.tensor([40, 95, 150, 200, 260, 300, 330, 380], device="cuda")
+    main = (torch.arange(M, device="cuda")[None, None, :] < ts[:, None, None]).expand(
+        B, Q, M).contiguous()
+    scr = scr.expand(B, Q, S).contiguous()
+    full = torch.cat([main, scr], dim=2)[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    card = torch.cuda.get_device_name(0)
+
+    def line(**kw):
+        print(json.dumps(dict(label=label, case="batched_verify", card=card, **kw)), flush=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, Q, H, D, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(L, B, M, H, D, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        sk, sv = (torch.randn(L, B, S, H, D, generator=gen, device="cuda").to(dtype)
+                  for _ in range(2))
+        name = str(dtype)[6:]
+        if "sdpa_batched" in kernels:
+            qb = q.transpose(1, 2)
+            kk = [torch.cat([k[i], sk[i]], dim=1).transpose(1, 2) for i in range(L)]
+            vv = [torch.cat([v[i], sv[i]], dim=1).transpose(1, 2) for i in range(L)]
+            ms = statistics.median(device_ms(torch, [
+                lambda i=i: sdpa(qb, kk[i], vv[i], attn_mask=full, scale=D ** -0.5)
+                for i in range(L)]) for _ in range(reps))
+            line(kernel="sdpa_batched", dtype=name, ms=ms)
+            del kk, vv
+        for fmt in ("float", "int8", "int4_head", "int4_dsplit") \
+                if "tree_attention_batched" in kernels else ():
+            if fmt == "float":
+                km, vm, ks, vs = k, v, [None] * L, [None] * L
+            else:
+                quant = quantize_kv_rows if fmt == "int8" else (
+                    lambda x, f=fmt: quantize_kv_rows4(x, packing=f[5:]))
+                (km, ks), (vm, vs) = quant(k), quant(v)
+            call = lambda i: ta.tree_attention_batched(  # noqa: E731
+                q, km[i], vm[i], main, sk[i], sv[i], scr, scale=D ** -0.5, ks=ks[i], vs=vs[i])
+            ms = statistics.median(device_ms(torch, [lambda i=i: call(i) for i in range(L)])
+                                   for _ in range(reps))
+            line(kernel="tree_attention_batched", dtype=name, format=fmt, ms=ms)
+            del km, vm
 
 
 def device_kernels(torch, fn):

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's CUDA sources: the asynchronous copies,
 // the warp-level tensor-core product and the int8 -> bf16 expansion of the
-// sm_80-style kernel (tree_attention.cu), the Hopper pieces of the wgmma
+// sm_80-style kernel (tree_attention.cu), the mask scan, int4 and f32
+// expansions and 3xTF32 pieces of both tree-attention kernels, the Hopper pieces of the wgmma
 // kernels (mbarrier, TMA, wgmma with its shared-memory descriptors,
 // programmatic dependent launch; qmm_sm90.cuh builds on them), and the
 // quantized matmuls' output store.
@@ -67,6 +68,80 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_
     f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j)) - 8388736.f;
   lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// ---------------------------------------------------------------------------
+// The tree-attention kernels' (tree_attention.cu,
+// tree_attention_batched_sm90.cu): the mask scan, the exact int8 / int4
+// expansions, 3xTF32
+// ---------------------------------------------------------------------------
+
+// Bits of mask row `row` for keys [k0, k0 + 32) (those below len).
+__device__ __forceinline__ uint32_t mask_word(const uint8_t* __restrict__ row, int k0, int len) {
+  uint32_t word = 0;
+  if (k0 + 32 <= len && (reinterpret_cast<uintptr_t>(row + k0) & 15) == 0) {
+    const uint4* p = reinterpret_cast<const uint4*>(row + k0);
+    const uint4 a = p[0], b = p[1];
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t y = __vcmpne4(w[i], 0u);   // 0xff in each nonzero byte
+      word |= ((y & 1u) | ((y >> 7) & 2u) | ((y >> 14) & 4u) | ((y >> 21) & 8u)) << (4 * i);
+    }
+  } else {
+    for (int j = 0; j < 32 && k0 + j < len; ++j) word |= uint32_t(row[k0 + j] != 0) << j;
+  }
+  return word;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 4 nibbles (the low nibble of each byte of `n`, high nibbles zero) as two
+// bf16x2: the bf16 with bits 0x4300 | (v + 8) is 128 + v + 8, exactly; one
+// bf16x2 subtraction of 136 gives v.
+__device__ __forceinline__ void int4x4_to_bf16(uint32_t n, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = n ^ 0x08080808u;
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+  uint32_t a = __byte_perm(u, 0x43u, 0x4140), b = __byte_perm(u, 0x43u, 0x4342);
+  const __nv_bfloat162 x = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a), bias);
+  const __nv_bfloat162 y = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&b), bias);
+  lo = *reinterpret_cast<const uint32_t*>(&x);
+  hi = *reinterpret_cast<const uint32_t*>(&y);
+}
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// as f32 bits whose low 13 bits are zero: cvt.rna.tf32.f32 on the bits.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo + (at most 2^-22 |x|), both tf32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a * b, m16n8k8, tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4 bytes `u` (each biased by + 128 or + 8 into 0..255) as 4 floats less
+// `bias` (2^23 + 128 or 2^23 + 8): 2^23 + byte is exact in f32 (one prmt),
+// one subtraction gives the signed value.
+__device__ __forceinline__ float4 bytes_to_f32(uint32_t u, float bias) {
+  return make_float4(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - bias,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - bias);
 }
 
 // ---------------------------------------------------------------------------

@@ -126,24 +126,6 @@ struct BlockShared {
   float m[W][kQT], l[W][kQT];             // the warps' partials, for the merge
 };
 
-// Bits of mask row `row` for keys [k0, k0 + 32) (those below len).
-__device__ __forceinline__ uint32_t mask_word(const uint8_t* __restrict__ row, int k0, int len) {
-  uint32_t word = 0;
-  if (k0 + 32 <= len && (reinterpret_cast<uintptr_t>(row + k0) & 15) == 0) {
-    const uint4* p = reinterpret_cast<const uint4*>(row + k0);
-    const uint4 a = p[0], b = p[1];
-    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint32_t y = __vcmpne4(w[i], 0u);   // 0xff in each nonzero byte
-      word |= ((y & 1u) | ((y >> 7) & 2u) | ((y >> 14) & 4u) | ((y >> 21) & 8u)) << (4 * i);
-    }
-  } else {
-    for (int j = 0; j < 32 && k0 + j < len; ++j) word |= uint32_t(row[k0 + j] != 0) << j;
-  }
-  return word;
-}
-
 // This warp's run of 16-key tiles: tiles [0, ntm) are main, [ntm, nt)
 // scratch; the warp takes [t_begin, t_end).
 struct Run {
@@ -188,10 +170,6 @@ __device__ __forceinline__ Run scan_masks(const uint8_t* __restrict__ mask,
           static_cast<int>(static_cast<int64_t>(nt) * (slot + 1) / slots)};
 }
 
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 // out[0], out[1] = a, b in the output type.
 __device__ __forceinline__ void store_pair(float* out, float a, float b) {
   *reinterpret_cast<float2*>(out) = make_float2(a, b);
@@ -391,19 +369,6 @@ struct TcLayout {
   static constexpr int kRaw = kTileBytes - kKT * kRowBytes;   // offset of the packed rows
   static constexpr int kVecs = kKT * kRowBytes / kVec;        // raw vectors per tile
 };
-
-// 4 nibbles (the low nibble of each byte of `n`, high nibbles zero) as two
-// bf16x2: the bf16 with bits 0x4300 | (v + 8) is 128 + v + 8, exactly; one
-// bf16x2 subtraction of 136 gives v.
-__device__ __forceinline__ void int4x4_to_bf16(uint32_t n, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = n ^ 0x08080808u;
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
-  uint32_t a = __byte_perm(u, 0x43u, 0x4140), b = __byte_perm(u, 0x43u, 0x4342);
-  const __nv_bfloat162 x = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a), bias);
-  const __nv_bfloat162 y = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&b), bias);
-  lo = *reinterpret_cast<const uint32_t*>(&x);
-  hi = *reinterpret_cast<const uint32_t*>(&y);
-}
 
 // A quantized tile, packed at `buf + kRaw`, expanded in place to bf16 rows
 // [16][kStride] (the integers cast exactly): `load` takes this lane's
@@ -665,37 +630,6 @@ struct F32Layout {
   static constexpr int kRaw = kHalfBytes - kKH * kRowBytes;   // offset of the packed rows
   static constexpr int kVecs = kKH * kRowBytes / kVec;
 };
-
-// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
-// as f32 bits whose low 13 bits are zero: cvt.rna.tf32.f32 on the bits.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-// x = hi + lo + (at most 2^-22 |x|), both tf32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// c += a * b, m16n8k8, tf32 in, f32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 4 bytes `u` (each biased by + 128 or + 8 into 0..255) as 4 floats less
-// `bias` (2^23 + 128 or 2^23 + 8): 2^23 + byte is exact in f32 (one prmt),
-// one subtraction gives the signed value.
-__device__ __forceinline__ float4 bytes_to_f32(uint32_t u, float bias) {
-  return make_float4(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - bias,
-                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - bias,
-                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - bias,
-                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - bias);
-}
 
 // A quantized 8-key stage, packed at `buf + kRaw`, expanded in place to f32
 // rows [8][kStride] (the integers cast exactly), as RawTile does for bf16.

@@ -43,6 +43,8 @@ _c_void_p, _c_int, _c_float, _c_double = (ctypes.c_void_p, ctypes.c_int,
 SIGNATURES = {
     "sequoia_tree_attention": [_c_void_p] * 11 + [_c_int] * 8
     + [_c_float, _c_int, _c_int, _c_void_p],
+    "sequoia_tree_attention_sm90": [_c_void_p] * 10 + [_c_int] * 7
+    + [_c_float, _c_int, _c_int, _c_void_p],
     "sequoia_top_p_from_logits": [_c_void_p, _c_void_p, _c_int, _c_int,
                                   _c_double, _c_float, _c_int, _c_void_p],
     "sequoia_top_p_fused": [_c_void_p, _c_void_p, _c_int, _c_int, _c_double,
@@ -64,7 +66,11 @@ launches = dict.fromkeys((
     "tree_attention_batched", "tree_attention_batched_kv8", "tree_attention_batched_kv4_head",
     "tree_attention_batched_kv4_dsplit", "tree_attention_batched_f32",
     "tree_attention_batched_kv8_f32", "tree_attention_batched_kv4_head_f32",
-    "tree_attention_batched_kv4_dsplit_f32", "top_p_threshold_from_logits",
+    "tree_attention_batched_kv4_dsplit_f32", "tree_attention_batched_sm90",
+    "tree_attention_batched_sm90_kv8", "tree_attention_batched_sm90_kv4_head",
+    "tree_attention_batched_sm90_kv4_dsplit", "tree_attention_batched_sm90_f32",
+    "tree_attention_batched_sm90_kv8_f32", "tree_attention_batched_sm90_kv4_head_f32",
+    "tree_attention_batched_sm90_kv4_dsplit_f32", "top_p_threshold_from_logits",
     "top_p_threshold_fused", "top_p_threshold_from_logits_cluster",
     "top_p_threshold_fused_cluster", "quant_matmul_int8", "quant_matmul_int8_wgmma",
     "quant_matmul_int4", "quant_matmul_int4_wgmma", "quant_matmul_tiled",

@@ -31,11 +31,33 @@ f32's accuracy. `tree_attention_split_plain` models the bf16 kernel and
 `tree_attention_f32_model` the f32 one, arithmetic included (both on no
 path; the tests hold them against the JAX kernel).
 
-`tree_attention_batched` is the same kernel over a slot axis (the batched
-engine's; in JAX the Pallas call gains a grid axis under `jax.vmap`):
-every operand gains a leading `[B]` axis, each slot its own problem with
-its own prefix skip, in one launch whose grid's y axis is slot x head. Its
-launches tick counters of their own (`tree_attention_batched...`).
+`tree_attention_batched` is the same attention over a slot axis (the
+batched engine's; in JAX the Pallas call gains a grid axis under
+`jax.vmap`): every operand gains a leading `[B]` axis, each slot its own
+problem with its own prefix skip, in one launch. Its route is a fixed
+shape rule (`sm90_route`):
+- Q > SM90_MIN_Q (16) queries a slot (verify, wide grow levels, prefill
+  chunks) whose work items fill the card, at least SM90_FILL (3/4) of one
+  an SM: the Hopper kernel of `csrc/tree_attention_batched_sm90.cu`
+  (counters `tree_attention_batched_sm90...`). A work item is (slot, KV
+  head, SM90_ROWS = 64 query rows): the rows are the Q x g (query, query
+  head) pairs of one KV head, query-major, so every row of the tile shares
+  each staged K/V tile, which is read from device memory once and (int8 /
+  int4) expanded once. One block walks a work item's keys. bf16 runs
+  S = Q K^T and P V on `wgmma`; f32 keeps 3xTF32 on `mma.sync` over K/V
+  split into TF32 hi and lo planes once in shared memory.
+  `tree_attention_batched_sm90_model` models it, arithmetic included (on
+  no path).
+- Every other call (the AR step, the draft root, narrow grow levels, and
+  calls of few slots or heads: B <= 2 at 32 heads, distill's 8-head
+  training forward): the kernel above with a grid axis of slot x head
+  (counters `tree_attention_batched...`). A 16-query tile of Q <= 16
+  already reads each K/V tile once; with few work items its key splits
+  fill the SMs that the Hopper kernel's one block an item would leave
+  idle. On an H100 (scripts/probe_tree_attention_batched.py, 32 heads)
+  the slot grid won most points at B = 1 and 2 (64 items; up to 3x at B =
+  1), the Hopper kernel most at B = 4 (128 items) and every one at B = 8.
+No route falls back to another: a build or launch failure raises.
 `tree_attention_batched_plain` runs the plain version slot by slot.
 
 Under autograd (grad mode on and a float operand that requires grad), both
@@ -74,14 +96,34 @@ TILE_Q = 16
 TILE_K = 16
 F32_STEP = 8
 BLOCKS_PER_SM = 2
+# The slot-axis Hopper kernel: a work item is SM90_ROWS query rows of one
+# KV head of one slot, one block, and walks staged K/V tiles of SM90_KEYS
+# keys (bf16: one wgmma N; f32: two mma.sync n-tiles).
+SM90_MIN_Q = 16
+SM90_ROWS = 64
+SM90_KEYS = {torch.bfloat16: 64, torch.float32: 16}
+SM90_FILL = 0.75
 
 
-def counter(fmt: str, dtype: torch.dtype, batched: bool = False) -> str:
+def counter(fmt: str, dtype: torch.dtype, batched: bool = False, sm90: bool = False) -> str:
     """The launch counter of the kernel for a main cache in format `fmt`
-    and queries of `dtype` (the slot-axis launch: `batched`)."""
-    name = _COUNTER[fmt].replace("tree_attention", "tree_attention_batched") if batched \
-        else _COUNTER[fmt]
+    and queries of `dtype` (the slot-axis launch: `batched`; the Hopper
+    kernel's: `sm90`, see `sm90_route`)."""
+    name = _COUNTER[fmt]
+    if batched:
+        name = name.replace("tree_attention",
+                            "tree_attention_batched" + ("_sm90" if sm90 else ""))
     return name + ("_f32" if dtype == torch.float32 else "")
+
+
+def sm90_route(B: int, Q: int, H: int, Hkv: int, sms: int) -> bool:
+    """Whether a slot-axis call of B slots, Q queries a slot and H query /
+    Hkv KV heads takes the Hopper kernel on a card of `sms` SMs: Q >
+    SM90_MIN_Q and its work items, B x Hkv x ceil(Q x g / SM90_ROWS), at
+    least SM90_FILL x sms. Read from the shapes alone: no slot's prefix is
+    read back to the host."""
+    items = B * Hkv * -(-Q * (H // Hkv) // SM90_ROWS)
+    return Q > SM90_MIN_Q and items >= SM90_FILL * sms
 
 
 def split_count(Q: int, H: int, M: int, S: int, sms: int,
@@ -105,18 +147,20 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def tile_extents(main_mask: torch.Tensor, scr_mask: torch.Tensor) -> torch.Tensor:
-    """`[ceil(Q / 16), 2]` int64: for each 16-query tile, the keys of the main
+def tile_extents(main_mask: torch.Tensor, scr_mask: torch.Tensor,
+                 rows: int = TILE_Q) -> torch.Tensor:
+    """`[ceil(Q / rows), 2]` int64: for each tile of `rows` query rows (the
+    kernel's 16; the Hopper kernel's SM90_ROWS), the keys of the main
     region and of the scratch that the kernel reads, as it finds them
     in the mask: one past the last key any row of the tile attends, or the
     whole region when some row of the tile attends no key at all. Masks
-    with a slot axis (`[B, Q, M]`, `[B, Q, S]`) give `[B, ceil(Q / 16), 2]`:
+    with a slot axis (`[B, Q, M]`, `[B, Q, S]`) give `[B, ceil(Q / rows), 2]`:
     each slot its own prefix skip."""
     if main_mask.dim() == 3:
-        return torch.stack([tile_extents(m, s) for m, s in zip(main_mask, scr_mask)])
+        return torch.stack([tile_extents(m, s, rows) for m, s in zip(main_mask, scr_mask)])
     Q, M = main_mask.shape
     S = scr_mask.shape[1]
-    pad = -Q % TILE_Q
+    pad = -Q % rows
 
     def last(mask, n):            # per tile: 1 + the last live key, 0 if none
         if n == 0:
@@ -124,10 +168,10 @@ def tile_extents(main_mask: torch.Tensor, scr_mask: torch.Tensor) -> torch.Tenso
         else:
             idx = torch.arange(1, n + 1, device=mask.device)
             per_row = (mask.long() * idx).amax(dim=1)
-        return torch.nn.functional.pad(per_row, (0, pad)).view(-1, TILE_Q).amax(dim=1)
+        return torch.nn.functional.pad(per_row, (0, pad)).view(-1, rows).amax(dim=1)
 
     alive = main_mask.any(dim=1) | scr_mask.any(dim=1)
-    dead = ~torch.nn.functional.pad(alive, (0, pad), value=True).view(-1, TILE_Q).all(dim=1)
+    dead = ~torch.nn.functional.pad(alive, (0, pad), value=True).view(-1, rows).all(dim=1)
     ext = torch.stack([last(main_mask, M), last(scr_mask, S)], dim=1)
     whole = torch.tensor([M, S], device=ext.device)
     return torch.where(dead[:, None], whole, ext)
@@ -199,6 +243,25 @@ def _merge(parts):
     return m, lsum, acc
 
 
+def _softmax_step(state, qt, kr, vr, live, kscale, vscale, scale, dot, pv):
+    """One online-softmax step of the kernels over keys `kr`, `vr`
+    `[n, h, D]`: scores `dot(qt, kr)` (times `kscale`: a quantized main
+    tile), the masked ones (`live` False) at -1e30, the running (m, l, acc)
+    rescaled, the probabilities (times `vscale`) folded in by `pv`."""
+    m, lsum, acc = state
+    s = dot(qt, kr) * scale
+    if kscale is not None:
+        s = s * kscale
+    s = s.masked_fill(~live, NEG)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    lsum = lsum * alpha + p.sum(dim=-1)
+    if vscale is not None:
+        p = p * vscale
+    return m_new, lsum, pv(acc, alpha, p, vr)
+
+
 def _decomposed(q, k, v, main_mask, sk, sv, scr_mask, scale, ks, vs, splits, warps, step,
                 dot, pv):
     """The kernels' decomposition in plain PyTorch: for each 16-query tile,
@@ -235,18 +298,12 @@ def _decomposed(q, k, v, main_mask, sk, sv, scr_mask, scale, ks, vs, splits, war
                     tile = (t if t < ntm else t - ntm) * TILE_K
                     for base in range(tile, min(tile + TILE_K, kr.shape[0]), step):
                         keys = slice(base, base + step)      # past the end: no key
-                        s = dot(qt, kr[keys][:, kvh]) * scale
-                        if kscale is not None:
-                            s = s * kscale[keys][:, kvh].T[:, None, :]
-                        s = s.masked_fill(~mask[rows, keys][None], NEG)
-                        m_new = torch.maximum(m, s.amax(dim=-1))
-                        alpha = torch.exp(m - m_new)
-                        p = torch.exp(s - m_new[..., None])
-                        lsum = lsum * alpha + p.sum(dim=-1)
-                        if vscale is not None:
-                            p = p * vscale[keys][:, kvh].T[:, None, :]
-                        acc = pv(acc, alpha, p, vr[keys][:, kvh])
-                        m = m_new
+                        m, lsum, acc = _softmax_step(
+                            (m, lsum, acc), qt, kr[keys][:, kvh], vr[keys][:, kvh],
+                            mask[rows, keys][None],
+                            None if kscale is None else kscale[keys][:, kvh].T[:, None, :],
+                            None if vscale is None else vscale[keys][:, kvh].T[:, None, :],
+                            scale, dot, pv)
                 runs.append((m, lsum, acc))
             blocks.append(_merge(runs))
         _, lsum, acc = _merge(blocks)
@@ -259,14 +316,8 @@ def tree_attention_split_plain(q, k, v, main_mask, sk, sv, scr_mask, *, scale: f
     """The bf16 kernel's decomposition (`_decomposed`, 16-key steps) in
     plain PyTorch, on no path: scores in f32, probabilities rounded to q's
     dtype for the value product."""
-    def dot(qt, kr):
-        return torch.einsum("hrd,nhd->hrn", qt, kr)
-
-    def pv(acc, alpha, p, vr):
-        return acc * alpha[..., None] + torch.einsum("hrn,nhd->hrd", p.to(q.dtype).float(), vr)
-
     return _decomposed(q, k, v, main_mask, sk, sv, scr_mask, scale, ks, vs, splits, WARPS,
-                       TILE_K, dot, pv)
+                       TILE_K, _bf16_scores, _rounded_pv(q.dtype))
 
 
 def split_tf32(x: torch.Tensor):
@@ -301,30 +352,110 @@ def tree_attention_f32_model(q, k, v, main_mask, sk, sv, scr_mask, *, scale: flo
     S sums q.k into six accumulators (the three products, even and odd
     8-dim steps) added in f32 as the kernel adds them; P V of each step goes
     into a zeroed accumulator that one FMA folds into acc."""
-    zero = torch.zeros(())
-
-    def dot(qt, kr):                          # [H, r, D] x [n, H, D] -> [H, r, n]
-        qh, ql = split_tf32(qt)
-        kh, kl = split_tf32(kr.permute(1, 2, 0).contiguous())
-        acc = {(p, z): zero for p in ("hh", "hl", "lh") for z in (0, 1)}
-        for kk in range(qt.shape[-1] // 8):
-            d, z = slice(8 * kk, 8 * kk + 8), kk % 2
-            acc["hh", z] = _mma_rz(acc["hh", z], qh[..., d], kh[:, d])
-            acc["hl", z] = _mma_rz(acc["hl", z], qh[..., d], kl[:, d])
-            acc["lh", z] = _mma_rz(acc["lh", z], ql[..., d], kh[:, d])
-        return (acc["hh", 0] + acc["hh", 1]) + (
-            (acc["hl", 0] + acc["hl", 1]) + (acc["lh", 0] + acc["lh", 1]))
-
-    def pv(acc, alpha, p, vr):                # [H, r, n] x [n, H, D] -> [H, r, D]
-        ph, pl = split_tf32(p)
-        vh, vl = split_tf32(vr.permute(1, 0, 2).contiguous())
-        x = _mma_rz(zero, ph, vh)
-        x = _mma_rz(x, ph, vl)
-        x = _mma_rz(x, pl, vh)
-        return (acc.double() * alpha.double()[..., None] + x.double()).float()
-
     return _decomposed(q, k, v, main_mask, sk, sv, scr_mask, scale, ks, vs, splits, F32_WARPS,
-                       F32_STEP, dot, pv)
+                       F32_STEP, _tf32x3_scores, _tf32x3_pv)
+
+
+def _tf32x3_scores(qt, kr):
+    """[H, r, D] x [n, H, D] -> [H, r, n] as the f32 kernels sum q.k: six
+    truncating accumulators (q_hi.k_hi, q_hi.k_lo, q_lo.k_hi; even and odd
+    8-dim steps), added in f32 at the end."""
+    zero = torch.zeros(())
+    qh, ql = split_tf32(qt)
+    kh, kl = split_tf32(kr.permute(1, 2, 0).contiguous())
+    acc = {(p, z): zero for p in ("hh", "hl", "lh") for z in (0, 1)}
+    for kk in range(qt.shape[-1] // 8):
+        d, z = slice(8 * kk, 8 * kk + 8), kk % 2
+        acc["hh", z] = _mma_rz(acc["hh", z], qh[..., d], kh[:, d])
+        acc["hl", z] = _mma_rz(acc["hl", z], qh[..., d], kl[:, d])
+        acc["lh", z] = _mma_rz(acc["lh", z], ql[..., d], kh[:, d])
+    return (acc["hh", 0] + acc["hh", 1]) + (
+        (acc["hl", 0] + acc["hl", 1]) + (acc["lh", 0] + acc["lh", 1]))
+
+
+def _tf32x3_pv(acc, alpha, p, vr):
+    """acc * alpha + P V ([H, r, n] x [n, H, D] -> [H, r, D]) as the f32
+    kernels fold a step in: one zeroed accumulator takes p_hi.v_hi,
+    p_hi.v_lo, p_lo.v_hi of each 8-key k step in turn (truncating), then
+    one FMA folds it into acc."""
+    ph, pl = split_tf32(p)
+    vh, vl = split_tf32(vr.permute(1, 0, 2).contiguous())
+    x = torch.zeros(())
+    for c in range(0, p.shape[-1], 8):
+        k = slice(c, c + 8)
+        x = _mma_rz(x, ph[..., k], vh[:, k])
+        x = _mma_rz(x, ph[..., k], vl[:, k])
+        x = _mma_rz(x, pl[..., k], vh[:, k])
+    return (acc.double() * alpha.double()[..., None] + x.double()).float()
+
+
+def _bf16_scores(qt, kr):
+    return torch.einsum("hrd,nhd->hrn", qt, kr)
+
+
+def _rounded_pv(dtype):
+    """The bf16 kernels' fold of a step: probabilities rounded to `dtype`,
+    the value product and acc * alpha in f32."""
+    def pv(acc, alpha, p, vr):
+        return acc * alpha[..., None] + torch.einsum("hrn,nhd->hrd", p.to(dtype).float(), vr)
+    return pv
+
+
+def tree_attention_batched_sm90_model(q, k, v, main_mask, sk, sv, scr_mask, *, scale: float,
+                                      ks=None, vs=None):
+    """The Hopper slot-axis kernel's decomposition in plain PyTorch, on no
+    path (operands as `tree_attention_batched`). For each slot and KV head,
+    the Q x g rows (query, query head; query-major) in work items of
+    SM90_ROWS rows; each item's `tile_extents` over its rows; the extent's
+    tiles of SM90_KEYS[dtype] keys (main, then scratch) in order, one
+    online-softmax step a tile into (m, l, acc). bf16: scores in f32,
+    probabilities rounded to q's dtype for the value product; f32: the
+    3xTF32 arithmetic of `tree_attention_f32_model` (`_tf32x3_scores`,
+    `_tf32x3_pv`), a tile one 16-key step with a float cache; with an int8 /
+    int4 cache each tile's two 8-key halves walked as two runs of their own
+    (the kernel's two consumer warpgroups), merged at the end."""
+    B, Q, H, D = q.shape
+    Hkv, M, S = sk.shape[2], k.shape[1], sk.shape[1]
+    g, rows = H // Hkv, Q * (H // Hkv)
+    f32 = q.dtype == torch.float32
+    kt = SM90_KEYS[torch.float32 if f32 else torch.bfloat16]
+    dot, pv = (_tf32x3_scores, _tf32x3_pv) if f32 else (_bf16_scores, _rounded_pv(q.dtype))
+    quant = cache_format(k[0], Hkv, D) != "float"
+    # (first key, keys) of a step of each run over the tiles
+    halves_of = ((0, 8), (8, 8)) if f32 and quant else ((0, kt),)
+    out = torch.empty(B, Hkv, rows, D, dtype=q.dtype)
+    for b in range(B):
+        kf, vf, _ = _float_rows(q[b], k[b], v[b], Hkv, D)
+        regions = [(kf, vf, ks[b] if quant else None, vs[b] if quant else None),
+                   (sk[b].float(), sv[b].float(), None, None)]
+        live = [main_mask[b].repeat_interleave(g, 0), scr_mask[b].repeat_interleave(g, 0)]
+        ext = tile_extents(*live, rows=SM90_ROWS).tolist()
+        for kh in range(Hkv):
+            qk = q[b, :, kh * g:(kh + 1) * g].reshape(rows, D).float()
+            for it, r0 in enumerate(range(0, rows, SM90_ROWS)):
+                rr = slice(r0, min(r0 + SM90_ROWS, rows))
+                qt, r = qk[rr][None], qk[rr].shape[0]
+                ntm = -(-ext[it][0] // kt)
+                nt = ntm + -(-ext[it][1] // kt)
+                halves = []
+                for h0, step in halves_of:
+                    state = (torch.full((1, r), NEG), torch.zeros(1, r), torch.zeros(1, r, D))
+                    for t in range(nt):
+                        kr, vr, ksc, vsc = regions[t >= ntm]
+                        base = (t if t < ntm else t - ntm) * kt + h0
+                        if base >= kr.shape[0]:
+                            continue                          # (a no-op step)
+                        keys = slice(base, base + step)       # past the end: no key
+                        sc = lambda x: None if x is None else x[keys, kh][None, None, :]  # noqa: E731,E501
+                        state = _softmax_step(state, qt, kr[keys, kh:kh + 1],
+                                              vr[keys, kh:kh + 1],
+                                              live[t >= ntm][rr, keys][None], sc(ksc),
+                                              sc(vsc), scale, dot, pv)
+                    halves.append(state)
+                _, lsum, acc = _merge(halves)
+                out[b, kh, rr] = (acc / lsum.clamp_min(1e-30)[..., None])[0].to(q.dtype)
+    # [B, Hkv, Q * g, D] (rows query-major) -> [B, Q, H, D]
+    return out.view(B, Hkv, Q, g, D).permute(0, 2, 1, 3, 4).reshape(B, Q, H, D)
 
 
 def _check(q, k, v, main_mask, sk, sv, scr_mask, ks, vs) -> str:
@@ -544,5 +675,24 @@ def _tree_attention_batched(q, k, v, main_mask, sk, sv, scr_mask, *, scale: floa
     _, Q, H, D = q.shape
     M = k.shape[1]
     S, Hkv = sk.shape[1], sk.shape[2]
+    if sm90_route(B, Q, H, Hkv, _sm_count(q.device.index or 0)):
+        return _launch_sm90(q, k, v, main_mask, sk, sv, scr_mask, ks, vs, fmt, scale,
+                            B, Q, H, Hkv, D, M, S, counter(fmt, q.dtype, True, sm90=True))
     return _launch(q, k, v, main_mask, sk, sv, scr_mask, ks, vs, fmt, scale,
                    B, Q, H, Hkv, D, M, S, counter(fmt, q.dtype, batched=True))
+
+
+def _launch_sm90(q, k, v, main_mask, sk, sv, scr_mask, ks, vs, fmt, scale, B, Q, H, Hkv, D,
+                 M, S, name):
+    """One launch of the Hopper slot-axis kernel, counted as `name`."""
+    out = torch.empty_like(q)
+    lib = build.load()
+    rc = lib.sequoia_tree_attention_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+        main_mask.data_ptr(), sk.data_ptr(), sv.data_ptr(), scr_mask.data_ptr(),
+        out.data_ptr(), B, Q, H, Hkv, D, M, S, float(scale), _DTYPE_CODE[q.dtype],
+        _FORMAT_CODE[fmt], torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, name)
+    build.launches[name] += 1
+    return out

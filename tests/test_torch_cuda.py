@@ -5,6 +5,8 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -179,7 +181,9 @@ def test_tree_attention_split_count_on_the_card(Q, S, want, dtype, tol):
 def test_tree_attention_batched_kernel_matches_plain(B, Q, M, S, Hkv, g, D, fmt, dtype, tol):
     """The slot-axis launch against the plain version slot by slot: each
     slot its own prefix (one slot with a row that attends nothing), every
-    cache format, one launch counted on the batched counter."""
+    cache format, one launch counted on the counter of the route it takes."""
+    from sequoia_torch.kernels import tree_attention as ta
+
     _need_cuda()
     rng = np.random.default_rng(B + Q + M)
     t = lambda *shape: torch.from_numpy(  # noqa: E731
@@ -195,12 +199,94 @@ def test_tree_attention_batched_kernel_matches_plain(B, Q, M, S, Hkv, g, D, fmt,
     smask[B - 1, Q // 2] = False
     kc, vc, ks, vs = _cache(k, v, fmt)
     args = (q, kc, vc, mask, sk, sv, smask)
-    name = counter(fmt, dtype, batched=True)
+    sm90 = ta.sm90_route(B, Q, Hkv * g, Hkv, ta._sm_count(0))   # B = 8 at 32 heads: Hopper's
+    name = counter(fmt, dtype, batched=True, sm90=sm90)
     before = qmm.build.launches[name]
     got = tree_attention_batched(*args, scale=D ** -0.5, ks=ks, vs=vs)
     assert qmm.build.launches[name] == before + 1
     want = tree_attention_batched_plain(*args, scale=D ** -0.5, ks=ks, vs=vs)
     assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4_head", "int4_dsplit"])
+@pytest.mark.parametrize("B,Q,M,S,Hkv,g,D", [
+    (3, 17, 100, 64, 2, 1, 64),     # a ragged 64-row tile
+    (3, 64, 90, 64, 2, 1, 128),     # the verify's tile, a ragged main region
+    (2, 80, 70, 0, 2, 2, 64),       # g = 2: 160 rows, three tiles, no scratch
+    (2, 64, 128, 0, 2, 2, 128),     # g = 2, no scratch
+    (2, 33, 40, 24, 4, 2, 16),      # head dim 16; a dsplit row has 8 bytes
+    (2, 40, 64, 20, 2, 1, 32),      # head dim 32: the 64-byte swizzle
+    (2, 64, 4096, 64, 2, 1, 128),   # llama-2's 4096-key context
+    (2, 80, 8192, 0, 2, 2, 64),     # 8192 keys, g = 2
+])
+def test_tree_attention_batched_sm90_matches_plain(B, Q, M, S, Hkv, g, D, fmt, dtype, tol):
+    """The Hopper slot-axis kernel against the plain version: mixed
+    prefixes, a slot whose middle row attends nothing, every format, dtype
+    and head dim, and contexts of 4096 and 8192 keys (the shared memory
+    does not grow with M)."""
+    from sequoia_torch.kernels import tree_attention as ta
+
+    _need_cuda()
+    rng = np.random.default_rng(B + Q + M + D)
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+    q, k, v, sk, sv = t(B, Q, Hkv * g, D), t(B, M, Hkv, D), t(B, M, Hkv, D), \
+        t(B, S, Hkv, D), t(B, S, Hkv, D)
+    ts = torch.from_numpy(rng.integers(1, M, size=B)).cuda()
+    mask = (torch.arange(M, device="cuda")[None, None, :] < ts[:, None, None]).expand(
+        B, Q, M).contiguous()
+    smask = torch.tril(torch.ones(Q, S, dtype=torch.bool, device="cuda")).expand(
+        B, Q, S).contiguous()
+    mask[B - 1, Q // 2] = False
+    smask[B - 1, Q // 2] = False
+    kc, vc, ks, vs = _cache(k, v, fmt)
+    args = (q, kc, vc, mask, sk, sv, smask)
+    name = counter(fmt, dtype, batched=True, sm90=True)
+    before = qmm.build.launches[name]
+    got = ta._launch_sm90(q, kc, vc, mask, sk, sv, smask, ks, vs, fmt, D ** -0.5, B, Q,
+                          Hkv * g, Hkv, D, M, S, name)
+    assert qmm.build.launches[name] == before + 1
+    want = tree_attention_batched_plain(*args, scale=D ** -0.5, ks=ks, vs=vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    again = ta._launch_sm90(q, kc, vc, mask, sk, sv, smask, ks, vs, fmt, D ** -0.5, B, Q,
+                            Hkv * g, Hkv, D, M, S, name)
+    assert torch.equal(got, again)   # no atomics: the same bits every launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fill", ["at the fill", "one slot short"])
+def test_tree_attention_batched_routes_by_fill(fill, dtype, tol):
+    """`tree_attention_batched` at Q = 64 takes the Hopper kernel where the
+    work items (slot x KV head here) number SM90_FILL of the SMs, and the
+    slot-grid route with one slot fewer; each matches the plain version."""
+    from sequoia_torch.kernels import tree_attention as ta
+
+    _need_cuda()
+    Hkv, Q, M, S, D = 4, 64, 192, 64, 64
+    B = -(-math.ceil(ta.SM90_FILL * ta._sm_count(0)) // Hkv) - (fill == "one slot short")
+    rng = np.random.default_rng(B)
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+    q, k, v, sk, sv = t(B, Q, Hkv, D), t(B, M, Hkv, D), t(B, M, Hkv, D), \
+        t(B, S, Hkv, D), t(B, S, Hkv, D)
+    ts = torch.from_numpy(rng.integers(1, M, size=B)).cuda()
+    mask = (torch.arange(M, device="cuda")[None, None, :] < ts[:, None, None]).expand(
+        B, Q, M).contiguous()
+    smask = torch.tril(torch.ones(Q, S, dtype=torch.bool, device="cuda")).expand(
+        B, Q, S).contiguous()
+    sm90 = fill == "at the fill"
+    assert ta.sm90_route(B, Q, Hkv, Hkv, ta._sm_count(0)) == sm90
+    before = dict(qmm.build.launches)
+    got = tree_attention_batched(q, k, v, mask, sk, sv, smask, scale=D ** -0.5)
+    for route in (True, False):
+        name = counter("float", dtype, batched=True, sm90=route)
+        assert qmm.build.launches[name] == before[name] + (route == sm90), name
+    want = tree_attention_batched_plain(q, k, v, mask, sk, sv, smask, scale=D ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
