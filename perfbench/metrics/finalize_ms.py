@@ -1,0 +1,6 @@
+"""Device ms of one replay of the sampling engine's `finalize` graph, CUDA
+events around each replay, averaged over the window."""
+
+
+def read(run):
+    return run.phase_ms.get("finalize")
