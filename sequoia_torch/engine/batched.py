@@ -36,6 +36,13 @@ scatter), a decode block loop until `harvest_batch` active slots finish,
 then the harvest and admission on the device (index copies), scheduled by
 the host from the block's one read.
 
+Spans (`trace.py`, while tracing): `serve` a `serve_device` call,
+`admit.plan` an admission step's table and its copy to the card,
+`replay.admit` the step, `harvest`, `decode` a block loop with its
+`block`s (their `replay.<phase>`s) and `host_read`s; the counters
+`admit_entries` (W a step) and `admit_valid` (the entries that carry a
+prompt chunk).
+
 Under a mesh (`SpecEngine`'s `mesh`), the tp axis shards each forward as
 in the single engine, and the dp axis holds replicas: dp rank r serves its
 contiguous share of the slots (`parallel/sharding.py::dp_share`; JAX
@@ -54,6 +61,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..core.model import forward_batched
 from ..kvcache.cache import KV_CACHES, KVCache, KVCache4
 from ..parallel.sharding import dp_share
@@ -152,8 +160,9 @@ class _SlotLoop:
         """One host read: (finished, produced, committed length) per slot and
         the iterations run since the loop was armed."""
         B = self.batch_size
-        vals = torch.cat([self._slot_finished().long(), self._bproduced, self._slot_pos(),
-                          self._bsteps.reshape(1)]).tolist()
+        with trace.span("host_read"):
+            vals = torch.cat([self._slot_finished().long(), self._bproduced, self._slot_pos(),
+                              self._bsteps.reshape(1)]).tolist()
         return [bool(x) for x in vals[:B]], vals[B:2 * B], vals[2 * B:3 * B], vals[3 * B]
 
     def _run_slots(self, until: int, eager: bool):
@@ -161,20 +170,22 @@ class _SlotLoop:
         have finished or none is live; one host read a block (eager: a block
         is one iteration, launched, not replayed). Returns (finished,
         produced, steps) as the last read saw them."""
-        fin, prod, pos, steps = self._read_slots()
-        while True:
-            live = [b for b in range(self.batch_size) if self._active[b] and not fin[b]]
-            done = sum(1 for b in range(self.batch_size) if self._active[b] and fin[b])
-            if done >= until or not live:
-                return fin, prod, steps
-            k = 1 if eager else self._block_len(live, prod, pos)
-            for _ in range(k):
-                if eager or self._bgraphs is None:
-                    self._iteration()
-                else:
-                    for name in self._DECODE_GRAPHS:
-                        self._bgraphs.replay(name)
+        with trace.span("decode"):
             fin, prod, pos, steps = self._read_slots()
+            while True:
+                live = [b for b in range(self.batch_size) if self._active[b] and not fin[b]]
+                done = sum(1 for b in range(self.batch_size) if self._active[b] and fin[b])
+                if done >= until or not live:
+                    return fin, prod, steps
+                k = 1 if eager else self._block_len(live, prod, pos)
+                with trace.span("block"):
+                    for _ in range(k):
+                        if eager or self._bgraphs is None:
+                            self._iteration()
+                        else:
+                            for name in self._DECODE_GRAPHS:
+                                self._bgraphs.replay(name)
+                fin, prod, pos, steps = self._read_slots()
 
     def _generate_slots(self, prompts, max_new_tokens: int, seed: int, eager: bool):
         prompts = [np.asarray(p, np.int64).reshape(-1) for p in prompts]
@@ -808,8 +819,9 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
         prompts = list(prompts)
         if not prompts:
             raise ValueError("serve_device needs at least one prompt")
-        return self._over_dp(prompts, seed, lambda p, s: self._serve_device(
-            p, max_new_tokens, s))
+        with trace.span("serve"):
+            return self._over_dp(prompts, seed, lambda p, s: self._serve_device(
+                p, max_new_tokens, s))
 
     def _serve_device(self, prompts: Iterable[np.ndarray], max_new_tokens: int = 128,
                       seed: int = 0) -> List[np.ndarray]:
@@ -859,22 +871,25 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
                 stepping = need if W >= B else need[:W]
                 entries = list(range(B)) if W >= B else (
                     stepping + [s for s in range(B) if s not in stepping][:W - len(stepping)])
-                adm = np.zeros((W, C + 4), np.int64)
-                for w, s in enumerate(entries):
-                    adm[w, C + 3] = s
-                    if s in stepping:
-                        p = prompts[slot_req[s]]
-                        piece = p[ppos[s]:ppos[s] + C]
-                        adm[w, :len(piece)] = piece
-                        adm[w, C], adm[w, C + 1], adm[w, C + 2] = ppos[s], len(p), 1
-                    else:
-                        adm[w, C], adm[w, C + 1] = M - C, -1
-                self._adm.copy_(torch.from_numpy(adm))
+                with trace.span("admit.plan"):
+                    adm = np.zeros((W, C + 4), np.int64)
+                    for w, s in enumerate(entries):
+                        adm[w, C + 3] = s
+                        if s in stepping:
+                            p = prompts[slot_req[s]]
+                            piece = p[ppos[s]:ppos[s] + C]
+                            adm[w, :len(piece)] = piece
+                            adm[w, C], adm[w, C + 1], adm[w, C + 2] = ppos[s], len(p), 1
+                        else:
+                            adm[w, C], adm[w, C + 1] = M - C, -1
+                    self._adm.copy_(torch.from_numpy(adm))
                 if self._bgraphs is None:
                     self._admit_step(st)
                 else:
                     self._bgraphs.replay("admit")
                 pf_steps += 1
+                trace.count("admit_entries", W)
+                trace.count("admit_valid", len(stepping))
                 for s in stepping:
                     ppos[s] += C
                     prefilling[s] = ppos[s] < len(prompts[slot_req[s]])
@@ -884,25 +899,26 @@ class BatchedSpecEngine(_SlotLoop, SpecEngine):
             until = n_active if next_q >= n_q else min(self.harvest_batch, n_active)
             fin, prod, steps = self._run_slots(until, eager=False)
             # 3. Harvest and admit, on the device, in slot order (JAX's rank).
-            done = [s for s in range(B) if self._active[s] and fin[s]]
-            out_tokens.index_copy_(
-                0, torch.as_tensor([slot_req[s] for s in done], dtype=torch.long, device=dev),
-                st.tokens.index_select(0, torch.as_tensor(done, dtype=torch.long, device=dev)))
-            admitted = []
-            for s in done:
-                out_prod[slot_req[s]] = min(prod[s], max_new_tokens)
-                if next_q < n_q:
-                    slot_req[s], prefilling[s], ppos[s] = next_q, True, 0
-                    self._gens[s].manual_seed(int(seed) + next_q)
-                    admitted.append(s)
-                    next_q += 1
-                else:
-                    slot_req[s] = -1
-            if admitted:
-                new = torch.as_tensor(admitted, dtype=torch.long, device=dev)
-                for t in (st.gtl, self._bproduced):
-                    t.index_fill_(0, new, 0)
-                st.terminal.index_fill_(0, new, False)
+            with trace.span("harvest"):
+                done = [s for s in range(B) if self._active[s] and fin[s]]
+                out_tokens.index_copy_(
+                    0, torch.as_tensor([slot_req[s] for s in done], dtype=torch.long, device=dev),
+                    st.tokens.index_select(0, torch.as_tensor(done, dtype=torch.long, device=dev)))
+                admitted = []
+                for s in done:
+                    out_prod[slot_req[s]] = min(prod[s], max_new_tokens)
+                    if next_q < n_q:
+                        slot_req[s], prefilling[s], ppos[s] = next_q, True, 0
+                        self._gens[s].manual_seed(int(seed) + next_q)
+                        admitted.append(s)
+                        next_q += 1
+                    else:
+                        slot_req[s] = -1
+                if admitted:
+                    new = torch.as_tensor(admitted, dtype=torch.long, device=dev)
+                    for t in (st.gtl, self._bproduced):
+                        t.index_fill_(0, new, 0)
+                    st.terminal.index_fill_(0, new, False)
         tokens = out_tokens.cpu().numpy()
         self.num_large_model_steps = steps
         self.num_prefill_steps = pf_steps

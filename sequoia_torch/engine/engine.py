@@ -25,6 +25,13 @@ Two kinds of loop, as in JAX:
   and `gtl` unchanged, writes only at slots >= `gtl`). On the CPU the same
   blocks run eagerly.
 
+Spans (`trace.py`; recorded only while tracing, and no host read or sync
+of their own): `request` over a `*_fast` call, `prefill` (with device
+time; the counter `prefill_tokens` its prompt tokens), `loop` a device
+loop, `block` its iterations, `host_read` its one read a block, `chunk_out`
+a chunk's copy to the host; `GraphSet.replay` adds `replay.<phase>` (device
+time, no profiler markers).
+
 Slot/step invariants (identical to the reference):
 - committed tokens occupy slots `[0, gtl)`; tree node i sits at slot
   `ts + i`, `ts = gtl - 1` (root = last committed token);
@@ -47,7 +54,6 @@ same graphs; a gloo group there runs only the eager entry points.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -55,6 +61,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..core.config import LlamaConfig
 from ..core.model import LlamaParams, OffloadLayers, forward
 from ..kvcache.cache import KV_CACHES, KVCache, KVCache4
@@ -128,34 +135,6 @@ class StepStats(NamedTuple):
     emitted: torch.Tensor     # long 0-d: tokens committed this iteration
     terminal: torch.Tensor    # bool 0-d
     first_rank: torch.Tensor  # long 0-d: sibling rank of the first accepted child, or -1
-
-
-class _PhaseClock:
-    """Per-phase device time: CUDA events on the card (recorded between
-    launches or graph replays, never inside a capture), the host clock on
-    the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self, name: Optional[str] = None) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def seconds(self) -> dict:
-        """{phase: seconds}; a phase runs from its mark to the next. On the
-        card this waits for the last mark."""
-        if self.cuda and self.marks:
-            self.marks[-1][1].synchronize()
-        out = {}
-        for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) / 1e3 if self.cuda else b - a
-        return out
 
 
 class SpecEngine:
@@ -353,30 +332,32 @@ class SpecEngine:
             raise ValueError(f"prompt length {plen} does not fit max_length "
                              f"{self.max_length} with a {self.tree_size}-node tree")
         dev = self.device
-        self._gen.manual_seed(int(seed))
-        state = DecodeState(
-            tokens=self._tokens.zero_(), gtl=self._gtl.fill_(plen),
-            draft_kv=self._draft_kv.zero_(), target_kv=self._target_cache(),
-            root_draft_logits=self._root_logits.zero_(), gen=self._gen,
-            terminal=self._terminal.zero_(),
-        )
-        self._arm(self.max_length)
-        C = self.prefill_chunk
-        padded = np.zeros(((plen + C - 1) // C) * C, np.int64)
-        padded[:plen] = prompt
-        padded = torch.as_tensor(padded, device=dev)
-        for off, c in prefill_chunks(plen, C, self.max_length):
-            chunk = padded[off:off + c]
-            positions = off + torch.arange(c, device=dev)
-            mask = masks.causal_mask(c, self.max_length, off, dev)
-            d_logits, _ = forward(self.draft_params, self.draft_cfg, chunk,
-                                  positions, state.draft_kv, off, mask, tp=self._dtp)
-            forward(self.target_params, self.target_cfg, chunk, positions,
-                    state.target_kv, off, mask, tp=self._ttp)
-            if 0 <= plen - 1 - off < c:
-                state.root_draft_logits.copy_(d_logits[plen - 1 - off])
-            state.tokens[off:off + c] = chunk
-        return state
+        with trace.span("prefill", device=dev):
+            trace.count("prefill_tokens", plen)
+            self._gen.manual_seed(int(seed))
+            state = DecodeState(
+                tokens=self._tokens.zero_(), gtl=self._gtl.fill_(plen),
+                draft_kv=self._draft_kv.zero_(), target_kv=self._target_cache(),
+                root_draft_logits=self._root_logits.zero_(), gen=self._gen,
+                terminal=self._terminal.zero_(),
+            )
+            self._arm(self.max_length)
+            C = self.prefill_chunk
+            padded = np.zeros(((plen + C - 1) // C) * C, np.int64)
+            padded[:plen] = prompt
+            padded = torch.as_tensor(padded, device=dev)
+            for off, c in prefill_chunks(plen, C, self.max_length):
+                chunk = padded[off:off + c]
+                positions = off + torch.arange(c, device=dev)
+                mask = masks.causal_mask(c, self.max_length, off, dev)
+                d_logits, _ = forward(self.draft_params, self.draft_cfg, chunk,
+                                      positions, state.draft_kv, off, mask, tp=self._dtp)
+                forward(self.target_params, self.target_cfg, chunk, positions,
+                        state.target_kv, off, mask, tp=self._ttp)
+                if 0 <= plen - 1 - off < c:
+                    state.root_draft_logits.copy_(d_logits[plen - 1 - off])
+                state.tokens[off:off + c] = chunk
+            return state
 
     # ------------------------------------------------------------------
     # One speculative iteration: grow, verify, finalize
@@ -612,13 +593,14 @@ class SpecEngine:
     def _block(self, state: DecodeState, k: int) -> None:
         """k predicated iterations: the captured phases replayed on the
         card, the same phases launched eagerly on the CPU."""
-        for _ in range(k):
-            if self._graphs is None:
-                tt, dl = self._grow(state)
-                self._finalize_counted(state, tt, dl, self._verify(state, tt))
-            else:
-                for name in ("grow", "verify", "finalize"):
-                    self._graphs.replay(name)
+        with trace.span("block"):
+            for _ in range(k):
+                if self._graphs is None:
+                    tt, dl = self._grow(state)
+                    self._finalize_counted(state, tt, dl, self._verify(state, tt))
+                else:
+                    for name in ("grow", "verify", "finalize"):
+                        self._graphs.replay(name)
 
     def _block_size(self, gtl: int, remaining: int) -> int:
         """Iterations in the next block: as many as still fit the buffer if
@@ -636,12 +618,14 @@ class SpecEngine:
         One host read per block. Returns `(produced, steps, terminal)`."""
         if self._graphs is not None and budget > 0 and self._fits(gtl):
             self._ensure_graphs(state)
-        self._arm(budget)
-        produced, steps, terminal = 0, 0, False
-        while not terminal and produced < budget and self._fits(gtl + produced):
-            self._block(state, self._block_size(gtl + produced, budget - produced))
-            produced, steps, terminal = torch.stack(
-                [self._produced, self._steps, state.terminal.long()]).tolist()  # one host read
+        with trace.span("loop"):
+            self._arm(budget)
+            produced, steps, terminal = 0, 0, False
+            while not terminal and produced < budget and self._fits(gtl + produced):
+                self._block(state, self._block_size(gtl + produced, budget - produced))
+                with trace.span("host_read"):
+                    produced, steps, terminal = torch.stack(
+                        [self._produced, self._steps, state.terminal.long()]).tolist()
         return produced, steps, bool(terminal)
 
     def iterate_phased(self, state: DecodeState):
@@ -653,7 +637,7 @@ class SpecEngine:
         them; on the CPU the same phases launched eagerly, on the host clock.
         Returns `(stats, {phase: seconds})`; the stats are rewritten by the
         next iteration. An iteration after a stop token is a no-op."""
-        clock = _PhaseClock(self.device)
+        clock = trace.PhaseClock(self.device)
         if self._graphs is not None:
             self._ensure_graphs(state)
             for phase, name in (("draft_run", "grow"), ("target_run", "verify"),
@@ -725,12 +709,13 @@ class SpecEngine:
         """`generate` with the loop on the device (JAX `generate_fast`):
         blocks of replayed iterations, one host read per block. The same
         committed sequence as `generate` for one seed."""
-        state = self.prefill(prompt, seed=seed)
-        plen = int(np.asarray(prompt).size)
-        produced, steps, _ = self._device_loop(state, plen, max_new_tokens)
-        self.num_decoding_steps = produced
-        self.num_large_model_steps = steps
-        return state.tokens[:plen + produced].cpu().numpy().astype(np.int32)
+        with trace.span("request"):
+            state = self.prefill(prompt, seed=seed)
+            plen = int(np.asarray(prompt).size)
+            produced, steps, _ = self._device_loop(state, plen, max_new_tokens)
+            self.num_decoding_steps = produced
+            self.num_large_model_steps = steps
+            return state.tokens[:plen + produced].cpu().numpy().astype(np.int32)
 
     def generate_benchmark(self, prompt: np.ndarray, max_new_tokens: int = 128,
                            seed: int = 0):
@@ -758,21 +743,23 @@ class SpecEngine:
         stop token. Greedy decoding commits what `generate_fast` commits."""
         if chunk_tokens < 1:
             raise ValueError(f"chunk_tokens must be >= 1, got {chunk_tokens}")
-        state = self.prefill(prompt, seed=seed)
-        gtl = int(np.asarray(prompt).size)
-        produced = 0
-        self.num_decoding_steps = 0
-        self.num_large_model_steps = 0
-        while produced < max_new_tokens:
-            budget = min(chunk_tokens, max_new_tokens - produced)
-            chunk, steps, terminal = self._device_loop(state, gtl, budget)
-            if chunk == 0:   # terminal or a full buffer before any token
-                break
-            new = state.tokens[gtl:gtl + chunk].cpu().numpy().astype(np.int32)
-            produced += chunk
-            gtl += chunk
-            self.num_decoding_steps += chunk
-            self.num_large_model_steps += steps
-            yield new
-            if terminal:
-                break
+        with trace.span("request"):
+            state = self.prefill(prompt, seed=seed)
+            gtl = int(np.asarray(prompt).size)
+            produced = 0
+            self.num_decoding_steps = 0
+            self.num_large_model_steps = 0
+            while produced < max_new_tokens:
+                budget = min(chunk_tokens, max_new_tokens - produced)
+                chunk, steps, terminal = self._device_loop(state, gtl, budget)
+                if chunk == 0:   # terminal or a full buffer before any token
+                    break
+                with trace.span("chunk_out"):
+                    new = state.tokens[gtl:gtl + chunk].cpu().numpy().astype(np.int32)
+                produced += chunk
+                gtl += chunk
+                self.num_decoding_steps += chunk
+                self.num_large_model_steps += steps
+                yield new
+                if terminal:
+                    break

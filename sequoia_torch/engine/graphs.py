@@ -30,7 +30,8 @@ Capture warms up first (`warmup`): the phases run once eagerly on a side
 stream, which builds the kernels (`build.load()`), creates cuBLAS handles,
 loads lazy modules and allocates the offload staging buffers before any of
 that could fall inside a capture. No timing event is recorded inside a
-capture: the engines' phase clocks mark between replays. Ordering events
+capture: the engines' phase clocks and the tracer's spans mark between
+replays, and the tracer is off while a stream captures. Ordering events
 are: a forward over host-offloaded layers (`core/model.py::_layer_weights`)
 forks its copy stream from the capturing stream and joins it back with
 events (`wait_stream` / `wait_event`), so its host-to-device copies and
@@ -46,6 +47,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from .. import trace
 from ..kernels import build
 
 
@@ -136,11 +138,16 @@ class GraphSet:
         return self.graphs[name].outputs
 
     def replay(self, name: str, times: int = 1) -> None:
-        """Replay graph `name` `times` times on the current stream, and count
-        its kernels' launches."""
+        """Replay graph `name` `times` times on the current stream, each
+        replay the span `replay.<name>` with device time (`trace.py`), and
+        count its kernels' launches. The span has no profiler markers, so
+        only its start event goes ahead of the launch (the engines' `block`
+        spans around the replays carry markers)."""
         g = self.graphs[name]
+        span = "replay." + name
         for _ in range(times):
-            g.graph.replay()
+            with trace.span(span, device=self.device, markers=False):
+                g.graph.replay()
         g.replays += times
         for k, v in g.delta.items():
             build.launches[k] += v * times
