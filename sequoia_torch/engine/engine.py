@@ -4,12 +4,13 @@ verification, and the device-side accept walk.
 Port of `sequoia_tpu/engine/engine.py::SpecEngine` (all four algorithms,
 and the four accept walks of the stochastic ones). One iteration = draft
 growth level by level into a tree scratch, one target forward over the
-whole tree, the accept walk, the commit of tokens and K/V rows, and a
-width-1 draft re-draft of the new root. Nothing inside an iteration reads a value back to the host: offsets
-are device tensors, and every lookup at a device index is an
-`index_select` (a 0-d tensor index would be a host read). The state lives
-in buffers the engine allocates once (`prefill` resets and reuses them), so
-the three phases capture into CUDA graphs (`engine/graphs.py`).
+whole tree, the accept walk, the commit of tokens and target K/V rows, and
+a causal draft re-draft of the committed block. Nothing inside an
+iteration reads a value back to the host: offsets are device tensors, and
+every lookup at a device index is an `index_select` (a 0-d tensor index
+would be a host read). The state lives in buffers the engine allocates
+once (`prefill` resets and reuses them), so the three phases capture into
+CUDA graphs (`engine/graphs.py`).
 
 Two kinds of loop, as in JAX:
 - `generate`, `stream`, `generate_benchmark`: the host reads the emitted
@@ -28,9 +29,10 @@ Two kinds of loop, as in JAX:
 Spans (`trace.py`; recorded only while tracing, and no host read or sync
 of their own): `request` over a `*_fast` call, `prefill` (with device
 time; the counter `prefill_tokens` its prompt tokens), `loop` a device
-loop, `block` its iterations, `host_read` its one read a block, `chunk_out`
-a chunk's copy to the host; `GraphSet.replay` adds `replay.<phase>` (device
-time, no profiler markers).
+loop, `block` its iterations (the counter `draft_forwards` the draft
+forwards they run, as `iterate` and `iterate_phased` count theirs),
+`host_read` its one read a block, `chunk_out` a chunk's copy to the host;
+`GraphSet.replay` adds `replay.<phase>` (device time, no profiler markers).
 
 Slot/step invariants (identical to the reference):
 - committed tokens occupy slots `[0, gtl)`; tree node i sits at slot
@@ -38,8 +40,14 @@ Slot/step invariants (identical to the reference):
 - the target verify forward has width `tree_size`; its rows (the root
   included) land in a scratch, and the main caches are read-only during
   grow and verify;
-- after acceptance, the accepted rows are committed to both main caches
-  and a width-1 draft forward on the bonus token seeds the next root.
+- grow runs a draft forward on every level but the last, whose leaves'
+  draft logits nothing reads (their rows stay 0);
+- after acceptance, the accepted target rows are committed from the
+  scratch, and one causal draft forward of width `max_depth + 1` over the
+  committed block `[gtl, gtl + max_depth + 1)` writes the draft K/V of
+  every accepted node and of the bonus into the main cache and seeds the
+  next root's logits; its padding rows land at slots >= the new committed
+  length.
 
 Tensor parallelism (`mesh=`, a (dp, tp) `DeviceMesh` of
 `parallel/sharding.py::make_mesh`), as in JAX: the caller passes the
@@ -213,6 +221,9 @@ class SpecEngine:
         self._level_widths = gm.level_widths
         self._level_starts = gm.level_starts
         self._level_max_k = [max(b) for b in gm.branches]
+        # Draft forwards an iteration: each grow level but the last, and the
+        # re-draft.
+        self._draft_forwards = max(gm.num_grow_steps - 1, 0) + 1
         # Scratch masks of each grow level (static: the root's draft K/V is
         # in the main cache, so scratch column 0 is dropped).
         self._grow_scr_masks = []
@@ -376,10 +387,14 @@ class SpecEngine:
         return samples.reshape(-1)[self._level_gather[level]]
 
     def _grow(self, state: DecodeState):
-        """Draft growth, level by level. Tree K/V rows go into the draft
-        scratch (slot i = node i); the main draft cache stays read-only.
-        The tree tokens are also written into `state.tokens` at their slots
-        (in place; slots past the committed prefix). Returns
+        """Draft growth, level by level. Each level but the last runs the
+        draft on its children, for the next level's logits: their K/V rows
+        go into the draft scratch (slot i = node i); the main draft cache
+        stays read-only. The last level's children are leaves, whose draft
+        logits no walk reads: it runs no forward and their rows stay 0
+        (`_finalize`'s re-draft writes an accepted leaf's K/V). The tree
+        tokens are also written into `state.tokens` at their slots (in
+        place; slots past the committed prefix). Returns
         `(tokens_tree, draft_logits)`."""
         dev, size = self.device, self.tree_size
         ts = state.gtl - 1
@@ -394,6 +409,7 @@ class SpecEngine:
             g_all = gumbel((total_rows, self.vocab), state.gen, dev)
         row_off = 0
         main_mask_row = (self._k_idx <= ts)[None, :]
+        last = self.growmap.num_grow_steps - 1
         for lvl in range(self.growmap.num_grow_steps):
             w, start = self._level_widths[lvl], self._level_starts[lvl]
             nr = len(self.growmap.roots[lvl])
@@ -405,6 +421,8 @@ class SpecEngine:
                 state.gen, lvl, draft_logits[self._level_roots[lvl]], g_rows)
             tokens_tree[start:start + w] = new_tokens
             state.tokens.index_copy_(0, ts + start + torch.arange(w, device=dev), new_tokens)
+            if lvl == last:
+                break
             positions = ts + self._depth[start:start + w]
             lvl_logits, _ = forward(
                 self.draft_params, self.draft_cfg, new_tokens, positions,
@@ -430,8 +448,9 @@ class SpecEngine:
 
     def _finalize(self, state: DecodeState, tokens_tree, draft_logits,
                   target_logits, live: torch.Tensor) -> StepStats:
-        """Accept walk, bonus token, commit of tokens and scratch rows, and
-        the width-1 re-draft of the new root; updates `state` in place.
+        """Accept walk, bonus token, commit of tokens and target scratch
+        rows, and the draft's re-draft of the committed block; updates
+        `state` in place.
         `live` (bool 0-d) false makes the iteration a no-op: nothing is
         emitted, `gtl`, the root logits and `terminal` keep their values, and
         every write lands at slots >= `gtl`."""
@@ -469,32 +488,32 @@ class SpecEngine:
         block = torch.where((ar == count) & has_bonus, bonus, block)
         state.tokens.index_copy_(0, gtl + ar, block)
 
-        # K/V commit, scratch rows -> main caches, in place. Target: fresh
+        # Target K/V commit, scratch rows -> main cache, in place: fresh
         # rows for the root and every accepted node go to [ts, ts+1+md)
         # (a no-op iteration writes them one slot later, from gtl on).
-        # Draft: the root is already in main (last re-draft); the accepted
-        # path goes to [gtl, gtl+md). Padding rows land at slots >= the new
-        # committed length and are rewritten before they are ever read.
         zero1 = torch.zeros(1, dtype=torch.long, device=dev)
         state.target_kv.commit_rows(self._tscratch, torch.cat([zero1, path_c]), ts + dead)
-        state.draft_kv.commit_rows(self._dscratch, path_c, gtl)
 
-        new_gtl = gtl + emitted
-        new_ts = new_gtl - 1
-        # The re-draft writes the new root's K/V at new_ts; a no-op
-        # iteration writes at gtl instead and keeps the old root logits.
-        slot = new_ts + dead
-        root_logits, _ = forward(
-            self.draft_params, self.draft_cfg, state.tokens.index_select(0, new_ts.reshape(1)),
-            new_ts.reshape(1), state.draft_kv, slot, (self._k_idx <= slot)[None, :],
-            tp=self._dtp,
+        # Draft re-draft: one causal forward over the committed block writes
+        # the K/V of every accepted node and of the bonus at [gtl, gtl+md+1)
+        # (the root's is in main from the last re-draft); the next root's
+        # logits are the last committed token's row. Padding rows land at
+        # slots >= the new committed length and are rewritten before they
+        # are ever read; an iteration that commits nothing keeps the old
+        # root logits.
+        pos = gtl + ar
+        redraft_logits, _ = forward(
+            self.draft_params, self.draft_cfg, block, pos, state.draft_kv, gtl,
+            self._k_idx[None, :] <= pos[:, None], tp=self._dtp,
         )
+        root_logits = at_index(redraft_logits, (emitted - 1).clamp_min(0))
         first = path.path[0]
         first_rank = torch.where(first >= 0, at_index(self._child_rank, first.clamp_min(0)),
                                  torch.full_like(first, -1))
-        state.root_draft_logits.copy_(torch.where(live, root_logits[0], state.root_draft_logits))
+        state.root_draft_logits.copy_(torch.where(emitted > 0, root_logits,
+                                                  state.root_draft_logits))
         state.terminal.copy_(state.terminal | (live & terminal))
-        state.gtl.copy_(new_gtl)
+        state.gtl.copy_(gtl + emitted)
         return StepStats(emitted=emitted, terminal=state.terminal, first_rank=first_rank)
 
     def _walk(self, tokens_tree, draft_logits, target_logits, r):
@@ -546,6 +565,7 @@ class SpecEngine:
 
     def iterate(self, state: DecodeState) -> StepStats:
         """One speculative iteration, in place on `state`, launched eagerly."""
+        trace.count("draft_forwards", self._draft_forwards)
         tokens_tree, draft_logits = self._grow(state)
         target_logits = self._verify(state, tokens_tree)
         return self._finalize(state, tokens_tree, draft_logits, target_logits, self._always)
@@ -594,6 +614,7 @@ class SpecEngine:
         """k predicated iterations: the captured phases replayed on the
         card, the same phases launched eagerly on the CPU."""
         with trace.span("block"):
+            trace.count("draft_forwards", k * self._draft_forwards)
             for _ in range(k):
                 if self._graphs is None:
                     tt, dl = self._grow(state)
@@ -638,6 +659,7 @@ class SpecEngine:
         Returns `(stats, {phase: seconds})`; the stats are rewritten by the
         next iteration. An iteration after a stop token is a no-op."""
         clock = trace.PhaseClock(self.device)
+        trace.count("draft_forwards", self._draft_forwards)
         if self._graphs is not None:
             self._ensure_graphs(state)
             for phase, name in (("draft_run", "grow"), ("target_run", "verify"),

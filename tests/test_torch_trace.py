@@ -93,6 +93,13 @@ def _parent(r, recs, names):
 @pytest.mark.parametrize("entry", ["stream_fast", "generate_fast"])
 def test_enable_nests_spans_one_request_id_each(models, entry):
     eng = _single(models)
+    iterations, finalize = [0], eng._finalize_counted
+
+    def counted(*args):
+        iterations[0] += 1
+        return finalize(*args)
+
+    eng._finalize_counted = counted
     with trace.enable():
         assert trace.on()
         for i, p in enumerate(PROMPTS[:2]):
@@ -115,7 +122,10 @@ def test_enable_nests_spans_one_request_id_each(models, entry):
     names = Counter(r.name for r in recs)
     assert names["prefill"] == 2 and names["host_read"] == names["block"] >= 2
     assert (names["chunk_out"] > 0) == (entry == "stream_fast")
-    assert trace.counters() == {"prefill_tokens": len(PROMPTS[0]) + len(PROMPTS[1])}
+    # uniform_tree(2, 2): the first grow level's forward and the re-draft
+    # an iteration, no-op ones of a block included
+    assert trace.counters() == {"prefill_tokens": len(PROMPTS[0]) + len(PROMPTS[1]),
+                                "draft_forwards": 2 * iterations[0]}
     for r in recs:   # the CPU's device clock is the host's
         assert (r.device_ms is not None) == (r.name == "prefill")
         assert r.host_ms > 0
