@@ -51,7 +51,7 @@ def main(argv=None) -> int:
         if i:
             bench.reseed(seed)
         win = bench.run_window(0.0, seed=seed, check_only=True)
-        r = readings(cell.config, seed, *samples(cell, win.served, seed), "cuda", controls)
+        r = readings(cell, seed, *samples(cell, win.served, seed), "cuda", controls)
         print(json.dumps({"workload": cell.name, "seed": seed, "fault": args.fault, **r,
                           "served": [len(s.tokens) for s in win.served],
                           "seconds": time.perf_counter() - t0}), flush=True)

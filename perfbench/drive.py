@@ -26,8 +26,8 @@ from sequoia_torch.kernels import build
 from sequoia_torch.quant.qtensor import set_w8a8
 from sequoia_torch.trees.growmap import GrowMap
 
-from . import gen, traffic, weights
-from .spec import Cell
+from . import traffic
+from .spec import ROLES, Cell
 from .trace import Tap, TraceSession
 
 
@@ -53,7 +53,8 @@ class Bench:
     def __init__(self, cell: Cell, seed: int, device="cuda"):
         self.cell, self.seed, self.device = cell, int(seed), torch.device(device)
         cfg, mix = cell.config, cell.traffic
-        self.dims = {r: gen.Dims.from_hf(cfg[r]) for r in ("draft", "target")}
+        self.dims = {r: m.dims for r, m in cell.models.items()}
+        self._programs = {r: m.program() for r, m in cell.models.items()}
         self.stop = [int(t) for t in cfg["stop_tokens"]]
         self.vocab = self.dims["target"].vocab
         self.batched = mix["kind"] == "batched"
@@ -61,9 +62,9 @@ class Bench:
         set_w8a8("off")
         if self.device.type == "cuda":
             build.load()
-        self.params = {r: weights.make(self.dims[r], cfg["weights"][r], self.seed, r,
-                                       self.device) for r in ("draft", "target")}
-        self.cfgs = {r: weights.llama_config(cfg[r], self.stop) for r in ("draft", "target")}
+        self.params = {r: self._programs[r].make(self.dims[r], cfg["weights"][r], self.seed, r,
+                                                 self.device) for r in ROLES}
+        self.cfgs = {r: self._programs[r].config(cfg[r], self.stop) for r in ROLES}
         tree = GrowMap.from_json(str(cell.tree_path))
         s = cfg["sampling"]
         kv = None if cfg["kv_cache"] == "bf16" else cfg["kv_cache"]
@@ -83,8 +84,8 @@ class Bench:
         """Draw another seed's weights into the same tensors (the captured
         graphs keep reading them)."""
         self.seed = int(seed)
-        for r in ("draft", "target"):
-            weights.fill(self.params[r], self.dims[r], self.seed, r)
+        for r in ROLES:
+            self._programs[r].fill(self.params[r], self.dims[r], self.seed, r)
 
     # ---- set-up ----
 

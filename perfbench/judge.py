@@ -2,9 +2,9 @@
 
 Once the window has closed and the program's state is freed, a sample of the
 requests the window finished, drawn from the seed, goes to the plain
-reference (`reference/llama.py`): one float32 forward of the target over
-each prompt with its served tokens. Two samples, each holding the longest
-request of its kind:
+reference of the target's family (`reference/<model_type>.py`): one float32
+forward of the target over each prompt with its served tokens. Two
+samples, each holding the longest request of its kind:
 
 - greedy requests: a greedy token is the target's best, so its gap below
   the reference's best logit at its position is rounding alone. Compared:
@@ -39,9 +39,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import gen
 from .drive import Served, short
-from .reference import llama
 from .reference.nucleus import token_stats
 
 
@@ -66,7 +64,7 @@ def samples(cell, served: Sequence[Served], seed: int):
             sample(served, False, int(check["sampled"]), seed))
 
 
-def readings(config: dict, seed: int, greedy: Sequence[Served], sampled: Sequence[Served],
+def readings(cell, seed: int, greedy: Sequence[Served], sampled: Sequence[Served],
              device, controls: Sequence[str] = ()) -> Dict[str, Optional[float]]:
     """Every number of the module doc for these samples, in logits (gaps),
     probability (excess) and standard deviations (z) of the float32
@@ -78,15 +76,15 @@ def readings(config: dict, seed: int, greedy: Sequence[Served], sampled: Sequenc
     picked = list(greedy) + list(sampled)
     if not picked:
         return out
-    dims = gen.Dims.from_hf(config["target"])
+    config, target = cell.config, cell.models["target"]
     formats = [config["weights"]["target"], *controls]
     seqs, rows = [], []
     for s in picked:
         p = np.asarray(s.request.prompt, np.int64)
         seqs.append(torch.as_tensor(np.concatenate([p, s.tokens[:-1]])))
         rows.append(torch.arange(len(p) - 1, len(p) - 1 + len(s.tokens)))
-    logits = llama.logits(dims, seed, "target", formats, seqs, rows, device,
-                          controls_over=len(greedy))
+    logits = target.reference().logits(target.dims, seed, "target", formats, seqs, rows,
+                                       device, controls_over=len(greedy))
     if greedy:
         gaps = [[] for _ in formats]
         for i, s in enumerate(greedy):
@@ -120,7 +118,7 @@ def judge(cell, seed: int, win, stop, device) -> dict:
     lim = {k: v for k, v in cell.limits.items() if isinstance(v, dict) and "limit" in v}
     values = {"short_requests": sum(short(s, stop) for s in win.served)}
     if any(k != "short_requests" for k in lim):
-        values.update(readings(cell.config, seed, *samples(cell, win.served, seed), device))
+        values.update(readings(cell, seed, *samples(cell, win.served, seed), device))
     unknown = set(lim) - set(values)
     if unknown:
         raise KeyError(f"limits of {cell.name} name unknown numbers {sorted(unknown)}")

@@ -3,10 +3,11 @@
 Kernels: every launch whose name holds `tree_attention` (the single and
 batched kernels of `csrc/tree_attention.cu` and
 `csrc/tree_attention_batched_sm90.cu`, their split-K merge included). Work:
-each forward call the traffic needed (`perfbench/work.py`), one launch a
-layer: 4 H D flops a query-key pair (scores and values), and the bytes of
-the queries, the output and each distinct K and V row read once. Over a
-bf16 cache only: another cache format returns nothing.
+each forward call the traffic needed (`perfbench/work.py`), its attention's
+flops and bytes a launch as the model's family counts them
+(`families/<model_type>.py::attention`: the flops of every query-key pair,
+and the bytes of the queries, the output and each distinct cache row read
+once). Over a bf16 cache only: another cache format returns nothing.
 """
 
 from perfbench.metrics._roofline import bound_s
@@ -15,12 +16,8 @@ from perfbench.trace import kernel_seconds
 PATTERNS = ("tree_attention",)
 
 
-def flops(call, d) -> float:
-    return 4.0 * d.heads * d.head_dim * call.keys
-
-
-def nbytes(call, d) -> float:
-    return 2.0 * (2 * call.rows * d.heads * d.head_dim + 2 * call.kv_rows * d.kv_heads * d.head_dim)
+def call_bound(call, d) -> float:
+    return sum(n * bound_s(f, b) for f, b, n in d.attention(call))
 
 
 def read(run):
@@ -29,7 +26,4 @@ def read(run):
     t = kernel_seconds(run.kernels, PATTERNS)
     if not t or not run.calls:
         return None
-    bound = sum(run.dims[c.model].layers * bound_s(flops(c, run.dims[c.model]),
-                                                   nbytes(c, run.dims[c.model]))
-                for c in run.calls)
-    return 100.0 * bound / t
+    return 100.0 * sum(call_bound(c, run.dims[c.model]) for c in run.calls) / t

@@ -1,14 +1,14 @@
-"""The int8 weight-only projections' share of their roofline (the target's
-seven projections a layer and its head).
+"""The int8 weight-only matrix products' share of their roofline: the
+target's weight matrices as its family lists them
+(`families/<model_type>.py::matmuls`), the head's among them.
 
 Kernels: every launch whose name holds `qmm8_sm90`
 (`csrc/quant_matmul_int8_sm90.cu`). Work: each target forward call's rows
-through each projection `[K, N]`: 2 R K N flops, and the int8 weight, its f32
+through each matrix `[K, N]`: 2 R K N flops, and the int8 weight, its f32
 column scales, the bf16 input and the output (bf16; f32 for the head's
 logits) once. Only where the target is served int8.
 """
 
-from perfbench.gen import PROJECTIONS
 from perfbench.metrics._roofline import bound_s
 from perfbench.trace import kernel_seconds
 
@@ -20,8 +20,8 @@ def launch_bound(rows: int, K: int, N: int, out_bytes: int = 2) -> float:
 
 
 def call_bound(call, d) -> float:
-    layer = sum(launch_bound(call.rows, *d.shape(n)) for n in PROJECTIONS)
-    return d.layers * layer + launch_bound(call.rows, d.hidden, d.vocab, out_bytes=4)
+    return sum(n * sum(launch_bound(call.rows, K, N, ob) for K, N, ob in shapes)
+               for n, shapes in d.matmuls())
 
 
 def read(run):

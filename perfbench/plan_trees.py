@@ -46,19 +46,23 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from perfbench import gen, traffic, weights
+    from perfbench import traffic
+    from perfbench.spec import ROLES, models
     from sequoia_torch.planner.acceptance import static_acceptance
     from sequoia_torch.planner.dp import plan
     from sequoia_torch.planner.profile import measure_latency_curve
     from sequoia_torch.quant.qtensor import set_w8a8
 
-    cfg = json.loads((ROOT / "perfbench" / "configs" / f"{args.config}.json").read_text())
+    path = ROOT / "perfbench" / "configs" / f"{args.config}.json"
+    cfg = json.loads(path.read_text())
     set_w8a8("off")
-    dims = {r: gen.Dims.from_hf(cfg[r]) for r in ("draft", "target")}
+    blocks = models(cfg, path)
+    dims = {r: m.dims for r, m in blocks.items()}
+    programs = {r: m.program() for r, m in blocks.items()}
     stop = cfg["stop_tokens"]
-    params = {r: weights.make(dims[r], cfg["weights"][r], args.seed, r, "cuda")
-              for r in ("draft", "target")}
-    cfgs = {r: weights.llama_config(cfg[r], stop) for r in ("draft", "target")}
+    params = {r: programs[r].make(dims[r], cfg["weights"][r], args.seed, r, "cuda")
+              for r in ROLES}
+    cfgs = {r: programs[r].config(cfg[r], stop) for r in ROLES}
     rng = np.random.default_rng([args.seed, 5])
     seqs = [traffic.prompt_tokens(rng, args.length, dims["target"].vocab, stop)
             for _ in range(args.sequences)]

@@ -1,4 +1,5 @@
-"""The program's weights, made on the device from the run's seed.
+"""The Llama family in the program: the port's config of a block, and its
+weights, made on the device from the run's seed.
 
 Each tensor comes from `gen.py`, layer by layer, and goes into the port's
 stacked `LlamaParams` as it is served: bf16 as drawn, or int8 weight-only
@@ -18,15 +19,16 @@ from sequoia_torch.core.config import LlamaConfig
 from sequoia_torch.core.model import LayerParams, LlamaParams
 from sequoia_torch.quant.qtensor import QuantizedTensor, quantize_int8
 
-from . import gen
+from perfbench import gen
+from perfbench.families.llama import PROJECTIONS, Dims
 
 
-def llama_config(hf: dict, stop_tokens) -> LlamaConfig:
+def config(hf: dict, stop_tokens) -> LlamaConfig:
     """The port's config of one model, read through its HF reader."""
     return dataclasses.replace(LlamaConfig.from_hf_dict(hf), stop_tokens=tuple(stop_tokens))
 
 
-def _empty(dims: gen.Dims, fmt: str, device) -> LlamaParams:
+def _empty(dims: Dims, fmt: str, device) -> LlamaParams:
     L, E, V = dims.layers, dims.hidden, dims.vocab
 
     def stack(leaf):
@@ -60,10 +62,10 @@ def _put(dst, w: torch.Tensor) -> None:
         dst.copy_(w)
 
 
-def fill(params: LlamaParams, dims: gen.Dims, seed: int, role: str) -> None:
+def fill(params: LlamaParams, dims: Dims, seed: int, role: str) -> None:
     """Draw seed `seed`'s weights of model `role` into `params`, in place."""
     dev = params.embed.device
-    for leaf in gen.PROJECTIONS:
+    for leaf in PROJECTIONS:
         stack = getattr(params.layers, leaf)
         for i in range(dims.layers):
             w = gen.projection(dims, seed, role, leaf, i, dev)
@@ -73,7 +75,7 @@ def fill(params: LlamaParams, dims: gen.Dims, seed: int, role: str) -> None:
     _put(params.lm_head, gen.head(dims, seed, role, dev))
 
 
-def make(dims: gen.Dims, fmt: str, seed: int, role: str, device) -> LlamaParams:
+def make(dims: Dims, fmt: str, seed: int, role: str, device) -> LlamaParams:
     """Model `role`'s params in format `fmt` ("bf16" or "int8")."""
     if fmt not in ("bf16", "int8"):
         raise ValueError(f"weight format {fmt!r}: the benchmark serves bf16 or int8")

@@ -1,4 +1,4 @@
-"""The plain reference: a Llama-architecture forward in float32.
+"""The plain reference of the Llama family: its forward in float32.
 
 It follows the published architecture of the benchmark's models (Llama:
 RMSNorm, rotary position embedding in the rotate-half convention, grouped
@@ -19,8 +19,9 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from .. import gen
-from .quant import as_served
+from perfbench import gen
+from perfbench.families.llama import PROJECTIONS, Dims
+from perfbench.reference.quant import as_served
 
 
 def no_tf32() -> None:
@@ -60,7 +61,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     return out
 
 
-def layer(h: torch.Tensor, w: Dict[str, torch.Tensor], dims: gen.Dims) -> torch.Tensor:
+def layer(h: torch.Tensor, w: Dict[str, torch.Tensor], dims: Dims) -> torch.Tensor:
     """One decoder layer over one sequence's hidden states `[T, E]`; norm
     weights are one."""
     T = h.shape[0]
@@ -74,7 +75,7 @@ def layer(h: torch.Tensor, w: Dict[str, torch.Tensor], dims: gen.Dims) -> torch.
     return h + (torch.nn.functional.silu(y @ w["w_gate"]) * (y @ w["w_up"])) @ w["w_down"]
 
 
-def logits(dims: gen.Dims, seed: int, role: str, formats: Sequence[str],
+def logits(dims: Dims, seed: int, role: str, formats: Sequence[str],
            sequences: Sequence[torch.Tensor], rows: Sequence[torch.Tensor],
            device, controls_over: Optional[int] = None) -> List[List[torch.Tensor]]:
     """The head's logits `[len(rows[i]), V]` f32 at positions `rows[i]` of each
@@ -91,7 +92,7 @@ def logits(dims: gen.Dims, seed: int, role: str, formats: Sequence[str],
                for f in range(len(formats))]
     del embed
     for i in range(dims.layers):
-        raw = {n: gen.projection(dims, seed, role, n, i, device) for n in gen.PROJECTIONS}
+        raw = {n: gen.projection(dims, seed, role, n, i, device) for n in PROJECTIONS}
         for f, fmt in enumerate(formats):
             w = {n: as_served(t, fmt) for n, t in raw.items()}
             streams[f] = [layer(h, w, dims) for h in streams[f]]

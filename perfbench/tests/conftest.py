@@ -1,6 +1,7 @@
 """Fixtures of the benchmark's own tests: a tiny benchmark in a temporary
-folder (two tiny configurations, each traffic kind, trees, limits and the
-real metric readers), and the card for the tests marked `cuda`.
+folder (two tiny configurations, each traffic kind, trees, limits, and the
+real metric readers and model families), and the card for the tests marked
+`cuda`.
 
     python -m pytest perfbench/tests -q
 """
@@ -38,7 +39,7 @@ def _few_threads():
 
 
 def _hf(E, F, L, H, KV, V=512):
-    return {"hidden_size": E, "intermediate_size": F, "num_hidden_layers": L,
+    return {"model_type": "llama", "hidden_size": E, "intermediate_size": F, "num_hidden_layers": L,
             "num_attention_heads": H, "num_key_value_heads": KV, "vocab_size": V,
             "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "max_position_embeddings": 512,
             "tie_word_embeddings": False}
@@ -53,7 +54,8 @@ def make_tiny(base: Path) -> Path:
 
     for d in ("configs", "traffic", "trees", "limits"):
         (base / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(ROOT / "perfbench" / "metrics", base / "metrics", dirs_exist_ok=True)
+    for d in ("metrics", "families", "reference", "program"):
+        shutil.copytree(ROOT / "perfbench" / d, base / d, dirs_exist_ok=True)
     for name, fmt, control in (("tiny", "bf16", "fp8"), ("tiny8", "int8", "int4")):
         cfg = {"name": name, "source": "test", "target": _hf(128, 256, 2, 4, 2),
                "draft": _hf(32, 64, 2, 2, 1), "weights": {"target": fmt, "draft": "bf16"},

@@ -21,7 +21,7 @@ from perfbench.spec import load_cell
 def _read(cell, bench, seed, device):
     win = bench.run_window(0.0, seed=seed, check_only=True)
     control = cell.config["control_weights"]
-    r = readings(cell.config, seed, *samples(cell, win.served, seed), device, [control])
+    r = readings(cell, seed, *samples(cell, win.served, seed), device, [control])
     return r, r[f"control_gap_max.{control}"], r[f"control_gap_mean.{control}"]
 
 

@@ -1,10 +1,12 @@
 """The benchmark stands apart: nothing under perfbench/ imports JAX or the
-JAX package, and the reference imports nothing of the program, directly or
-through a module of the benchmark it imports. Names are compared whole, by
-their top-level part."""
+JAX package, and the reference and the model families' widths import
+nothing of the program, directly or through a module of the benchmark they
+import. Names are compared whole, by their top-level part."""
 
 import ast
 from pathlib import Path
+
+import pytest
 
 from perfbench.run import forbidden_modules
 
@@ -20,15 +22,16 @@ def _imports(path: Path):
                 yield a.name.split(".")[0], 0, a.name
         elif isinstance(node, ast.ImportFrom):
             mod = node.module or ""
-            yield (mod.split(".")[0] if node.level == 0 else None), node.level, mod
-            if node.level:
-                for a in node.names:   # `from .. import gen`
-                    yield None, node.level, f"{mod}.{a.name}".strip(".")
+            top = mod.split(".")[0] if node.level == 0 else None
+            yield top, node.level, mod
+            for a in node.names:   # `from .. import gen`, `from perfbench import gen`
+                yield top, node.level, f"{mod}.{a.name}".strip(".")
 
 
 def _files():
     files = sorted(HERE.rglob("*.py"))
     assert HERE / "run.py" in files and HERE / "reference" / "llama.py" in files
+    assert HERE / "families" / "llama.py" in files and HERE / "program" / "llama.py" in files
     return files
 
 
@@ -67,13 +70,26 @@ def _reaches_program(path: Path, seen) -> list:
     return bad
 
 
-def test_reference_imports_nothing_of_the_program():
+@pytest.mark.parametrize("folder", ["reference", "families"])
+def test_reference_imports_nothing_of_the_program(folder):
+    """The plain references, and the families' widths and work counts."""
     seen = set()
     bad = []
-    for p in sorted((HERE / "reference").rglob("*.py")):
+    for p in sorted((HERE / folder).rglob("*.py")):
         bad += _reaches_program(p, seen)
     assert not bad, bad
-    assert HERE / "gen.py" in seen   # it does read the benchmark's weights
+    if folder == "reference":
+        assert HERE / "gen.py" in seen   # it does read the benchmark's weights
+        assert HERE / "families" / "llama.py" in seen
+
+
+def test_the_check_follows_imports_into_the_program(tmp_path):
+    """`from perfbench import <module>` is followed, and a module that
+    reaches the program through it is caught."""
+    assert _reaches_program(HERE / "program" / "llama.py", set())
+    f = tmp_path / "x.py"
+    f.write_text("from perfbench import drive\n")
+    assert (str(HERE / "drive.py"), "sequoia_torch.engine.batched") in _reaches_program(f, set())
 
 
 def test_whole_names_not_prefixes():

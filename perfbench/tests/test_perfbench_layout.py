@@ -1,6 +1,8 @@
 """The benchmark is driven by data: BENCHMARK.json keeps to its contract,
-every file a cell names is there, and a new configuration, traffic mix,
-tree and per-layer metric are found by name from new files alone."""
+every file a cell names is there, every model block names a family whose
+files are there, and a new configuration, traffic mix, tree and per-layer
+metric are found by name from new files alone (a new family:
+`test_perfbench_families.py`)."""
 
 import json
 import re
@@ -49,6 +51,19 @@ def test_benchmark_json_keeps_to_the_contract():
         assert all(m["moves"] in reported for m in cell.per_layer)
     for c in b["configs"]:
         assert any(w["config"] == c["name"] for w in cells.values())
+
+
+def test_every_block_names_a_family_with_its_files():
+    b = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for c in b["configs"]:
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        for role in spec.ROLES:
+            family = cfg[role]["model_type"]
+            for folder in spec.FAMILY_FILES:
+                assert (ROOT / "perfbench" / folder / f"{family}.py").exists(), (c, role)
+        found = spec.models(cfg, ROOT / c["file"])
+        assert {r: m.family for r, m in found.items()} == {
+            r: cfg[r]["model_type"] for r in spec.ROLES}
 
 
 def test_a_new_cell_is_new_files_and_entries(tiny, tmp_path):

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from perfbench import gen
+from perfbench.families.llama import Dims
 from perfbench.reference import llama
 from perfbench.reference.quant import as_served
 
@@ -59,8 +60,8 @@ def test_quant_rule_by_hand():
 def test_logits_of_a_model_whose_layers_add_nothing(monkeypatch):
     """With every projection zero the hidden state is the embedding, so the
     logits are rms_norm(embedding row) @ head."""
-    dims = gen.Dims(vocab=16, hidden=8, intermediate=8, layers=2, heads=2, kv_heads=1,
-                    head_dim=4, rope_theta=1e4, eps=1e-5, tied=False)
+    dims = Dims(vocab=16, hidden=8, intermediate=8, layers=2, heads=2, kv_heads=1,
+                head_dim=4, rope_theta=1e4, eps=1e-5, tied=False)
     real = gen.projection
     monkeypatch.setattr(gen, "projection",
                         lambda d, s, r, leaf, i, device="cpu": real(d, s, r, leaf, i, device) * 0)
@@ -73,8 +74,8 @@ def test_logits_of_a_model_whose_layers_add_nothing(monkeypatch):
 
 
 def test_weights_are_the_same_for_a_seed_and_differ_across_seeds():
-    dims = gen.Dims(vocab=16, hidden=8, intermediate=8, layers=2, heads=2, kv_heads=1,
-                    head_dim=4, rope_theta=1e4, eps=1e-5, tied=True)
+    dims = Dims(vocab=16, hidden=8, intermediate=8, layers=2, heads=2, kv_heads=1,
+                head_dim=4, rope_theta=1e4, eps=1e-5, tied=True)
     a = gen.projection(dims, 2**31 + 5, "draft", "wq", 1)
     assert torch.equal(a, gen.projection(dims, 2**31 + 5, "draft", "wq", 1))
     assert not torch.equal(a, gen.projection(dims, 2**31 + 6, "draft", "wq", 1))

@@ -5,15 +5,16 @@ import types
 
 import pytest
 
-from perfbench import gen, work
+from perfbench import work
+from perfbench.families import llama
 from perfbench.metrics import _roofline
 from perfbench.spec import metric_reader
 from perfbench.trace import idle_gaps, kernel_seconds, label_gaps, top_ops, union_seconds
 
 # A chain of 3 nodes below the root: levels of width 1, 1 at depths 1, 2.
 CHAIN = work.Tree(size=3, depth=[0, 1, 2], widths=[1, 1], starts=[1, 2])
-DIMS = gen.Dims(vocab=100, hidden=8, intermediate=16, layers=2, heads=2, kv_heads=1,
-                head_dim=4, rope_theta=1e4, eps=1e-5, tied=False)
+DIMS = llama.Dims(vocab=100, hidden=8, intermediate=16, layers=2, heads=2, kv_heads=1,
+                  head_dim=4, rope_theta=1e4, eps=1e-5, tied=False)
 
 
 def test_chunk_and_prefill_calls():
@@ -79,7 +80,7 @@ def test_qmm_roofline_and_mfu_by_hand():
     call = work.Call("target", rows=2, keys=10, kv_rows=5)
     per_layer = sum(max(2 * 2 * K * N / 989e12,
                         (K * N + 4 * N + 2 * 2 * K + 2 * 2 * N) / 3.35e12)
-                    for K, N in (DIMS.shape(n) for n in gen.PROJECTIONS))
+                    for K, N in (DIMS.shape(n) for n in llama.PROJECTIONS))
     head = max(2 * 2 * 8 * 100 / 989e12, (800 + 400 + 32 + 800) / 3.35e12)
     bound = 2 * per_layer + head
     kernels = [("void qmm8_sm90<false,1,64>", 0.0, 4 * bound)]
